@@ -1,0 +1,424 @@
+"""ADM UNet and noisy classifier (NCHW), with layer masking.
+
+Port of autodiffusion_tpu/models/unet.py. The module tree and parameter
+names are guided-diffusion's own (guided_diffusion/unet.py: ``time_embed``,
+``label_emb``, ``input_blocks.N.M``, ``middle_block``, ``output_blocks``,
+``out``), so a published ``.pt`` loads with ``load_state_dict``.
+
+Every prunable block (ResBlock / AttentionBlock) has a ``layer_id`` in
+construction order, the numbering of Dynamic_UNetModel
+(dynamic_unet.py:507-655): 58 ids for ADM-64. ``keep_mask`` ([L] for the
+whole batch or [B, L] per sample, candidates folded into the batch)
+multiplies each block's residual branch, so a skipped block is exactly the
+reference's short-circuit.
+
+Self-attention goes through ``ops.flash_attention`` at every site: the
+hand-written kernels on the card, their plain twin on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import flash_attention
+from .nn import (Downsample, GroupNorm32, Upsample, conv1x1, conv2d,
+                 linear, timestep_embedding)
+
+__all__ = ["ResBlock", "AttentionBlock", "AttentionPool2d", "UNetModel",
+           "EncoderUNetModel", "unet_layer_count"]
+
+
+def _apply_keep(h: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """h * keep, keep a scalar or [B] factor (None keeps)."""
+    if keep is None:
+        return h
+    keep = keep.to(h.dtype)
+    return h * keep.reshape(keep.shape + (1,) * (h.dim() - keep.dim()))
+
+
+def _keep_factor(keep_mask: Optional[torch.Tensor], layer_id: int):
+    if keep_mask is None:
+        return None
+    return keep_mask[:, layer_id] if keep_mask.dim() == 2 \
+        else keep_mask[layer_id]
+
+
+class ResBlock(nn.Module):
+    """Residual block with FiLM (scale-shift) timestep conditioning
+    (guided_diffusion/unet.py:143-256)."""
+
+    def __init__(self, channels: int, emb_channels: int, dropout: float,
+                 out_channels: Optional[int] = None,
+                 use_conv: bool = False, use_scale_shift_norm: bool = True,
+                 up: bool = False, down: bool = False):
+        super().__init__()
+        self.out_channels = out_channels or channels
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.in_layers = nn.Sequential(
+            GroupNorm32(channels), nn.SiLU(),
+            nn.Conv2d(channels, self.out_channels, 3, padding=1))
+        self.updown = up or down
+        if up:
+            self.h_upd = Upsample(channels, False)
+            self.x_upd = Upsample(channels, False)
+        elif down:
+            self.h_upd = Downsample(channels, False)
+            self.x_upd = Downsample(channels, False)
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(),
+            nn.Linear(emb_channels, 2 * self.out_channels
+                      if use_scale_shift_norm else self.out_channels))
+        self.out_layers = nn.Sequential(
+            GroupNorm32(self.out_channels), nn.SiLU(), nn.Dropout(dropout),
+            nn.Conv2d(self.out_channels, self.out_channels, 3, padding=1))
+        if self.out_channels == channels:
+            self.skip_connection = nn.Identity()
+        elif use_conv:
+            self.skip_connection = nn.Conv2d(channels, self.out_channels, 3,
+                                             padding=1)
+        else:
+            self.skip_connection = nn.Conv2d(channels, self.out_channels, 1)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.in_layers[0](x, act="silu")
+        if self.updown:
+            h = self.h_upd(h)
+            x = self.x_upd(x)
+        h = conv2d(self.in_layers[2], h)
+        emb_out = linear(self.emb_layers[1], F.silu(emb))
+        norm, conv = self.out_layers[0], self.out_layers[3]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = norm(h, scale=scale, shift=shift, act="silu")
+        else:
+            h = norm(h + emb_out[:, :, None, None], act="silu")
+        h = conv2d(conv, self.out_layers[2](h))
+        skip = x if isinstance(self.skip_connection, nn.Identity) \
+            else conv2d(self.skip_connection, x)
+        return skip + _apply_keep(h, keep)
+
+
+class AttentionBlock(nn.Module):
+    """Spatial self-attention with residual (guided_diffusion/unet.py:
+    259-393). ``use_new_attention_order`` selects QKVAttention ([q|k|v]
+    blocks, heads inside each) or QKVAttentionLegacy (heads outermost,
+    [q|k|v] inside each head)."""
+
+    def __init__(self, channels: int, num_heads: int = 1,
+                 num_head_channels: int = -1,
+                 use_new_attention_order: bool = False):
+        super().__init__()
+        if num_head_channels == -1:
+            self.num_heads = num_heads
+        else:
+            if channels % num_head_channels:
+                raise ValueError(f"channels {channels} not divisible by "
+                                 f"head channels {num_head_channels}")
+            self.num_heads = channels // num_head_channels
+        self.new_order = use_new_attention_order
+        self.norm = GroupNorm32(channels)
+        self.qkv = nn.Conv1d(channels, channels * 3, 1)
+        self.proj_out = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, c = x.shape[:2]
+        xf = x.reshape(b, c, -1)
+        t = xf.shape[-1]
+        heads, hd = self.num_heads, c // self.num_heads
+        qkv = conv1x1(self.qkv, self.norm(xf))                   # [b, 3c, t]
+        if self.new_order:
+            q, k, v = (z.reshape(b * heads, hd, t) for z in qkv.chunk(3, 1))
+        else:
+            q, k, v = qkv.reshape(b * heads, 3 * hd, t).split(hd, dim=1)
+        # [b*heads, t, hd] contiguous, the kernels' layout
+        q, k, v = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        a = flash_attention(q, k, v)                               # [bh, t, hd]
+        a = a.transpose(1, 2).reshape(b, c, t)
+        a = conv1x1(self.proj_out, a)
+        return x + _apply_keep(a, keep).reshape(x.shape)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling head of the classifier
+    (guided_diffusion/unet.py:19-68). Plain PyTorch: T = HW + 1 tokens."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int,
+                 num_heads_channels: int, output_dim: Optional[int] = None):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spacial_dim ** 2 + 1) / embed_dim ** 0.5)
+        self.qkv_proj = nn.Conv1d(embed_dim, 3 * embed_dim, 1)
+        self.c_proj = nn.Conv1d(embed_dim, output_dim or embed_dim, 1)
+        self.num_heads = embed_dim // num_heads_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        xf = x.reshape(b, c, -1)
+        xf = torch.cat([xf.mean(dim=-1, keepdim=True), xf], dim=-1)
+        xf = xf + self.positional_embedding[None].to(xf.dtype)
+        qkv = conv1x1(self.qkv_proj, xf)
+        heads, hd = self.num_heads, c // self.num_heads
+        t = qkv.shape[-1]
+        q, k, v = (z.reshape(b, heads, hd, t) for z in qkv.chunk(3, dim=1))
+        scale = 1.0 / hd ** 0.25
+        logits = torch.einsum("bhct,bhcs->bhts", q.float() * scale,
+                              k.float() * scale)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        a = torch.einsum("bhts,bhcs->bhct", w, v).reshape(b, c, t)
+        return conv1x1(self.c_proj, a)[:, :, 0]
+
+
+def unet_layer_count(num_res_blocks: int, channel_mult: Sequence[float],
+                     attention_ds: Sequence[int], resblock_updown: bool) -> int:
+    """Total prunable layers, Dynamic_UNetModel's counter (58 for ADM-64)."""
+    n = 0
+    ds = 1
+    for level in range(len(channel_mult)):
+        for _ in range(num_res_blocks):
+            n += 1
+            if ds in attention_ds:
+                n += 1
+        if level != len(channel_mult) - 1:
+            if resblock_updown:
+                n += 1
+            ds *= 2
+    n += 3  # middle: ResBlock, Attention, ResBlock
+    for level in list(range(len(channel_mult)))[::-1]:
+        for i in range(num_res_blocks + 1):
+            n += 1
+            if ds in attention_ds:
+                n += 1
+            if level and i == num_res_blocks:
+                if resblock_updown:
+                    n += 1
+                ds //= 2
+    return n
+
+
+class _Blocks(nn.ModuleList):
+    """TimestepEmbedSequential's role: a list of blocks, each with the
+    layer id it answers to in a keep mask (None: not prunable)."""
+
+    def __init__(self, *mods):
+        super().__init__(mods)
+        self.layer_ids: List[Optional[int]] = [None] * len(mods)
+
+    def run(self, h, emb, keep_mask):
+        for mod, lid in zip(self, self.layer_ids):
+            keep = None if lid is None else _keep_factor(keep_mask, lid)
+            if isinstance(mod, ResBlock):
+                h = mod(h, emb, keep)
+            elif isinstance(mod, AttentionBlock):
+                h = mod(h, keep)
+            else:
+                h = conv2d(mod, h) if isinstance(mod, nn.Conv2d) else mod(h)
+        return h
+
+
+class _Trunk(nn.Module):
+    """Timestep embedding, input blocks and middle block: the part the UNet
+    and the encoder classifier share (same construction, same names)."""
+
+    def _build_trunk(self, in_channels, model_channels, num_res_blocks,
+                     attention_ds, dropout, channel_mult, conv_resample,
+                     num_heads, num_head_channels, use_scale_shift_norm,
+                     resblock_updown, use_new_attention_order):
+        self.model_channels = model_channels
+        self.num_res_blocks = num_res_blocks
+        self.attention_ds = tuple(attention_ds)
+        self.channel_mult = tuple(channel_mult)
+        self.resblock_updown = resblock_updown
+        ted = model_channels * 4
+        self.time_embed = nn.Sequential(nn.Linear(model_channels, ted),
+                                        nn.SiLU(), nn.Linear(ted, ted))
+        self._lid = 0
+
+        def attn(ch):
+            return AttentionBlock(ch, num_heads=num_heads,
+                                  num_head_channels=num_head_channels,
+                                  use_new_attention_order=use_new_attention_order)
+
+        def res(ch, out, up=False, down=False):
+            return ResBlock(ch, ted, dropout, out_channels=out,
+                            use_scale_shift_norm=use_scale_shift_norm,
+                            up=up, down=down)
+
+        self._attn, self._res = attn, res
+        ch = int(channel_mult[0] * model_channels)
+        self.input_blocks = nn.ModuleList(
+            [_Blocks(nn.Conv2d(in_channels, ch, 3, padding=1))])
+        chans = [ch]
+        ds = 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                out = int(mult * model_channels)
+                blk = self._blocks(res(ch, out))
+                ch = out
+                if ds in attention_ds:
+                    self._append(blk, attn(ch))
+                self.input_blocks.append(blk)
+                chans.append(ch)
+            if level != len(channel_mult) - 1:
+                if resblock_updown:
+                    blk = self._blocks(res(ch, ch, down=True))
+                else:
+                    blk = _Blocks(Downsample(ch, conv_resample))
+                self.input_blocks.append(blk)
+                chans.append(ch)
+                ds *= 2
+        self.middle_block = self._blocks(res(ch, ch))
+        self._append(self.middle_block, attn(ch))
+        self._append(self.middle_block, res(ch, ch))
+        return ch, ds, chans
+
+    def _blocks(self, mod) -> _Blocks:
+        blk = _Blocks()
+        self._append(blk, mod)
+        return blk
+
+    def _append(self, blk: _Blocks, mod) -> None:
+        blk.append(mod)
+        prunable = isinstance(mod, (ResBlock, AttentionBlock))
+        blk.layer_ids.append(self._lid if prunable else None)
+        self._lid += prunable
+
+    def _embed(self, timesteps, dtype):
+        emb = timestep_embedding(timesteps, self.model_channels).to(dtype)
+        emb = linear(self.time_embed[0], emb)
+        return linear(self.time_embed[2], F.silu(emb))
+
+
+class UNetModel(_Trunk):
+    """The ADM UNet (guided_diffusion/unet.py:396-665) with layer masking.
+
+    forward(x [B, C, H, W], timesteps [B], y [B] or None, keep_mask [L] or
+    [B, L] or None) -> [B, out_channels, H, W] float32. Computes in
+    ``dtype`` (bfloat16 under ``use_bf16``); the final conv runs in float32
+    as in the JAX model."""
+
+    def __init__(self, in_channels: int, model_channels: int,
+                 out_channels: int, num_res_blocks: int,
+                 attention_ds: Sequence[int] = (2, 4, 8),
+                 dropout: float = 0.0,
+                 channel_mult: Sequence[float] = (1, 2, 3, 4),
+                 conv_resample: bool = True,
+                 num_classes: Optional[int] = None,
+                 num_heads: int = 1, num_head_channels: int = -1,
+                 num_heads_upsample: int = -1,
+                 use_scale_shift_norm: bool = True,
+                 resblock_updown: bool = True,
+                 use_new_attention_order: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.dtype = dtype
+        ted = model_channels * 4
+        if num_classes is not None:
+            self.label_emb = nn.Embedding(num_classes, ted)
+        ch, ds, chans = self._build_trunk(
+            in_channels, model_channels, num_res_blocks, attention_ds,
+            dropout, channel_mult, conv_resample, num_heads,
+            num_head_channels, use_scale_shift_norm, resblock_updown,
+            use_new_attention_order)
+        heads_up = num_heads if num_heads_upsample == -1 \
+            else num_heads_upsample
+        self.output_blocks = nn.ModuleList()
+        for level, mult in list(enumerate(channel_mult))[::-1]:
+            for i in range(num_res_blocks + 1):
+                ich = chans.pop()
+                out = int(mult * model_channels)
+                blk = self._blocks(self._res(ch + ich, out))
+                ch = out
+                if ds in attention_ds:
+                    self._append(blk, AttentionBlock(
+                        ch, num_heads=heads_up,
+                        num_head_channels=num_head_channels,
+                        use_new_attention_order=use_new_attention_order))
+                if level and i == num_res_blocks:
+                    if resblock_updown:
+                        self._append(blk, self._res(ch, ch, up=True))
+                    else:
+                        blk.append(Upsample(ch, conv_resample))
+                        blk.layer_ids.append(None)
+                    ds //= 2
+                self.output_blocks.append(blk)
+        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
+                                 nn.Conv2d(ch, out_channels, 3, padding=1))
+        self.layer_num = self._lid
+        expected = unet_layer_count(num_res_blocks, channel_mult,
+                                    attention_ds, resblock_updown)
+        if self.layer_num != expected:
+            raise AssertionError((self.layer_num, expected))
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                y: Optional[torch.Tensor] = None,
+                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if (y is not None) != (self.num_classes is not None):
+            raise ValueError("must specify y exactly when the model is "
+                             "class-conditional")
+        if keep_mask is not None and keep_mask.shape[-1] != self.layer_num:
+            raise ValueError(f"keep_mask must have length {self.layer_num}, "
+                             f"got {tuple(keep_mask.shape)}")
+        emb = self._embed(timesteps, self.dtype)
+        if y is not None:
+            emb = emb + self.label_emb.weight.to(self.dtype)[y]
+        h = x.to(self.dtype)
+        hs = []
+        for blk in self.input_blocks:
+            h = blk.run(h, emb, keep_mask)
+            hs.append(h)
+        h = self.middle_block.run(h, emb, keep_mask)
+        for blk in self.output_blocks:
+            h = blk.run(torch.cat([h, hs.pop()], dim=1), emb, keep_mask)
+        h = self.out[0](h, act="silu")
+        return conv2d(self.out[2], h.float())
+
+
+class EncoderUNetModel(_Trunk):
+    """Half-UNet noisy classifier (guided_diffusion/unet.py:685-896) with
+    attention pooling, the ADM classifier's head. forward(x, timesteps) ->
+    logits [B, out_channels] float32."""
+
+    def __init__(self, image_size: int, in_channels: int,
+                 model_channels: int, out_channels: int,
+                 num_res_blocks: int, attention_ds: Sequence[int] = (2, 4, 8),
+                 dropout: float = 0.0,
+                 channel_mult: Sequence[float] = (1, 2, 3, 4),
+                 conv_resample: bool = True, num_heads: int = 1,
+                 num_head_channels: int = -1,
+                 use_scale_shift_norm: bool = True,
+                 resblock_updown: bool = True,
+                 use_new_attention_order: bool = False,
+                 pool: str = "attention",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if pool != "attention":
+            raise NotImplementedError(
+                f"pool={pool!r}: only the ADM classifier's attention pool "
+                "is ported")
+        self.dtype = dtype
+        ch, ds, _ = self._build_trunk(
+            in_channels, model_channels, num_res_blocks, attention_ds,
+            dropout, channel_mult, conv_resample, num_heads,
+            num_head_channels, use_scale_shift_norm, resblock_updown,
+            use_new_attention_order)
+        self.out = nn.Sequential(
+            GroupNorm32(ch), nn.SiLU(),
+            AttentionPool2d(image_size // ds, ch, num_head_channels,
+                            out_channels))
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor
+                ) -> torch.Tensor:
+        emb = self._embed(timesteps, self.dtype)
+        h = x.to(self.dtype)
+        for blk in self.input_blocks:
+            h = blk.run(h, emb, None)
+        h = self.middle_block.run(h, emb, None)
+        h = self.out[0](h, act="silu")
+        return self.out[2](h).float()

@@ -1,0 +1,147 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` file is a plain C interface around its kernels (no
+PyTorch headers, so a file builds in seconds), compiled for Hopper
+(``sm_90a``) into its own shared library under ``ops/_build/``. The
+libraries are named by a hash of their sources and flags, so an edited
+source is rebuilt and an unchanged one is reused within a checkout. All
+sources build in parallel, one ``nvcc`` process each. Nothing is built at
+import time: the first kernel launch (or an explicit :func:`build_all`)
+builds. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+__all__ = ["build_all", "library", "last_build_seconds", "ptxas_report"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# source stem -> (exported C function, its argtypes)
+SOURCES = {
+    "flash_fwd": ("adt_flash_fwd",
+                  [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
+    "flash_bwd_dq": ("adt_flash_bwd_dq",
+                     [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]),
+    "flash_bwd_dkv": ("adt_flash_bwd_dkv",
+                      [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]),
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_seconds: Optional[float] = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                           "cannot be built")
+    return found
+
+
+def _flags() -> list:
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    return ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            f"-D_GLIBCXX_USE_CXX11_ABI={abi}"]
+
+
+def _digest(stem: str, flags: list) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith(".cuh") or name == stem + ".cu":
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Build (or reuse) every kernel library and load it. Returns
+    {source stem: CDLL}. Thread-safe; builds once per process."""
+    global _build_seconds
+    with _lock:
+        if _libs:
+            return _libs
+        t0 = time.time()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        flags = _flags()
+        nvcc = None
+        procs = {}
+        paths = {}
+        for stem in SOURCES:
+            so = os.path.join(BUILD_DIR, f"{stem}-{_digest(stem, flags)}.so")
+            paths[stem] = so
+            if os.path.exists(so):
+                continue
+            nvcc = nvcc or _nvcc()
+            tmp = f"{so}.{os.getpid()}.tmp"
+            log = open(os.path.join(BUILD_DIR, f"{stem}.log"), "w")
+            cmd = [nvcc, *flags, "-o", tmp, os.path.join(CSRC, stem + ".cu")]
+            procs[stem] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT), tmp, log)
+        failed = []
+        for stem, (proc, tmp, log) in procs.items():
+            proc.wait()
+            log.close()
+            if proc.returncode != 0:
+                failed.append(stem)
+            else:
+                os.replace(tmp, paths[stem])
+        if failed:
+            msgs = []
+            for stem in failed:
+                with open(os.path.join(BUILD_DIR, f"{stem}.log")) as f:
+                    msgs.append(f"--- {stem}.cu ---\n{f.read()[-4000:]}")
+            raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
+        for stem, (fn_name, argtypes) in SOURCES.items():
+            lib = ctypes.CDLL(paths[stem])
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[stem] = lib
+        _build_seconds = time.time() - t0
+        return _libs
+
+
+def library(stem: str) -> ctypes.CDLL:
+    return build_all()[stem]
+
+
+def last_build_seconds() -> Optional[float]:
+    """Wall time of this process's build_all (None before the first)."""
+    return _build_seconds
+
+
+def ptxas_report() -> str:
+    """The register / shared-memory / spill lines nvcc's ptxas printed for
+    the kernels built in this checkout (empty when every library was
+    reused from an earlier build)."""
+    out = []
+    for stem in SOURCES:
+        path = os.path.join(BUILD_DIR, f"{stem}.log")
+        if os.path.exists(path):
+            with open(path) as f:
+                out += [f"{stem}: {line.strip()}" for line in f
+                        if "registers" in line or "spill" in line]
+    return "\n".join(out)

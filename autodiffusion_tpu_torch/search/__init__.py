@@ -1,0 +1,12 @@
+"""Evolutionary search over timestep schedules (and architectures)."""
+
+from .evolution import EvolutionSearcher, progressive_skip_hook
+from .fitness import BatchedFIDFitness, to_uint8
+from .pipelines import keep_masks_for, make_adm_fitness
+from .space import JointSpace, TimestepSpace, parse_timestep_string
+
+__all__ = [
+    "EvolutionSearcher", "progressive_skip_hook", "BatchedFIDFitness",
+    "to_uint8", "keep_masks_for", "make_adm_fitness", "JointSpace",
+    "TimestepSpace", "parse_timestep_string",
+]

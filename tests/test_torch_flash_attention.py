@@ -1,0 +1,140 @@
+"""Flash attention of the PyTorch port against the JAX package's kernels.
+
+On the CPU the port computes its plain twins; the JAX side runs its Pallas
+kernels in interpret mode with 64-token blocks, as tests/test_ops.py does.
+Tolerances are the JAX tests' own: forward 2e-5 (fp32) and 3e-2 (bf16);
+gradients 3e-5 (fp32) and 6e-2 (bf16), the tolerances
+tests/test_ops.py holds the Pallas backward to.
+
+The CUDA kernels themselves are held against these twins on the GPU by
+tests/test_torch_cuda.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from autodiffusion_tpu.ops import flash_attention as jax_flash
+from autodiffusion_tpu.ops.flash_attention import _flash_forward
+from autodiffusion_tpu_torch.ops.flash_attention import (
+    LAUNCHES, FlashAttentionFunction, flash_attention,
+    flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_plain,
+    flash_bwd_dq, flash_bwd_dq_plain, flash_fwd, flash_fwd_plain,
+    reset_launch_counts)
+from test_torch_package import one_torch_thread  # noqa: F401
+
+
+def _jax(q, k, v):
+    return jax_flash(q, k, v, block_q=64, block_kv=64, interpret=True)
+
+
+def _inputs(t, s, d, dtype, seed):
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(2, 2, n, d).astype(np.float32) for n in (t, s, s, t)]
+    if dtype == "bfloat16":
+        # round through bf16 once so both sides see identical inputs
+        arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                for a in arrs]
+    return arrs
+
+
+def _to_torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _to_jax(a, dtype):
+    return jnp.asarray(a, getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("t,s,d", [(128, 128, 64), (100, 100, 64),
+                                   (64, 300, 32)])
+def test_twin_forward_matches_pallas_fp32(t, s, d):
+    q, k, v, _ = _inputs(t, s, d, "float32", 0)
+    want = np.asarray(_jax(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,t,s,tol", [("float32", 100, 100, 3e-5),
+                                           ("float32", 64, 300, 3e-5),
+                                           ("bfloat16", 128, 128, 6e-2),
+                                           ("bfloat16", 100, 70, 6e-2)])
+def test_twin_gradients_match_pallas_backward(dtype, t, s, tol):
+    q, k, v, g = _inputs(t, s, 64, dtype, 1)
+    jq, jk, jv, jg = (_to_jax(a, dtype) for a in (q, k, v, g))
+    out_j, vjp = jax.vjp(_jax, jq, jk, jv)
+    want = vjp(jg)
+    tq, tk, tv = (_to_torch(a, dtype).requires_grad_(True) for a in (q, k, v))
+    out_t = flash_attention(tq, tk, tv)
+    assert out_t.dtype == getattr(torch, dtype)
+    got = torch.autograd.grad(out_t, (tq, tk, tv), _to_torch(g, dtype))
+    fwd_tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(out_t.float().detach().numpy(),
+                               np.asarray(out_j, np.float32),
+                               atol=fwd_tol, rtol=fwd_tol)
+    for a, b, name in zip(got, want, "qkv"):
+        assert a.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32),
+                                   atol=tol, rtol=tol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_twins_through_autograd_match_pallas(dtype):
+    """FlashAttentionFunction on CPU tensors runs the three kernels' plain
+    twins (fwd -> lse, delta, dq, dk/dv): its output, lse and gradients
+    match the Pallas forward (lse included) and backward."""
+    t, s = 100, 130
+    q, k, v, g = _inputs(t, s, 64, dtype, 2)
+    jq, jk, jv = (_to_jax(a, dtype) for a in (q, k, v))
+    _, lse_j = _flash_forward(jq, jk, jv, 64, 64, True)
+    _, vjp = jax.vjp(_jax, jq, jk, jv)
+    want = vjp(_to_jax(g, dtype))
+    tq, tk, tv = (_to_torch(a, dtype).reshape(4, -1, 64).requires_grad_(True)
+                  for a in (q, k, v))
+    _, lse = flash_fwd(tq.detach(), tk.detach(), tv.detach())
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :t],
+                               atol=2e-5, rtol=2e-5)
+    out = FlashAttentionFunction.apply(tq, tk, tv)
+    got = torch.autograd.grad(out, (tq, tk, tv),
+                              _to_torch(g, dtype).reshape(4, t, 64))
+    tol = 3e-5 if dtype == "float32" else 6e-2
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32).reshape(a.shape),
+                                   atol=tol, rtol=tol)
+
+
+def test_twin_softmax_stability_large_logits():
+    q = torch.full((1, 64, 32), 30.0)
+    out = flash_attention_reference(q, q.clone(), torch.ones(1, 64, 32))
+    np.testing.assert_allclose(out.numpy(), 1.0, atol=1e-5)
+
+
+def test_cpu_wrappers_run_twins_without_counting():
+    reset_launch_counts()
+    rng = np.random.RandomState(3)
+    q, k, v, do = (torch.from_numpy(rng.randn(3, 40, 16).astype(np.float32))
+                   for _ in range(4))
+    o, lse = flash_fwd(q, k, v)
+    o2, lse2 = flash_fwd_plain(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    delta = (do * o).sum(-1)
+    assert torch.equal(flash_bwd_dq(q, k, v, do, lse, delta),
+                       flash_bwd_dq_plain(q, k, v, do, lse, delta))
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_bwd_dkv(q, k, v, do, lse, delta),
+        flash_bwd_dkv_plain(q, k, v, do, lse, delta)))
+    assert set(LAUNCHES.values()) == {0}
+
+
+def test_wrappers_reject_bad_inputs():
+    q = torch.zeros(2, 8, 16)
+    with pytest.raises(TypeError):
+        flash_fwd(q, q.double(), q)
+    with pytest.raises(ValueError):
+        flash_fwd(q, torch.zeros(2, 8, 32), torch.zeros(2, 8, 32))
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
