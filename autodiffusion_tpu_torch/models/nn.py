@@ -16,8 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["timestep_embedding", "GroupNorm32", "conv2d", "linear",
-           "conv1x1", "Upsample", "Downsample"]
+from ..ops import (conv3x3, conv3x3_fused, fused_group_norm,
+                   fused_norm_available, resolve_use_im2col)
+
+__all__ = ["timestep_embedding", "GroupNorm32", "Conv3x3", "conv2d",
+           "linear", "conv1x1", "Upsample", "Downsample"]
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -53,6 +56,18 @@ def linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, mod.weight.to(x.dtype), bias)
 
 
+def _group_stats(x: torch.Tensor, groups: int, eps: float):
+    """[B, G] GroupNorm statistics in float32 (fast-variance math): the one
+    source of both GroupNorm32 paths, the normalise path and the affine
+    fold (autodiffusion_tpu models/nn.py:60-74). Returns (xg [B, G, -1]
+    float32, mu [B, G, 1], rstd [B, G, 1])."""
+    b = x.shape[0]
+    xg = x.float().reshape(b, groups, -1)
+    mu = xg.mean(dim=-1, keepdim=True)
+    var = ((xg * xg).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return xg, mu, torch.rsqrt(var + eps)
+
+
 class GroupNorm32(nn.GroupNorm):
     """32-group GroupNorm with inline FiLM and activation.
 
@@ -62,7 +77,15 @@ class GroupNorm32(nn.GroupNorm):
     dtype, then FiLM and SiLU in that dtype (autodiffusion_tpu
     models/nn.py:60-74,144-165). scale and shift are [B, C]. The parameters
     are nn.GroupNorm's ``weight`` and ``bias``, so guided-diffusion state
-    dicts load unchanged."""
+    dicts load unchanged.
+
+    Where :func:`~autodiffusion_tpu_torch.ops.fused_norm_available` says so
+    (``ADT_FUSED_NORM=1``, off by default) the whole operation goes through
+    the fused GroupNorm kernels (ops/fused_norm.py), which apply FiLM and
+    SiLU in float32 before one cast. ``return_affine=True`` returns instead
+    the per-(sample, channel) float32 affine (a, b) with GN(x) * (1 +
+    scale) + shift == x a + b, for the fused norm-act-conv (Conv3x3
+    ``affine=``), which applies silu(x a + b) itself (models/nn.py:108-131)."""
 
     def __init__(self, channels: int, num_groups: int = 32,
                  eps: float = 1e-5):
@@ -70,13 +93,30 @@ class GroupNorm32(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                 shift: Optional[torch.Tensor] = None,
-                act: Optional[str] = None) -> torch.Tensor:
+                act: Optional[str] = None, return_affine: bool = False):
         b, c = x.shape[:2]
         g = self.num_groups
-        xg = x.float().reshape(b, g, -1)
-        mu = xg.mean(dim=-1, keepdim=True)
-        var = ((xg * xg).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        rstd = torch.rsqrt(var + self.eps)
+        if return_affine:
+            _, mu, rstd = _group_stats(x, g, self.eps)
+            mu_c, rstd_c = (t.repeat_interleave(c // g, dim=1)[..., 0]
+                            for t in (mu, rstd))                  # [B, C]
+            a = rstd_c * self.weight[None]
+            off = self.bias[None] - mu_c * a
+            if scale is not None:
+                film = 1.0 + scale.reshape(b, c).float()
+                a = a * film
+                off = off * film
+            if shift is not None:
+                off = off + shift.reshape(b, c).float()
+            return a, off
+        if fused_norm_available(x.shape, g):
+            return fused_group_norm(
+                x, self.weight, self.bias,
+                scale=None if scale is None else scale.reshape(b, c),
+                shift=None if shift is None else shift.reshape(b, c),
+                num_groups=g, eps=self.eps,
+                act="silu" if act == "silu" else "none")
+        xg, mu, rstd = _group_stats(x, g, self.eps)
         gamma = self.weight.reshape(1, g, -1, 1)
         beta = self.bias.reshape(1, g, -1, 1)
         xg = xg.reshape(b, g, c // g, -1)
@@ -92,6 +132,35 @@ class GroupNorm32(nn.GroupNorm):
         return h
 
 
+class Conv3x3(nn.Conv2d):
+    """3x3 stride-1 SAME conv (an ``nn.Conv2d``, so its state-dict keys are
+    unchanged) with the port's two conv kernels behind it
+    (autodiffusion_tpu models/nn.py:168-216).
+
+    ``forward(x)`` takes the im2col conv kernel where
+    :func:`~autodiffusion_tpu_torch.ops.resolve_use_im2col` says so
+    (``ADT_IM2COL_CONV=1``), else PyTorch's conv. ``forward(x, affine=(a,
+    b), residual=r)`` is the norm-act-conv, conv(silu(x a + b)) + bias
+    (+ r), through the fused conv kernel; its caller (ResBlock) has already
+    asked :func:`~autodiffusion_tpu_torch.ops.resolve_use_fused_conv`.
+    Computes in x's dtype, the float32 parameters cast at use."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor, affine=None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if affine is not None:
+            a, off = affine
+            return conv3x3_fused(x, a, off, self.weight.to(x.dtype),
+                                 self.bias.to(x.dtype), residual)
+        if residual is not None:
+            raise ValueError("residual fusion needs affine")
+        if resolve_use_im2col(x.shape[1], self.out_channels, x.dtype):
+            return conv3x3(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return conv2d(self, x)
+
+
 class Upsample(nn.Module):
     """2x nearest-neighbour upsample with an optional 3x3 conv."""
 
@@ -100,12 +169,11 @@ class Upsample(nn.Module):
         super().__init__()
         self.use_conv = use_conv
         if use_conv:
-            self.conv = nn.Conv2d(channels, out_channels or channels, 3,
-                                  padding=1)
+            self.conv = Conv3x3(channels, out_channels or channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=2, mode="nearest")
-        return conv2d(self.conv, x) if self.use_conv else x
+        return self.conv(x) if self.use_conv else x
 
 
 class Downsample(nn.Module):

@@ -13,7 +13,13 @@ multiplies each block's residual branch, so a skipped block is exactly the
 reference's short-circuit.
 
 Self-attention goes through ``ops.flash_attention`` at every site: the
-hand-written kernels on the card, their plain twin on the CPU.
+hand-written kernels on the card, their plain twin on the CPU. Three
+environment switches, all off by default, route the rest of the blocks
+through the port's other kernels (each wrapper takes its plain twin on CPU
+tensors): ``ADT_FUSED_NORM=1`` every GroupNorm32 not folded into a conv
+(ops/fused_norm.py), ``ADT_IM2COL_CONV=1`` every Conv3x3 not fused
+(ops/conv_im2col.py), ``ADT_FUSED_CONV=all`` each ResBlock norm that feeds
+its conv directly into the fused norm-act-conv.
 """
 
 from __future__ import annotations
@@ -24,9 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import flash_attention
-from .nn import (Downsample, GroupNorm32, Upsample, conv1x1, conv2d,
-                 linear, timestep_embedding)
+from ..ops import flash_attention, resolve_use_fused_conv
+from .nn import (Conv3x3, Downsample, GroupNorm32, Upsample, conv1x1,
+                 conv2d, linear, timestep_embedding)
 
 __all__ = ["ResBlock", "AttentionBlock", "AttentionPool2d", "UNetModel",
            "EncoderUNetModel", "unet_layer_count"]
@@ -49,7 +55,15 @@ def _keep_factor(keep_mask: Optional[torch.Tensor], layer_id: int):
 
 class ResBlock(nn.Module):
     """Residual block with FiLM (scale-shift) timestep conditioning
-    (guided_diffusion/unet.py:143-256)."""
+    (guided_diffusion/unet.py:143-256).
+
+    Behind ``ADT_FUSED_CONV`` (ops.resolve_use_fused_conv) a norm that
+    feeds its conv directly is folded into the conv's own pass
+    (autodiffusion_tpu models/unet.py:108-175): the in-norm of a block
+    without up/down resampling, and the out-norm where dropout is a no-op;
+    the residual rides the out-conv's epilogue when no keep factor scales
+    the branch. With the gate off the block is the plain composition,
+    unchanged."""
 
     def __init__(self, channels: int, emb_channels: int, dropout: float,
                  out_channels: Optional[int] = None,
@@ -60,7 +74,7 @@ class ResBlock(nn.Module):
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(),
-            nn.Conv2d(channels, self.out_channels, 3, padding=1))
+            Conv3x3(channels, self.out_channels))
         self.updown = up or down
         if up:
             self.h_upd = Upsample(channels, False)
@@ -73,33 +87,50 @@ class ResBlock(nn.Module):
             nn.Linear(emb_channels, 2 * self.out_channels
                       if use_scale_shift_norm else self.out_channels))
         self.out_layers = nn.Sequential(
-            GroupNorm32(self.out_channels), nn.SiLU(), nn.Dropout(dropout),
-            nn.Conv2d(self.out_channels, self.out_channels, 3, padding=1))
+            GroupNorm32(self.out_channels), nn.SiLU(),
+            nn.Dropout(dropout),
+            Conv3x3(self.out_channels, self.out_channels))
         if self.out_channels == channels:
             self.skip_connection = nn.Identity()
         elif use_conv:
-            self.skip_connection = nn.Conv2d(channels, self.out_channels, 3,
-                                             padding=1)
+            self.skip_connection = Conv3x3(channels, self.out_channels)
         else:
             self.skip_connection = nn.Conv2d(channels, self.out_channels, 1)
+        self.up, self.down = up, down
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.in_layers[0](x, act="silu")
-        if self.updown:
-            h = self.h_upd(h)
-            x = self.x_upd(x)
-        h = conv2d(self.in_layers[2], h)
+        c_in, c_out = x.shape[1], self.out_channels
+        fuse_in = not self.updown and resolve_use_fused_conv(c_in, c_out,
+                                                             x.dtype)
+        dropout = self.out_layers[2]
+        fuse_out = ((not self.training or dropout.p == 0)
+                    and resolve_use_fused_conv(c_out, c_out, x.dtype))
+        in_norm, in_conv = self.in_layers[0], self.in_layers[2]
+        if fuse_in:
+            h = in_conv(x, affine=in_norm(x, return_affine=True))
+        else:
+            h = in_norm(x, act="silu")
+            if self.updown:
+                h = self.h_upd(h)
+                x = self.x_upd(x)
+            h = in_conv(h)
         emb_out = linear(self.emb_layers[1], F.silu(emb))
         norm, conv = self.out_layers[0], self.out_layers[3]
+        scale = shift = None
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = norm(h, scale=scale, shift=shift, act="silu")
         else:
-            h = norm(h + emb_out[:, :, None, None], act="silu")
-        h = conv2d(conv, self.out_layers[2](h))
-        skip = x if isinstance(self.skip_connection, nn.Identity) \
+            h = h + emb_out[:, :, None, None]
+        skip = self.skip_connection(x) if isinstance(
+            self.skip_connection, (nn.Identity, Conv3x3)) \
             else conv2d(self.skip_connection, x)
+        if fuse_out:
+            aff = norm(h, scale=scale, shift=shift, return_affine=True)
+            if keep is None:
+                return conv(h, affine=aff, residual=skip)
+            return skip + _apply_keep(conv(h, affine=aff), keep)
+        h = conv(dropout(norm(h, scale=scale, shift=shift, act="silu")))
         return skip + _apply_keep(h, keep)
 
 

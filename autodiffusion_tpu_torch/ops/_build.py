@@ -23,7 +23,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["build_all", "library", "last_build_seconds", "ptxas_report"]
+__all__ = ["build_all", "library", "launch", "last_build_seconds",
+           "ptxas_report", "LAUNCHES", "reset_launch_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -31,7 +32,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# source stem -> (exported C function, its argtypes)
+# source stem -> (exported C function, its argtypes); the last argument of
+# every function is the CUDA stream
 SOURCES = {
     "flash_fwd": ("adt_flash_fwd",
                   [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
@@ -39,7 +41,19 @@ SOURCES = {
                      [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_bwd_dkv": ("adt_flash_bwd_dkv",
                       [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]),
+    "group_norm_fwd": ("adt_group_norm_fwd",
+                       [_c_void_p] * 8 + [_c_int] * 6 + [_c_float,
+                                                         _c_void_p]),
+    "group_norm_bwd": ("adt_group_norm_bwd",
+                       [_c_void_p] * 15 + [_c_int] * 6 + [_c_void_p]),
+    "conv3x3": ("adt_conv3x3", [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p]),
+    "conv3x3_fused": ("adt_conv3x3_fused",
+                      [_c_void_p] * 7 + [_c_int] * 6 + [_c_void_p]),
 }
+
+# kernel (source stem) -> launches since the last reset: a wrapper adds one
+# where it launches its kernel, and nowhere else
+LAUNCHES: Dict[str, int] = {stem: 0 for stem in SOURCES}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -126,6 +140,24 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 
 def library(stem: str) -> ctypes.CDLL:
     return build_all()[stem]
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch(stem: str, *args) -> None:
+    """Call ``stem``'s C entry point with ``args`` on PyTorch's current
+    stream, raise if it reports a CUDA error (or -1, a configuration it
+    has no kernel for), and count the launch."""
+    fn = getattr(library(stem), SOURCES[stem][0])
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{stem} kernel launch failed with CUDA error "
+                           f"{rc}" + (" (no kernel for this configuration)"
+                                      if rc == -1 else ""))
+    LAUNCHES[stem] += 1
 
 
 def last_build_seconds() -> Optional[float]:

@@ -28,9 +28,11 @@ product, outputs in the input dtype, lse in float32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
+
+from ._build import LAUNCHES, launch, reset_launch_counts
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "FlashAttentionFunction", "flash_fwd", "flash_bwd_dq",
@@ -39,16 +41,6 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "SUPPORTED_HEAD_DIMS"]
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
-
-# kernel name -> launches since the last reset (one per kernel launch)
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
@@ -146,19 +138,6 @@ def _arg(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _launch(stem: str, *args) -> None:
-    from ._build import SOURCES, library
-
-    fn = getattr(library(stem), SOURCES[stem][0])
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{stem} kernel launch failed with CUDA error "
-                           f"{rc}" + (" (unsupported head dim)" if rc == -1
-                                      else ""))
-    LAUNCHES[stem] += 1
-
-
 def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: (o [N,T,D] in v's dtype, lse [N,T] float32)."""
     if not _check(q, k, v):
@@ -168,7 +147,7 @@ def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     o = torch.empty_like(q)
     lse = torch.empty((n, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 o.data_ptr(), lse.data_ptr(), n, t, k.shape[1], d,
                 int(q.dtype == torch.bfloat16), _scale(d))
     return o, lse
@@ -183,7 +162,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
     n, t, d = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), n, t, k.shape[1], d,
                 int(q.dtype == torch.bfloat16), _scale(d))
@@ -200,7 +179,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta
     n, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), n, t, k.shape[1], d,
                 int(q.dtype == torch.bfloat16), _scale(d))

@@ -7,7 +7,7 @@ Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the build of every CUDA kernel from ``autodiffusion_tpu_torch/ops/
-   csrc`` (nvcc, sm_90a);
+   csrc`` (nvcc, sm_90a, one process per source, in parallel);
 2. kernels: the flash-attention forward, dQ and dK/dV kernels against
    their plain PyTorch twins at the ADM-64 attention shapes (batch 32,
    head dim 64, bf16 and fp32, plus a ragged length), alone and chained
@@ -15,19 +15,38 @@ Phases, each of which raises on failure:
    limits that a kernel with one tile dropped is shown to break; each
    timed with CUDA events beside its twin, its bound on the card and
    ``F.scaled_dot_product_attention``;
-3. parity: two guided DDIM steps of the full-width ADM-64 UNet and
+3. the fused GroupNorm forward and backward, the im2col conv and the fused
+   norm-act-conv against their twins at every ADM-64 site the three
+   switches (``ADT_FUSED_NORM=1 ADT_IM2COL_CONV=1 ADT_FUSED_CONV=all``)
+   route to them (batch 32, bf16 and fp32; the sites are read from the
+   models themselves, run on the meta device), the GroupNorm backward also
+   chained through its ``autograd.Function``; a sabotaged run of each
+   (a conv with one C_out block or one halo row left out, a GroupNorm
+   with one group's statistics taken from the wrong group) must break the
+   limit; each timed beside its twin, its bound and ``F.conv2d`` /
+   ``F.group_norm`` (forward, or its autograd backward);
+4. parity: two guided DDIM steps of the full-width ADM-64 UNet and
    classifier (float32, seeded random weights) on the GPU against the same
-   run on the CPU, where attention is the plain twin;
-4. profile: one guided DDIM-4 run at batch 32 in bf16 under
+   run on the CPU, where every kernel is its plain twin: once with the
+   switches off, once with all three on;
+5. profile: one guided DDIM-4 run at batch 32 in bf16 under
    ``torch.profiler``: device time by kernel, the flash kernels' share and
    the device's idle share (``chiprun_out/chip_smoke_profile.txt``);
-5. search: ``adt-torch search`` through its Python entry at full ADM-64
+6. A/B: the same guided DDIM-4 run with the switches off, each alone, the
+   fused norm with the fused conv, and all three on, three rounds in
+   turn: wall time per step, device-busy time per step (profiler) and idle
+   share of every run (``chiprun_out/chip_smoke_profile_fused.txt``: the
+   kernels of a run with all three on);
+7. search: ``adt-torch search`` through its Python entry at full ADM-64
    width (classifier guidance, DDIM-4, chunk 2 x batch 16, 32 samples per
    candidate, population 4, one epoch) with seeded random UNet, classifier
    and Inception weights written as checkpoint files, and reference
-   statistics from the port's own Inception features of 64 seeded images.
-   Every FID must be finite and >= 0, and the launch counters must show
-   each kernel ran, as many times as the guided steps need.
+   statistics from the port's own Inception features of 64 seeded images;
+   run twice, with the switches off (the default path: the flash kernels
+   only, none of the new ones) and with all three on (all seven kernels).
+   Every FID must be finite and >= 0, and each run's launch counters,
+   set to 0 just before it, must show every kernel of its path ran as
+   many times as its guided steps need.
 
 The last lines of standard output are a ``kernels`` JSON line, the
 ``nvidia-smi`` name / power-limit line and ``{"ok": true, "device": ...}``.
@@ -38,6 +57,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -78,9 +98,51 @@ KERNEL_INFO = {
     "flash_bwd_dkv": ("autodiffusion_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
                       "autodiffusion_tpu/ops/flash_attention.py:256"),
 }
-# launches per guided DDIM step: 22 UNet + 13 classifier attention blocks
-# forward, 13 classifier blocks backward
-PER_STEP = {"flash_fwd": 35, "flash_bwd_dq": 13, "flash_bwd_dkv": 13}
+KERNEL_INFO.update({
+    "group_norm_fwd": ("autodiffusion_tpu_torch/ops/csrc/group_norm_fwd.cu",
+                       "autodiffusion_tpu/ops/fused_norm.py:77"),
+    "group_norm_bwd": ("autodiffusion_tpu_torch/ops/csrc/group_norm_bwd.cu",
+                       "autodiffusion_tpu/ops/fused_norm.py:107"),
+    "conv3x3": ("autodiffusion_tpu_torch/ops/csrc/conv3x3.cu",
+                "autodiffusion_tpu/ops/conv_im2col.py:259"),
+    "conv3x3_fused": ("autodiffusion_tpu_torch/ops/csrc/conv3x3_fused.cu",
+                      "autodiffusion_tpu/ops/conv_im2col.py:278"),
+})
+NEW_KERNELS = ("group_norm_fwd", "group_norm_bwd", "conv3x3",
+               "conv3x3_fused")
+# launches per guided DDIM step on the default path: 22 UNet + 13
+# classifier attention blocks forward, 13 classifier blocks backward
+PER_STEP = {"flash_fwd": 35, "flash_bwd_dq": 13, "flash_bwd_dkv": 13,
+            "group_norm_fwd": 0, "group_norm_bwd": 0, "conv3x3": 0,
+            "conv3x3_fused": 0}
+# ... and with the three switches on (tests/test_torch_fused_paths.py
+# counts them from the models): GroupNorms not folded into a conv, 29 UNet
+# + 17 classifier forward and the classifier's 17 backward; the up/down
+# blocks' in-convs, 6 + 3; every other ResBlock conv, 66 + 39
+PER_STEP_FUSED = dict(PER_STEP, group_norm_fwd=46, group_norm_bwd=17,
+                      conv3x3=9, conv3x3_fused=105)
+SWITCHES_OFF = {"ADT_FUSED_NORM": "0", "ADT_IM2COL_CONV": "0",
+                "ADT_FUSED_CONV": "0"}
+SWITCHES_ON = {"ADT_FUSED_NORM": "1", "ADT_IM2COL_CONV": "1",
+               "ADT_FUSED_CONV": "all"}
+# the A/B phase's configurations: the switches off, each alone, the fused
+# norm with the fused conv, all three
+AB_CONFIGS = [
+    ("off", SWITCHES_OFF),
+    ("fused_norm", dict(SWITCHES_OFF, ADT_FUSED_NORM="1")),
+    ("im2col", dict(SWITCHES_OFF, ADT_IM2COL_CONV="1")),
+    ("fused_conv", dict(SWITCHES_OFF, ADT_FUSED_CONV="all")),
+    ("fused_norm+fused_conv", dict(SWITCHES_OFF, ADT_FUSED_NORM="1",
+                                   ADT_FUSED_CONV="all")),
+    ("all", SWITCHES_ON),
+]
+GROUPS = 32
+# float32 limit of the GroupNorm backward's per-channel sums (dscale,
+# dshift, dgamma, dbeta: float32 sums over up to B x HW = 131072 terms, in
+# another order than the twin's), the JAX package's gradient tolerance for
+# the TPU kernels (tests/test_fused_norm.py)
+SUM_TOL = 2e-4
+LIMIT_TEXT["float32 sums"] = "2e-4 (1 + |twin|)"
 
 
 def log(msg: str) -> None:
@@ -132,7 +194,22 @@ def bound(kernel: str, n: int, t: int, s: int, d: int, dtype: str):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def limit(want, dtype: str):
+@contextlib.contextmanager
+def switches(env):
+    """Set the kernel switches of ``env`` for the block, then restore."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def limit(want, dtype: str, f32_tol: float = 2e-5):
     """Elementwise limit on |kernel - twin| for the twin's output ``want``.
 
     float32: 2e-5 (1 + |twin|), the JAX tests' tolerance for the TPU
@@ -143,14 +220,16 @@ def limit(want, dtype: str):
     both dtypes and takes the float32 limit."""
     a = want.float().abs()
     if dtype == "float32":
-        return 2e-5 * (1 + a)
+        return f32_tol * (1 + a)
     return (2 ** -6 * a + 2 ** -8 * a.max()).clamp_min(1e-30)
 
 
-def compare(got, want, dtype: str):
+def compare(got, want, dtype: str, f32_tol: float = 2e-5):
     """(max |got - want|, max over elements of |got - want| / limit)."""
+    assert got.shape == want.shape, (got.shape, want.shape)
     diff = (got.float() - want.float()).abs()
-    return float(diff.max()), float((diff / limit(want, dtype)).max())
+    return float(diff.max()), float((diff / limit(want, dtype,
+                                                  f32_tol)).max())
 
 
 def phase_kernels():
@@ -287,12 +366,371 @@ def attention_per_step(rows):
     return kern, lib
 
 
-def phase_profile(unet_sd, cls_sd):
-    """One guided DDIM-4 run at batch 32, full width, bf16: host-clock time
-    per step, then the same run under torch.profiler for device time by
-    kernel. Device busy share = summed kernel time / unprofiled wall."""
+def adm64_sites():
+    """{kernel: {site: calls per guided DDIM step}} of the four new kernels
+    with all three switches on, read from one forward of the full-width
+    ADM-64 UNet and classifier on the meta device (shapes only), each
+    wrapper replaced by a recorder. GroupNorm sites are (C, HW, act, FiLM),
+    conv sites (C_in, C_out, H, W) and fused conv sites (C_in, C_out, H, W,
+    residual). Every classifier GroupNorm also runs the backward kernel
+    once a step (guidance differentiates through the classifier)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from autodiffusion_tpu_torch.models import (ClassifierConfig,
+                                                ModelConfig,
+                                                create_classifier,
+                                                create_model)
+    from autodiffusion_tpu_torch.models import nn as port_nn
+    from autodiffusion_tpu_torch.models import unet as port_unet
+
+    sites = {k: {} for k in NEW_KERNELS}
+    model = ["unet"]
+
+    def add(kernel, key):
+        sites[kernel][key] = sites[kernel].get(key, 0) + 1
+
+    def gn(x, gamma, beta, *, scale=None, shift=None, num_groups, eps, act):
+        key = (x.shape[1], math.prod(x.shape[2:]), act, scale is not None)
+        add("group_norm_fwd", key)
+        if model[0] == "classifier":
+            add("group_norm_bwd", key)
+        return torch.empty_like(x)
+
+    def out(x, w):
+        return torch.empty((x.shape[0], w.shape[0], *x.shape[2:]),
+                           dtype=x.dtype, device=x.device)
+
+    def conv(x, w, bias=None):
+        add("conv3x3", (x.shape[1], w.shape[0], x.shape[2], x.shape[3]))
+        return out(x, w)
+
+    def fused(x, a, b, w, bias=None, residual=None):
+        add("conv3x3_fused", (x.shape[1], w.shape[0], x.shape[2], x.shape[3],
+                              residual is not None))
+        return out(x, w)
+
+    saved = {n: getattr(port_nn, n)
+             for n in ("fused_group_norm", "conv3x3", "conv3x3_fused")}
+    saved_flash = port_unet.flash_attention
+    port_nn.fused_group_norm, port_nn.conv3x3 = gn, conv
+    port_nn.conv3x3_fused = fused
+    port_unet.flash_attention = lambda q, k, v: torch.empty_like(q)
+    try:
+        with switches(SWITCHES_ON), torch.device("meta"):
+            m = create_model(ModelConfig.adm64(), device="meta")
+            m(torch.empty(1, 3, 64, 64), torch.zeros(1),
+              torch.zeros(1, dtype=torch.long))
+            model[0] = "classifier"
+            c = create_classifier(ClassifierConfig.adm64(), device="meta")
+            c(torch.empty(1, 3, 64, 64), torch.zeros(1))
+    finally:
+        for n, fn in saved.items():
+            setattr(port_nn, n, fn)
+        port_unet.flash_attention = saved_flash
+    per_step = {k: sum(v.values()) for k, v in sites.items()}
+    want = {k: PER_STEP_FUSED[k] for k in NEW_KERNELS}
+    if per_step != want:
+        raise AssertionError(f"ADM-64 sites per step {per_step} != {want}")
+    return sites
+
+
+def new_kernel_bound(kernel, key, dtype: str, batch: int = BATCH):
+    """(ms, "bytes" | "operations"): the least time for the kernel's work
+    at one site, each input read once and each output written once.
+    Convs count 2 B HW C_out 9 C_in operations at the dtype's peak (the
+    float32 kernel runs on the CUDA cores); GroupNorm counts its float32
+    arithmetic (about 12 operations an element forward, 20 backward) at
+    the float32 peak."""
+    es = 2 if dtype == "bfloat16" else 4
+    if kernel.startswith("group_norm"):
+        c, hw, _, film = key
+        n = batch * c * hw
+        small = 2 * c * 4 + 2 * batch * GROUPS * 4 \
+            + (2 * batch * c * 4 if film else 0)
+        if kernel == "group_norm_fwd":
+            flops, nbytes = 12 * n, 2 * n * es + small
+        else:
+            flops = 20 * n
+            nbytes = 3 * n * es + small + 2 * batch * c * 4 + 2 * c * 4
+        peak = PEAK_FLOPS["float32"]
+    else:
+        c_in, c_out, h, w = key[:4]
+        flops = 2 * batch * h * w * c_out * 9 * c_in
+        nbytes = (batch * c_in * h * w + 9 * c_in * c_out
+                  + batch * c_out * h * w) * es + c_out * 4
+        if kernel == "conv3x3_fused":
+            flops += 5 * batch * c_in * h * w
+            nbytes += 2 * batch * c_in * 4 \
+                + (batch * c_out * h * w * es if key[4] else 0)
+        peak = PEAK_FLOPS[dtype]
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _gn_wrong_group(x, gamma, beta, mu, rstd, silu):
+    """The forward kernel's output with group 0 of every sample normalised
+    with group 1's statistics: the kernel run with a per-sample FiLM term
+    on group 0's channels that turns (x - mu0) rstd0 into (x - mu1) rstd1
+    (z' = k z + m with k = rstd1 / rstd0, m = beta (1 - k) + (mu0 - mu1)
+    rstd1 gamma, from the kernel's own mu, rstd)."""
+    import torch
+    from autodiffusion_tpu_torch.ops.fused_norm import group_norm_fwd
+
+    b, c = x.shape[:2]
+    per = c // GROUPS
+    k = (rstd[:, 1] / rstd[:, 0])[:, None]                       # [B, 1]
+    m = beta[None, :per] * (1 - k) \
+        + ((mu[:, 0] - mu[:, 1]) * rstd[:, 1])[:, None] * gamma[None, :per]
+    scale = torch.zeros(b, c, device=x.device)
+    shift = torch.zeros(b, c, device=x.device)
+    scale[:, :per] = k - 1
+    shift[:, :per] = m
+    return group_norm_fwd(x, gamma, beta, scale, shift, GROUPS, 1e-5,
+                          silu)[0]
+
+
+def _row(rows, failures, name, site, count, dname, errs, sabotage, timing,
+         bnd, limit_text):
+    """Record one kernel row: errs [(max |d|, |d| / limit)], sabotage the
+    least |d| / limit of the sabotaged runs (None where none applies),
+    timing (ms, plain ms, library ms), bnd (bound ms, bound by)."""
+    err = max(e for e, _ in errs)
+    worst = max(w for _, w in errs)
+    ok = worst <= 1
+    ms, plain_ms, lib_ms = timing
+    rows.append(dict(name=name, site=site, count=count, batch=BATCH,
+                     dtype=dname, max_abs_err=err, err_over_limit=worst,
+                     limit=limit_text, sabotaged_over_limit=sabotage,
+                     ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bnd[0], bound_by=bnd[1]))
+    log(f"kernel {name:14s} {site} x{count} {dname:8s} "
+        f"max_abs_err={err:.3e} max err/limit={worst:.3f} (sabotaged: "
+        f"{float('nan') if sabotage is None else sabotage:.1f}) "
+        f"{'ok' if ok else 'FAIL'}  ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+    if not ok:
+        failures.append((name, site, dname, err, worst))
+    if sabotage is not None and sabotage <= 1:
+        failures.append((name, site, dname, "the sabotaged run passes the "
+                         f"limit ({sabotage:.3g})"))
+
+
+def phase_new_kernels(sites):
+    """The four new kernels against their twins at every ADM-64 site, in
+    both dtypes, with a sabotaged run of each that must break the limit,
+    timed beside the twin, the bound and the nearest library call. The
+    conv twins' float32 convolutions (and F.conv2d) run with TF32 off."""
+    import torch
+    import torch.nn.functional as F
+    from autodiffusion_tpu_torch.ops.conv_im2col import (
+        conv3x3_fused_kernel, conv3x3_im2col, conv3x3_reference,
+        fused_conv_reference)
+    from autodiffusion_tpu_torch.ops.fused_norm import (
+        FusedGroupNormFunction, group_norm_bwd, group_norm_bwd_plain,
+        group_norm_fwd, group_norm_fwd_plain)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    rows, failures = [], []
+    try:
+        for key, count in sites["group_norm_fwd"].items():
+            c, hw, act, film = key
+            silu = act == "silu"
+            for dt in (torch.bfloat16, torch.float32):
+                dname = str(dt).split(".")[1]
+                # per-channel scales and offsets, so that the groups'
+                # statistics differ and a wrong group's show
+                x = (randn(BATCH, c, hw) * torch.exp(0.5 * randn(c, 1))
+                     + randn(c, 1)).to(dt)
+                gamma, beta = 1 + 0.2 * randn(c), 0.1 * randn(c)
+                sc = sh = None
+                if film:
+                    sc, sh = 0.3 * randn(BATCH, c), 0.3 * randn(BATCH, c)
+                args = (x, gamma, beta, sc, sh, GROUPS, 1e-5, silu)
+                y, mu, rstd = group_norm_fwd(*args)
+                y_ref, mu_ref, rstd_ref = group_norm_fwd_plain(*args)
+                bad = _gn_wrong_group(x, gamma, beta, mu, rstd, silu)
+                torch.cuda.synchronize()
+                errs = [compare(y, y_ref, dname),
+                        compare(mu, mu_ref, "float32"),
+                        compare(rstd, rstd_ref, "float32")]
+                sabotage = compare(bad, y_ref, dname)[1]
+                gl, bl = gamma.to(dt), beta.to(dt)
+                timing = (cuda_ms(lambda: group_norm_fwd(*args)),
+                          cuda_ms(lambda: group_norm_fwd_plain(*args)),
+                          cuda_ms(lambda: F.group_norm(x, GROUPS, gl, bl,
+                                                       1e-5)))
+                _row(rows, failures, "group_norm_fwd",
+                     f"C={c} HW={hw} {act}", count, dname, errs, sabotage,
+                     timing, new_kernel_bound("group_norm_fwd", key, dname),
+                     LIMIT_TEXT[dname])
+                if key not in sites["group_norm_bwd"]:
+                    continue
+                # the backward, alone on the twin's mu, rstd and chained
+                # through the autograd.Function as guidance runs it
+                dy = randn(BATCH, c, hw).to(dt)
+                bargs = (x, dy, gamma, beta, sc, sh, mu_ref, rstd_ref,
+                         GROUPS, silu)
+                got = group_norm_bwd(*bargs)
+                want = group_norm_bwd_plain(*bargs)
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (x, gamma, beta)]
+                out = FusedGroupNormFunction.apply(*leaves, sc, sh, GROUPS,
+                                                   1e-5, silu)
+                chain = torch.autograd.grad(out, leaves, dy)
+                mu_bad, rstd_bad = mu_ref.clone(), rstd_ref.clone()
+                mu_bad[:, 0], rstd_bad[:, 0] = mu_ref[:, 1], rstd_ref[:, 1]
+                bad_dx = group_norm_bwd(x, dy, gamma, beta, sc, sh, mu_bad,
+                                        rstd_bad, GROUPS, silu)[0]
+                torch.cuda.synchronize()
+                errs = [compare(got[0], want[0], dname),
+                        compare(chain[0], want[0], dname)]
+                errs += [compare(a, b, "float32", SUM_TOL)
+                         for a, b in zip(got[1:] + chain[1:],
+                                         want[1:] + want[3:])]
+                sabotage = compare(bad_dx, want[0], dname)[1]
+                xg, gg, bg = (t.detach().clone().requires_grad_(True)
+                              for t in (x, gl, bl))
+                yl = F.group_norm(xg, GROUPS, gg, bg, 1e-5)
+                timing = (cuda_ms(lambda: group_norm_bwd(*bargs)),
+                          cuda_ms(lambda: group_norm_bwd_plain(*bargs)),
+                          cuda_ms(lambda: torch.autograd.grad(
+                              yl, (xg, gg, bg), dy, retain_graph=True)))
+                _row(rows, failures, "group_norm_bwd",
+                     f"C={c} HW={hw} {act}", sites["group_norm_bwd"][key],
+                     dname, errs, sabotage, timing,
+                     new_kernel_bound("group_norm_bwd", key, dname),
+                     f"{LIMIT_TEXT[dname]}; sums {LIMIT_TEXT['float32 sums']}")
+                del out, chain, leaves, yl, xg, gg, bg
+
+        for kernel in ("conv3x3", "conv3x3_fused"):
+            for key, count in sites[kernel].items():
+                c_in, c_out, h, w = key[:4]
+                fused = kernel == "conv3x3_fused"
+                for dt in (torch.bfloat16, torch.float32):
+                    dname = str(dt).split(".")[1]
+                    x = randn(BATCH, c_in, h, w).to(dt)
+                    wt = (randn(c_out, c_in, 3, 3) / (9 * c_in) ** 0.5).to(dt)
+                    bias = 0.1 * randn(c_out)
+                    a, off = 1 + 0.3 * randn(BATCH, c_in), \
+                        0.3 * randn(BATCH, c_in)
+                    res = randn(BATCH, c_out, h, w).to(dt)
+                    if fused:
+                        r = res if key[4] else None
+
+                        def kern(xx, ww, rr=r):
+                            return conv3x3_fused_kernel(xx, a, off, ww, bias,
+                                                        rr)
+
+                        def plain(rr=r):
+                            return fused_conv_reference(x, a, off, wt, bias,
+                                                        rr)
+                        # silu(x a + b) = 0 where x = -b / a: a row of
+                        # such values contributes nothing, as if left out
+                        zero_row = (-off / a).to(dt)[:, :, None]
+                    else:
+                        def kern(xx, ww):
+                            return conv3x3_im2col(xx, ww, bias)
+
+                        def plain():
+                            return conv3x3_reference(x, wt, bias)
+                        zero_row = 0.0
+                    y, y_ref = kern(x, wt), plain()
+                    errs = [compare(y, y_ref, dname)]
+                    if fused:   # the other residual variant too
+                        other = None if key[4] else res
+                        errs.append(compare(kern(x, wt, other),
+                                            plain(other), dname))
+                    # sabotage: the last C_out block (64 channels) left
+                    # out, and one input row left out of one output row
+                    w_bad = wt.clone()
+                    w_bad[-64:] = 0
+                    faults = [kern(x, w_bad)]
+                    if h > 1:
+                        row = h // 2
+                        x_bad = x.clone()
+                        x_bad[:, :, row - 1] = zero_row
+                        bad = y.clone()
+                        bad[:, :, row] = kern(x_bad, wt)[:, :, row]
+                        faults.append(bad)
+                    torch.cuda.synchronize()
+                    sabotage = min(compare(f, y_ref, dname)[1]
+                                   for f in faults)
+                    wl, bl = wt, bias.to(dt)
+                    timing = (cuda_ms(lambda: kern(x, wt), reps=10),
+                              cuda_ms(plain, reps=10),
+                              cuda_ms(lambda: F.conv2d(x, wl, bl, padding=1),
+                                      reps=10))
+                    site = f"{c_in}->{c_out} {h}x{w}" + (
+                        (" +residual" if key[4] else "") if fused else "")
+                    _row(rows, failures, kernel, site, count, dname, errs,
+                         sabotage, timing, new_kernel_bound(kernel, key,
+                                                            dname),
+                         LIMIT_TEXT[dname])
+                    del x, wt, res, y, y_ref, faults
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if failures:
+        raise AssertionError(f"new kernels disagree with their twins: "
+                             f"{failures}")
+    return rows
+
+
+def new_kernels_per_step(rows):
+    """{kernel: (kernel ms, library ms)} of one guided DDIM step at batch
+    32 in bf16 with the switches on, summed over the sites."""
+    out = {}
+    for name in NEW_KERNELS:
+        sel = [r for r in rows if r["name"] == name
+               and r["dtype"] == "bfloat16"]
+        out[name] = (sum(r["count"] * r["ms"] for r in sel),
+                     sum(r["count"] * r["library_ms"] for r in sel))
+        log(f"{name} per guided DDIM step (batch 32, bf16, "
+            f"{sum(r['count'] for r in sel)} launches): kernel "
+            f"{out[name][0]:.4f} ms, library {out[name][1]:.4f} ms")
+    return out
+
+
+def head_rows(rows):
+    """Per kernel, the bf16 row of the site with the most work (largest
+    bound): the row the ``kernels`` line reports."""
+    head = {}
+    for r in rows:
+        if r["dtype"] != "bfloat16":
+            continue
+        if r["name"] not in head or r["bound_ms"] > head[r["name"]]["bound_ms"]:
+            head[r["name"]] = r
+    return head
+
+
+def device_busy(prof, steps: int):
+    """(busy ms per step, kernels sorted by device time) of a profile."""
+    import torch
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy, kernels
+
+
+def profile_lines(kernels, steps: int, top: int = 25):
+    return [f"{e.self_device_time_total / 1e3 / steps:10.3f} ms/step "
+            f"{e.count // steps:6d} calls/step  {e.key[:120]}"
+            for e in kernels[:top]]
+
+
+def guided_run(unet_sd, cls_sd):
+    """(run, models): one guided DDIM-4 run at batch 32, full width, bf16,
+    of seeded random weights, as the profile and A/B phases time it."""
+    import torch
     from autodiffusion_tpu_torch.models import (ClassifierConfig,
                                                 ModelConfig,
                                                 create_classifier,
@@ -315,6 +753,69 @@ def phase_profile(unet_sd, cls_sd):
                                 tables, device="cuda", generator=gen,
                                 cond_fn=cond)
 
+    return run, (m, c)
+
+
+def phase_ab(unet_sd, cls_sd):
+    """The guided DDIM-4 run at batch 32 in bf16 under each configuration
+    of AB_CONFIGS, three rounds taken in turn (each configuration once per
+    round): per run, wall ms per step (host clock around a synchronised
+    run, unprofiled), device-busy ms per step (the next run, profiled) and
+    the idle share 1 - busy / wall. Every run's output must be finite."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run, _ = guided_run(unet_sd, cls_sd)
+    runs = {name: [] for name, _ in AB_CONFIGS}
+    for rnd in range(3):
+        for name, env in AB_CONFIGS:
+            with switches(env):
+                if rnd == 0:
+                    run()                         # warm-up
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = run()
+                torch.cuda.synchronize()
+                wall = (time.time() - t0) * 1e3 / 4
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"A/B {name}: non-finite samples")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    run()
+                    torch.cuda.synchronize()
+                busy, kernels = device_busy(prof, 4)
+            runs[name].append(dict(wall_ms=wall, busy_ms=busy,
+                                   idle=1 - busy / wall))
+            log(f"A/B round {rnd} {name:22s} wall {wall:.2f} ms/step, "
+                f"busy {busy:.2f} ms/step, idle {100 * (1 - busy / wall):.1f}%")
+            if rnd == 0 and name == "all":
+                os.makedirs(OUT, exist_ok=True)
+                with open(os.path.join(OUT, "chip_smoke_profile_fused.txt"),
+                          "w") as f:
+                    f.write(f"{smi_line()}\nguided DDIM-4, ADM-64 bf16, "
+                            f"batch 32, {' '.join(f'{k}={v}' for k, v in SWITCHES_ON.items())}; "
+                            "device time per step by kernel\n"
+                            + "\n".join(profile_lines(kernels, 4)) + "\n")
+    summary = {}
+    for name, rs in runs.items():
+        walls = sorted(r["wall_ms"] for r in rs)
+        busys = sorted(r["busy_ms"] for r in rs)
+        summary[name] = dict(wall_ms=walls[1], busy_ms=busys[1],
+                             idle=1 - busys[1] / walls[1], runs=rs)
+        log(f"A/B {name:22s} median of 3: wall {walls[1]:.2f} ms/step, busy "
+            f"{busys[1]:.2f} ms/step, idle {100 * summary[name]['idle']:.1f}%"
+            f"; images/s through DDIM-4 {32 / (4 * walls[1] / 1e3):.2f}")
+    return summary
+
+
+def phase_profile(unet_sd, cls_sd):
+    """One guided DDIM-4 run at batch 32, full width, bf16: host-clock time
+    per step, then the same run under torch.profiler for device time by
+    kernel. Device busy share = summed kernel time / unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run, _ = guided_run(unet_sd, cls_sd)
     run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -330,18 +831,11 @@ def phase_profile(unet_sd, cls_sd):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 4
-    if busy_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
+    busy_ms, kernels = device_busy(prof, 4)
     flash_ms = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key) / 1e3 / 4
     n_kernels = sum(e.count for e in kernels) / 4
-    lines = [f"{e.self_device_time_total / 1e3 / 4:10.3f} ms/step "
-             f"{e.count // 4:6d} calls/step  {e.key[:120]}"
-             for e in kernels[:25]]
+    lines = profile_lines(kernels, 4)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "chip_smoke_profile.txt"), "w") as f:
         f.write(f"{smi_line()}\nguided DDIM-4, ADM-64 bf16, batch 32; "
@@ -358,14 +852,17 @@ def phase_profile(unet_sd, cls_sd):
                 kernels_per_step=n_kernels, peak_gb=peak_gb, top=lines)
 
 
-def phase_parity(unet_sd, cls_sd):
-    """Two guided DDIM steps of the full-width models in float32: GPU
-    (flash kernels) against CPU (plain twin), same weights and noise."""
+def phase_parity(unet_sd, cls_sd, env, label: str):
+    """Two guided DDIM steps of the full-width models in float32 under the
+    switches of ``env``: GPU (the kernels) against CPU (their plain twins),
+    same weights and noise. Returns (max abs error, the GPU run's kernel
+    launches)."""
     import torch
     from autodiffusion_tpu_torch.models import (ClassifierConfig,
                                                 ModelConfig,
                                                 create_classifier,
                                                 create_model)
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from autodiffusion_tpu_torch.samplers import (classifier_cond_fn,
                                                   ddim_sample_loop)
     from autodiffusion_tpu_torch.schedules import build_tables
@@ -387,33 +884,37 @@ def phase_parity(unet_sd, cls_sd):
             c.load_state_dict(cls_sd)
             yd = y.to(dev)
             cond = classifier_cond_fn(c, yd, 1.0)
-            out = ddim_sample_loop(
-                lambda x, t, i: m(x, t, yd), (2, 3, 64, 64), tables.to(dev),
-                device=dev, cond_fn=cond, noise=x_t)
+            reset_launch_counts()
+            with switches(env):
+                out = ddim_sample_loop(
+                    lambda x, t, i: m(x, t, yd), (2, 3, 64, 64),
+                    tables.to(dev), device=dev, cond_fn=cond, noise=x_t)
             outs[dev] = out.cpu()
+            launches = dict(LAUNCHES)
             del m, c
         if not torch.isfinite(outs["cuda"]).all():
             raise AssertionError("non-finite guided DDIM output on the GPU")
         err = float((outs["cuda"] - outs["cpu"]).abs().max())
         scale = float(outs["cpu"].abs().max())
-        log(f"parity: guided DDIM-2, ADM-64 float32, GPU vs CPU max abs "
-            f"err {err:.3e} (output max {scale:.3f}, tol 1e-3 x scale)")
+        log(f"parity ({label}): guided DDIM-2, ADM-64 float32, GPU vs CPU "
+            f"max abs err {err:.3e} (output max {scale:.3f}, tol 1e-3 x "
+            f"scale), GPU launches {launches}")
         if not err <= 1e-3 * max(scale, 1.0):
-            raise AssertionError(f"GPU guided DDIM disagrees with the CPU "
-                                 f"twin: {err}")
-        return err
+            raise AssertionError(f"GPU guided DDIM ({label}) disagrees with "
+                                 f"the CPU twin: {err}")
+        return err, launches
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-def phase_search(unet_sd, cls_sd):
+def search_files(unet_sd, cls_sd):
+    """Checkpoint files of the seeded weights and reference statistics
+    from the port's own Inception features of 64 seeded images."""
     import numpy as np
     import torch
-    from autodiffusion_tpu_torch.cli.main import main as adt_torch
     from autodiffusion_tpu_torch.fid import (FIDStats, inception_apply,
                                              load_fid_inception,
                                              synthesize_pt_inception)
-    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     paths = {k: os.path.join(WORK, f) for k, f in (
         ("unet", "unet.pt"), ("cls", "classifier.pt"),
@@ -426,9 +927,19 @@ def phase_search(unet_sd, cls_sd):
         0, 256, (64, 64, 64, 3), dtype=np.uint8))
     FIDStats.from_features(inception_apply(inception, imgs)["pool3"]
                            .double().cpu().numpy()).save(paths["ref"])
-    del inception
+    return paths
 
-    save_dir = os.path.join(WORK, "search")
+
+def phase_search(paths, env, per_step, label: str):
+    """``adt-torch search`` under the switches of ``env``, its launch
+    counters set to 0 just before and read just after: each must equal
+    ``per_step`` times the guided steps run (and a kernel of the path may
+    not be missing)."""
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    save_dir = os.path.join(WORK, f"search_{label}")
     argv = ["search", "--device", "cuda",
             "--model_path", paths["unet"], "--classifier_path", paths["cls"],
             "--inception_path", paths["incep"], "--ref_stats", paths["ref"],
@@ -437,44 +948,46 @@ def phase_search(unet_sd, cls_sd):
             "--num_samples", "32", "--population_num", "4",
             "--select_num", "2", "--mutation_num", "2",
             "--crossover_num", "2", "--max_epochs", "1", "--seed", "0"]
-    reset_launch_counts()
-    t0 = time.time()
-    rc = adt_torch(argv)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(LAUNCHES)
+    with switches(env):
+        reset_launch_counts()
+        t0 = time.time()
+        rc = adt_torch(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
     if rc != 0:
-        raise AssertionError(f"adt-torch search returned {rc}")
+        raise AssertionError(f"adt-torch search ({label}) returned {rc}")
 
     with open(os.path.join(save_dir, "ea_state.json")) as f:
         fids = list(json.load(f)["vis_dict"].values())
     if not fids or not all(math.isfinite(x) and x >= 0 for x in fids):
-        raise AssertionError(f"invalid FIDs from the search: {fids}")
+        raise AssertionError(f"invalid FIDs from the search ({label}): "
+                             f"{fids}")
     with open(os.path.join(save_dir, "log.txt")) as f:
         phases = [tuple(float(v) for v in m.groups()) for m in re.finditer(
             r"reset_time: ([\d.]+), sample_time: ([\d.]+), "
             r"fid_time: ([\d.]+)", f.read())]
     chunks = len(phases)
     steps = chunks * 2 * 4            # chunks x 2 batches x DDIM-4
-    want = {k: v * steps for k, v in PER_STEP.items()}
-    log(f"search: {len(fids)} candidates, FIDs {fids}")
-    log(f"search: {chunks} chunks, {steps} guided DDIM steps at batch 32, "
-        f"launches {launches} (expected {want}), wall {wall:.1f} s")
-    for name, count in launches.items():
-        if count == 0:
+    want = {k: v * steps for k, v in per_step.items()}
+    log(f"search ({label}): {len(fids)} candidates, FIDs {fids}")
+    log(f"search ({label}): {chunks} chunks, {steps} guided DDIM steps at "
+        f"batch 32, launches {launches} (expected {want}), wall {wall:.1f} s")
+    for name, count in want.items():
+        if count and not launches[name]:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "search path")
+                                 f"search path ({label})")
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"launch counts ({label}) {launches} != {want}")
     imgs_per_chunk = 2 * 16 * 2
     sample_s = [p[1] for p in phases]
     steady = sample_s[1:] or sample_s
     ips = imgs_per_chunk * len(steady) / sum(steady)
-    log("search: per-chunk reset/sample/fid seconds: "
+    log(f"search ({label}): per-chunk reset/sample/fid seconds: "
         + "; ".join(f"{a:.3f}/{b:.3f}/{c:.3f}" for a, b, c in phases))
-    log(f"search: images/s through the guided sampler (sample phase = "
-        f"guided DDIM-4 + Inception + moments, chunks after the first): "
-        f"{ips:.2f}")
+    log(f"search ({label}): images/s through the guided sampler (sample "
+        f"phase = guided DDIM-4 + Inception + moments, chunks after the "
+        f"first): {ips:.2f}")
     return dict(fids=fids, launches=launches, expected_launches=want,
                 chunks=chunks, guided_steps=steps, phases=phases,
                 images_per_s=ips, wall_s=wall)
@@ -506,6 +1019,9 @@ def main() -> int:
 
     rows = phase_kernels()
     attn_ms, attn_sdpa_ms = attention_per_step(rows)
+    sites = adm64_sites()
+    new_rows = phase_new_kernels(sites)
+    new_ms = new_kernels_per_step(new_rows)
 
     os.makedirs(WORK, exist_ok=True)
     try:
@@ -519,18 +1035,35 @@ def main() -> int:
             f"params ({unet.layer_num} layers), classifier "
             f"{sum(p.numel() for p in cls.parameters())} params")
         del unet, cls
-        parity_err = phase_parity(unet_sd, cls_sd)
-        prof = phase_profile(unet_sd, cls_sd)
-        search = phase_search(unet_sd, cls_sd)
+        parity_err, _ = phase_parity(unet_sd, cls_sd, SWITCHES_OFF,
+                                     "switches off")
+        parity_on_err, parity_on_launches = phase_parity(
+            unet_sd, cls_sd, SWITCHES_ON, "switches on")
+        missing = [k for k in KERNEL_INFO if not parity_on_launches[k]]
+        if missing:
+            raise AssertionError(f"the switches-on parity run launched no "
+                                 f"{missing}")
+        with switches(SWITCHES_OFF):
+            prof = phase_profile(unet_sd, cls_sd)
+        ab = phase_ab(unet_sd, cls_sd)
+        paths = search_files(unet_sd, cls_sd)
+        search = phase_search(paths, SWITCHES_OFF, PER_STEP, "default")
+        search_on = phase_search(paths, SWITCHES_ON, PER_STEP_FUSED,
+                                 "switches on")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     head = {r["name"]: r for r in rows
             if (r["T"], r["heads"], r["dtype"]) == (1024, 6, "bfloat16")}
+    head.update(head_rows(new_rows))
+    # each kernel's launches on its own main path: the default search for
+    # the flash kernels, the search with the switches on for the new ones
+    launches = dict(search["launches"])
+    launches.update({k: search_on["launches"][k] for k in NEW_KERNELS})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
-         "launches": search["launches"][name],
+         "launches": launches[name],
          "max_abs_err": head[name]["max_abs_err"], "ms": head[name]["ms"],
          "plain_ms": head[name]["plain_ms"],
          "bound_ms": head[name]["bound_ms"],
@@ -542,10 +1075,16 @@ def main() -> int:
         json.dump({"card": smi, "torch": torch.__version__,
                    "cuda": torch.version.cuda,
                    "build_s": _build.last_build_seconds(),
-                   "kernel_rows": rows, "parity_max_abs_err": parity_err,
+                   "kernel_rows": rows, "new_kernel_rows": new_rows,
+                   "new_kernel_sites": {k: {str(s): n for s, n in v.items()}
+                                        for k, v in sites.items()},
+                   "new_kernels_ms_per_step": new_ms,
+                   "parity_max_abs_err": parity_err,
+                   "parity_switches_on_max_abs_err": parity_on_err,
                    "attention_ms_per_step": attn_ms,
                    "sdpa_attention_ms_per_step": attn_sdpa_ms,
-                   "profile": prof, "search": search, "kernels_line": line,
+                   "profile": prof, "ab": ab, "search": search,
+                   "search_switches_on": search_on, "kernels_line": line,
                    "total_s": time.time() - t_start}, f, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps(line))
