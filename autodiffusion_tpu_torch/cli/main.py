@@ -1,15 +1,21 @@
 """``adt-torch``: the command line of the PyTorch / CUDA port.
 
-Port of autodiffusion_tpu/cli/main.py. This slice carries the ``search``
-command (evolutionary timestep or joint timestep + architecture search for
-ADM models, search_imagenet64_classifier_guidance.py and its variants)
-with the JAX CLI's flags, plus ``--device`` (cuda by default; without CUDA
-it raises unless ``--device cpu`` is given).
+Port of autodiffusion_tpu/cli/main.py. Two commands so far, each with the
+JAX CLI's flags and defaults plus ``--device`` (cuda by default; without
+CUDA it raises unless ``--device cpu`` is given):
 
-Checkpoints are guided-diffusion ``.pt`` state dicts (loaded with
-``load_state_dict(strict=True)``), the Inception weights pytorch_fid's
-``pt_inception-2015-12-05`` ``.pth``, the reference statistics an
-``.npz`` of mu and sigma.
+  search      evolutionary timestep or joint timestep + architecture
+              search for ADM models (search_imagenet64_classifier_
+              guidance.py and its variants)
+  search-sd   the Stable Diffusion latent search (sd/scripts/search_ea.py):
+              classifier-free guided PLMS or DDIM, FID of the decoded
+              images against COCO statistics
+
+Checkpoints are guided-diffusion ``.pt`` state dicts and CompVis
+``sd-v1-*.ckpt`` files (loaded with ``load_state_dict(strict=True)``), the
+CLIP tokenizer a vocab.json / merges.txt pair, the Inception weights
+pytorch_fid's ``pt_inception-2015-12-05`` ``.pth``, the reference
+statistics an ``.npz`` of mu and sigma.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from .. import resolve_device
 from ..utils import logger
 from ..utils.config import add_dict_to_argparser
 
-__all__ = ["main", "cmd_search"]
+__all__ = ["main", "cmd_search", "cmd_search_sd"]
 
 
 def _search_defaults():
@@ -153,12 +159,103 @@ def cmd_search(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def _search_sd_defaults():
+    # the JAX CLI's search-sd flags (autodiffusion_tpu/cli/main.py:1243-1251)
+    return dict(
+        ckpt="", clip_vocab="", clip_merges="", captions="",
+        inception_path="", ref_stats="", save_dir="", sampler="plms",
+        scale=7.5, H=512, W=512, time_step=4, num_samples=1000,
+        batch_size=6, num_prompts=2000, max_epochs=10, select_num=10,
+        population_num=50, m_prob=0.25, crossover_num=15, mutation_num=25,
+        use_ddim_init_x=True, seed=0, candidate_chunk=2, use_bf16=True,
+        resume=False, device="cuda",
+    )
+
+
+def _sd_stack(args, dev):
+    """The three SD towers from a CompVis checkpoint, and the tokenizer."""
+    from ..models import (ClipBPETokenizer, create_sd_models,
+                          load_sd_checkpoint, split_sd_checkpoint)
+
+    parts = split_sd_checkpoint(load_sd_checkpoint(args.ckpt))
+    tok = ClipBPETokenizer.from_files(args.clip_vocab, args.clip_merges)
+    towers = create_sd_models(args.use_bf16, device=dev)
+    for module, part in zip(towers, parts):
+        module.load_state_dict(part, strict=True)
+    return (*towers, tok)
+
+
+def cmd_search_sd(args) -> int:
+    """Stable Diffusion latent search (sd/scripts/search_ea.py main)."""
+    import torch
+
+    from ..data import load_captions
+    from ..fid import FIDStats, inception_apply, load_fid_inception
+    from ..search import EvolutionSearcher, TimestepSpace, make_sd_fitness
+
+    dev = resolve_device(args.device)
+    for flag in ("ckpt", "clip_vocab", "clip_merges", "captions",
+                 "inception_path", "ref_stats"):
+        if not getattr(args, flag):
+            raise ValueError(f"search-sd needs --{flag}")
+    if args.sampler == "dpm_solver":
+        raise NotImplementedError(
+            "the dpm_solver sampler is not ported yet (ROADMAP.md, queue 1 "
+            "item 10): use --sampler plms or ddim")
+    if args.H != args.W or args.H % 8:
+        raise ValueError(f"search-sd takes square images with a side "
+                         f"divisible by 8; got {args.H}x{args.W}")
+    logger.configure(args.save_dir or None)
+    unet, vae, clip, tok = _sd_stack(args, dev)
+
+    # the CLIP text tower runs once, into a context bank of the prompts
+    captions = [c["caption"] for c in load_captions(args.captions,
+                                                    limit=args.num_prompts)]
+    ids = torch.from_numpy(tok(captions)).long().to(dev)
+    with torch.no_grad():
+        context_bank = torch.cat([clip(ids[i:i + 64])
+                                  for i in range(0, len(captions), 64)])
+        uncond = clip(torch.from_numpy(tok([""])).long().to(dev))[0]
+
+    inception = load_fid_inception(args.inception_path, device=dev)
+    fitness = make_sd_fitness(
+        unet=unet, vae=vae, context_bank=context_bank, uncond_context=uncond,
+        feature_fn=lambda imgs: inception_apply(inception, imgs),
+        ref_stats=FIDStats.load(args.ref_stats),
+        num_samples=args.num_samples, batch_size=args.batch_size,
+        sampler=args.sampler, guidance_scale=args.scale,
+        latent_hw=args.H // 8, candidate_chunk=args.candidate_chunk,
+        seed=args.seed, device=dev)
+    searcher = EvolutionSearcher(
+        TimestepSpace(1000, args.time_step), fitness,
+        population_num=args.population_num, select_num=args.select_num,
+        mutation_num=args.mutation_num, crossover_num=args.crossover_num,
+        m_prob=args.m_prob, max_epochs=args.max_epochs,
+        use_ddim_init_x=args.use_ddim_init_x,
+        checkpoint_path=(f"{args.save_dir}/ea_state.json"
+                         if args.save_dir else None))
+    _maybe_resume_ea(searcher, args)
+    t0 = time.time()
+    best, fid = searcher.search()
+    logger.log(f"total searching time = {(time.time() - t0) / 3600:.2f} hours")
+    print(json.dumps({"best": list(best), "fid": fid}))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="adt-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("search", help="evolutionary ADM search")
     add_dict_to_argparser(p, _search_defaults())
     p.set_defaults(fn=cmd_search)
+    p = sub.add_parser("search-sd", help="Stable Diffusion latent search")
+    add_dict_to_argparser(p, _search_sd_defaults())
+    p.set_defaults(fn=cmd_search_sd)
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
     return args.fn(args)
 

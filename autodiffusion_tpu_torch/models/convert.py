@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["unet_state_dict_from_flax", "classifier_state_dict_from_flax",
-           "inception_state_dict_from_flax"]
+           "inception_state_dict_from_flax", "sd_unet_state_dict_from_flax",
+           "vae_state_dict_from_flax", "clip_text_state_dict_from_flax"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -73,9 +74,34 @@ def _levels(p: Mapping, side: str):
                    and k.split("_")[1].isdigit()})
 
 
-def _trunk(sd: StateDict, p: Mapping) -> None:
-    """time_embed, input_blocks and middle_block (shared by the UNet and
-    the classifier)."""
+def _ln(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _spatial_transformer(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """A JAX SpatialTransformer -> CompVis names (sd_convert.py:34-60)."""
+    _gn(sd, prefix + ".norm", p["norm"])
+    _conv(sd, prefix + ".proj_in", p["proj_in"])
+    _conv(sd, prefix + ".proj_out", p["proj_out"])
+    d = 0
+    while f"block_{d}" in p:
+        bp, blk = f"{prefix}.transformer_blocks.{d}", p[f"block_{d}"]
+        for a in ("attn1", "attn2"):
+            for n in ("to_q", "to_k", "to_v"):
+                _linear(sd, f"{bp}.{a}.{n}", blk[a][n])
+            _linear(sd, f"{bp}.{a}.to_out.0", blk[a]["to_out"])
+        _linear(sd, bp + ".ff.net.0.proj", blk["ff"]["geglu"]["proj"])
+        _linear(sd, bp + ".ff.net.2", blk["ff"]["out"])
+        for n in ("norm1", "norm2", "norm3"):
+            _ln(sd, f"{bp}.{n}", blk[n])
+        d += 1
+
+
+def _trunk(sd: StateDict, p: Mapping, attn=_attnblock) -> None:
+    """time_embed, input_blocks and middle_block (shared by the UNet, the
+    classifier and, with ``attn`` the SpatialTransformer's, the SD
+    UNet)."""
     _linear(sd, "time_embed.0", p["time_embed_0"])
     _linear(sd, "time_embed.2", p["time_embed_2"])
     _conv(sd, "input_blocks.0.0", p["in_conv"])
@@ -85,8 +111,7 @@ def _trunk(sd: StateDict, p: Mapping) -> None:
         while f"down_{level}_{i}_res" in p:
             _resblock(sd, f"input_blocks.{idx}.0", p[f"down_{level}_{i}_res"])
             if f"down_{level}_{i}_attn" in p:
-                _attnblock(sd, f"input_blocks.{idx}.1",
-                           p[f"down_{level}_{i}_attn"])
+                attn(sd, f"input_blocks.{idx}.1", p[f"down_{level}_{i}_attn"])
             idx += 1
             i += 1
         ds = p.get(f"down_{level}_ds")
@@ -97,7 +122,7 @@ def _trunk(sd: StateDict, p: Mapping) -> None:
                 _resblock(sd, f"input_blocks.{idx}.0", ds)
             idx += 1
     _resblock(sd, "middle_block.0", p["mid_res0"])
-    _attnblock(sd, "middle_block.1", p["mid_attn"])
+    attn(sd, "middle_block.1", p["mid_attn"])
     _resblock(sd, "middle_block.2", p["mid_res1"])
 
 
@@ -108,6 +133,12 @@ def unet_state_dict_from_flax(params: Mapping) -> StateDict:
     _trunk(sd, p)
     if "label_emb" in p:
         sd["label_emb.weight"] = _t(p["label_emb"]["embedding"])
+    _outputs(sd, p)
+    return sd
+
+
+def _outputs(sd: StateDict, p: Mapping, attn=_attnblock) -> None:
+    """output_blocks, out.0 and out.2."""
     j = 0
     for level in reversed(_levels(p, "up")):
         n = 0
@@ -117,8 +148,7 @@ def unet_state_dict_from_flax(params: Mapping) -> StateDict:
             _resblock(sd, f"output_blocks.{j}.0", p[f"up_{level}_{i}_res"])
             sub = 1
             if f"up_{level}_{i}_attn" in p:
-                _attnblock(sd, f"output_blocks.{j}.{sub}",
-                           p[f"up_{level}_{i}_attn"])
+                attn(sd, f"output_blocks.{j}.{sub}", p[f"up_{level}_{i}_attn"])
                 sub += 1
             us = p.get(f"up_{level}_us")
             if i == n - 1 and us is not None:
@@ -129,6 +159,96 @@ def unet_state_dict_from_flax(params: Mapping) -> StateDict:
             j += 1
     _gn(sd, "out.0", p["out_norm"])
     _conv(sd, "out.2", p["out_conv"])
+
+
+def sd_unet_state_dict_from_flax(params: Mapping) -> StateDict:
+    """A JAX ``SDUNetModel``'s flax params -> the port's SDUNetModel state
+    dict (openaimodel names, as convert_sd_unet reads them)."""
+    p = params.get("params", params)
+    sd: StateDict = {}
+    _trunk(sd, p, _spatial_transformer)
+    _outputs(sd, p, _spatial_transformer)
+    return sd
+
+
+def _vae_gn(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _gn(sd, prefix, p["gn"])
+
+
+def _vae_res(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _vae_gn(sd, prefix + ".norm1", p["norm1"])
+    _conv(sd, prefix + ".conv1", p["conv1"])
+    _vae_gn(sd, prefix + ".norm2", p["norm2"])
+    _conv(sd, prefix + ".conv2", p["conv2"])
+    if "nin_shortcut" in p:
+        _conv(sd, prefix + ".nin_shortcut", p["nin_shortcut"])
+
+
+def _vae_attn(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _vae_gn(sd, prefix + ".norm", p["norm"])
+    for n in ("q", "k", "v", "proj_out"):
+        _conv(sd, f"{prefix}.{n}", p[n])
+
+
+def _vae_tower(sd: StateDict, prefix: str, p: Mapping, side: str) -> None:
+    """An Encoder ("down") or Decoder ("up") of the JAX AutoencoderKL."""
+    _conv(sd, prefix + ".conv_in", p["conv_in"])
+    _vae_res(sd, prefix + ".mid.block_1", p["mid_block_1"])
+    _vae_attn(sd, prefix + ".mid.attn_1", p["mid_attn_1"])
+    _vae_res(sd, prefix + ".mid.block_2", p["mid_block_2"])
+    resample = ("ds", "downsample") if side == "down" else ("us", "upsample")
+    for level in _levels(p, side):
+        lp = f"{prefix}.{side}.{level}"
+        i = 0
+        while f"{side}_{level}_block_{i}" in p:
+            _vae_res(sd, f"{lp}.block.{i}", p[f"{side}_{level}_block_{i}"])
+            if f"{side}_{level}_attn_{i}" in p:
+                _vae_attn(sd, f"{lp}.attn.{i}", p[f"{side}_{level}_attn_{i}"])
+            i += 1
+        rs = p.get(f"{side}_{level}_{resample[0]}")
+        if rs is not None:
+            _conv(sd, f"{lp}.{resample[1]}.conv", rs["conv"])
+    _vae_gn(sd, prefix + ".norm_out", p["norm_out"])
+    _conv(sd, prefix + ".conv_out", p["conv_out"])
+
+
+def vae_state_dict_from_flax(params: Mapping) -> StateDict:
+    """A JAX ``AutoencoderKL``'s flax params -> the port's AutoencoderKL
+    state dict (CompVis first_stage_model names, as convert_vae reads
+    them)."""
+    p = params.get("params", params)
+    sd: StateDict = {}
+    _vae_tower(sd, "encoder", p["encoder"], "down")
+    _vae_tower(sd, "decoder", p["decoder"], "up")
+    _conv(sd, "quant_conv", p["quant_conv"])
+    _conv(sd, "post_quant_conv", p["post_quant_conv"])
+    return sd
+
+
+def clip_text_state_dict_from_flax(params: Mapping) -> StateDict:
+    """A JAX ``CLIPTextEncoder``'s flax params -> the port's
+    CLIPTextEncoder state dict (HF CLIPTextModel names under
+    ``text_model.``, as convert_clip_text reads them)."""
+    p = params.get("params", params)
+    pre = "text_model."
+    pos = np.asarray(p["position_embedding"])
+    sd: StateDict = {
+        pre + "embeddings.token_embedding.weight":
+            _t(p["token_embedding"]["embedding"]),
+        pre + "embeddings.position_embedding.weight": _t(pos),
+        pre + "embeddings.position_ids": torch.arange(pos.shape[0])[None],
+    }
+    _ln(sd, pre + "final_layer_norm", p["final_ln"])
+    i = 0
+    while f"layer_{i}_attn" in p:
+        lp = f"{pre}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, lp + "self_attn." + n, p[f"layer_{i}_attn"][n])
+        _ln(sd, lp + "layer_norm1", p[f"layer_{i}_ln1"])
+        _ln(sd, lp + "layer_norm2", p[f"layer_{i}_ln2"])
+        _linear(sd, lp + "mlp.fc1", p[f"layer_{i}_fc1"])
+        _linear(sd, lp + "mlp.fc2", p[f"layer_{i}_fc2"])
+        i += 1
     return sd
 
 

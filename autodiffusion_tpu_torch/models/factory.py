@@ -1,8 +1,12 @@
-"""Model factories and the canonical ADM-64 flag bundles.
+"""Model factories: the canonical ADM-64 flag bundles and the Stable
+Diffusion v1 towers.
 
 Port of autodiffusion_tpu/models/factory.py (guided_diffusion/
-script_util.py:12-453). Factories take an explicit ``device`` and build on
-``cuda`` unless asked for another.
+script_util.py:12-453) plus the v1-inference configuration the JAX CLI
+builds its SD models with (models/sd_unet.py:25-44, models/vae.py:280-311,
+models/clip_text.py:29-38; configs/stable-diffusion/v1-inference.yaml).
+Factories take an explicit ``device`` and build on ``cuda`` unless asked
+for another.
 """
 
 from __future__ import annotations
@@ -16,11 +20,15 @@ from torch import nn
 
 from .. import compute_dtype, resolve_device
 from ..schedules import build_base_tables, build_tables
+from .clip_text import CLIPTextConfig, CLIPTextEncoder
+from .sd_unet import SDUNetModel
 from .unet import EncoderUNetModel, UNetModel
+from .vae import AutoencoderKL
 
 __all__ = ["ModelConfig", "ClassifierConfig", "create_model",
            "create_classifier", "create_tables", "random_init_",
-           "parse_channel_mult", "attention_ds", "NUM_CLASSES"]
+           "parse_channel_mult", "attention_ds", "NUM_CLASSES",
+           "SD_V1_UNET", "SD_V1_VAE", "create_sd_models"]
 
 NUM_CLASSES = 1000
 
@@ -148,6 +156,31 @@ def create_classifier(cfg: ClassifierConfig, num_classes: Optional[int] = None,
         pool=cfg.classifier_pool,
         dtype=compute_dtype(cfg.classifier_use_bf16),
     ).to(dev).eval()
+
+
+# v1-inference.yaml: the UNet (860 M parameters), the KL-f8 autoencoder and
+# (CLIPTextConfig's defaults) the ViT-L/14 text tower
+SD_V1_UNET = dict(in_channels=4, model_channels=320, out_channels=4,
+                  num_res_blocks=2, attention_ds=(1, 2, 4),
+                  channel_mult=(1, 2, 4, 4), num_heads=8,
+                  transformer_depth=1, context_dim=768)
+SD_V1_VAE = dict(ch=128, out_ch=3, ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                 attn_at_ds=(), z_channels=4, embed_dim=4)
+
+
+def create_sd_models(use_bf16: bool = True, device=None
+                     ) -> Tuple[SDUNetModel, AutoencoderKL, CLIPTextEncoder]:
+    """(UNet, AutoencoderKL, CLIP text encoder) of Stable Diffusion v1 on
+    ``device`` (cuda by default), in eval mode, computing in bfloat16
+    under ``use_bf16`` (parameters float32)."""
+    dev = resolve_device(device)
+    dtype = compute_dtype(use_bf16)
+    # built on the device itself: a billion parameters' initialisation is
+    # seconds on the card and much longer on the host
+    with torch.device(dev):
+        return (SDUNetModel(**SD_V1_UNET, dtype=dtype).eval(),
+                AutoencoderKL(**SD_V1_VAE, dtype=dtype).eval(),
+                CLIPTextEncoder(CLIPTextConfig(), dtype=dtype).eval())
 
 
 def create_tables(cfg: ModelConfig, use_timesteps=None):

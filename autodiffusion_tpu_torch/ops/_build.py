@@ -37,6 +37,11 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "flash_fwd": ("adt_flash_fwd",
                   [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
+    "flash_fwd_packed": ("adt_flash_fwd_packed",
+                         [_c_void_p] * 5 + [_c_int] * 7 + [_c_float,
+                                                           _c_void_p]),
+    "flash_fwd_wide": ("adt_flash_fwd_wide",
+                       [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_bwd_dq": ("adt_flash_bwd_dq",
                      [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_bwd_dkv": ("adt_flash_bwd_dkv",

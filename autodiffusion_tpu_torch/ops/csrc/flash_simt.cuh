@@ -7,13 +7,14 @@
 //
 // Work split: a block of kThreads threads owns BM rows (query rows in the
 // forward and dQ kernels, key rows in the dK/dV kernel). Each row is shared
-// by TPR = D / 16 neighbouring lanes of one warp, and each lane owns 16 of
-// the D features as four float4 chunks, interleaved (lane g of a row owns
-// chunks g, g + TPR, g + 2 TPR, g + 3 TPR) so that the lanes of a row read
-// 64 contiguous bytes of shared memory at a time (no bank conflicts). A dot
-// product over D is 16 fused multiply-adds per lane plus log2(TPR) xor
-// shuffles. The other operand streams through shared memory in tiles of
-// kTileFloats floats.
+// by TPR neighbouring lanes of one warp (a power of two), and each lane owns
+// NC float4 chunks of the D features, interleaved (lane g of a row owns
+// chunks g, g + TPR, g + 2 TPR, ...) so that the lanes of a row read
+// contiguous bytes of shared memory at a time. NC is 4 (16 features a lane,
+// TPR = D / 16) where that gives a power of two, else 5 (D = 40: TPR 2;
+// D = 80: TPR 4). A dot product over D is 4 NC fused multiply-adds per lane
+// plus log2(TPR) xor shuffles. The other operand streams through shared
+// memory in tiles of at most kTileFloats floats.
 //
 // Numerics follow the TPU kernels (autodiffusion_tpu/ops/flash_attention.py):
 // float32 products summed in float32, the 1/sqrt(D) scale applied to the
@@ -25,21 +26,23 @@
 namespace adt {
 
 constexpr int kThreads = 256;
-constexpr int kDPerThread = 16;
-constexpr int kTileFloats = 4096;   // one staged tile: 16 KB of float32
+constexpr int kTileFloats = 4096;   // one staged tile: at most 16 KB of float32
 constexpr int kChunk = 16;          // keys (or queries) per softmax chunk
 constexpr float kNegInf = -1e30f;
 
+constexpr bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
 template <int D>
 struct Geometry {
-  static_assert(D % kDPerThread == 0 && 32 % (D / kDPerThread) == 0,
-                "head dim must be 16, 32, 64 or 128");
-  static constexpr int TPR = D / kDPerThread;     // lanes per row
-  static constexpr int BM = kThreads / TPR;       // rows per block
-  static constexpr int BN = kTileFloats / D;      // rows per staged tile
-  static constexpr int NC = kDPerThread / 4;      // float4 chunks per lane
-  static constexpr int C4 = D / 4;                // float4 chunks per row
-  static_assert(BN % kChunk == 0, "tile rows must be a multiple of the chunk");
+  static constexpr int C4 = D / 4;                            // float4 chunks per row
+  static constexpr int NC = (C4 % 4 == 0 && is_pow2(C4 / 4)) ? 4 : 5;  // chunks per lane
+  static constexpr int TPR = C4 / NC;                         // lanes per row
+  static_assert(D % 4 == 0 && C4 % NC == 0 && is_pow2(TPR) && TPR <= 32,
+                "no CUDA-core row split for this head dim");
+  static constexpr int BM = kThreads / TPR;                   // rows per block
+  // rows per staged tile, a multiple of the softmax chunk CH
+  static constexpr int CH = kTileFloats / D < kChunk ? kTileFloats / D : kChunk;
+  static constexpr int BN = kTileFloats / D / CH * CH;
 };
 
 __device__ __forceinline__ float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
@@ -83,16 +86,18 @@ __device__ __forceinline__ void row_sum2(float& x, float& y) {
   }
 }
 
-// Stage rows [r0, r0 + BN) of a [rows, D] matrix into shared memory as
-// float32, zero-filling rows at or past `rows`.
+// Stage rows [r0, r0 + BN) of a [rows, D] matrix whose rows lie `ld`
+// floats apart into shared memory as float32, zero-filling rows at or past
+// `rows`.
 template <int D>
-__device__ __forceinline__ void stage_tile(float4* dst, const float* src, int r0, int rows) {
+__device__ __forceinline__ void stage_tile(float4* dst, const float* src, int r0, int rows,
+                                           int ld = D) {
   using G = Geometry<D>;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < G::BN * G::C4; idx += kThreads) {
     const int r = r0 + idx / G::C4;
     const int c = idx % G::C4;
-    dst[idx] = r < rows ? *reinterpret_cast<const float4*>(src + (size_t)r * D + c * 4) : zero4();
+    dst[idx] = r < rows ? *reinterpret_cast<const float4*>(src + (size_t)r * ld + c * 4) : zero4();
   }
 }
 

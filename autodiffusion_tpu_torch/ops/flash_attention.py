@@ -1,23 +1,33 @@
-"""Flash attention: three hand-written Hopper kernels and their plain twins.
+"""Flash attention: hand-written Hopper kernels and their plain twins.
 
 Port of autodiffusion_tpu/ops/flash_attention.py. The TPU package wrote the
-forward (``_attn_kernel``) and the FlashAttention-2 backward
-(``_dq_kernel``, ``_dkv_kernel``) in Pallas; here they are CUDA C++ kernels
-in ``ops/csrc/`` (built by ``ops/_build.py`` with nvcc for sm_90a):
+forward (``_attn_kernel``), its head-packed small-head-dim variant
+(``_attn_kernel_packed``) and the FlashAttention-2 backward (``_dq_kernel``,
+``_dkv_kernel``) in Pallas; here they are CUDA C++ kernels in ``ops/csrc/``
+(built by ``ops/_build.py`` with nvcc for sm_90a):
 
-  flash_fwd       o, lse = softmax(q k^T / sqrt(D)) v, logsumexp
-  flash_bwd_dq    dq from (q, k, v, dO, lse, delta)
-  flash_bwd_dkv   dk, dv from the same
+  flash_fwd         o, lse = softmax(q k^T / sqrt(D)) v, logsumexp, for
+                    D in {16, 32, 64, 80, 128}
+  flash_fwd_wide    the same at D = 512 (the VAE mid-block's single head),
+                    the output head dim split across blocks
+  flash_fwd_packed  the same for D in {16, 32, 40, 64} on the token-major
+                    [B, T, H * D] layout of the attention projections
+  flash_bwd_dq      dq from (q, k, v, dO, lse, delta)
+  flash_bwd_dkv     dk, dv from the same
 
-Each wrapper takes [N, T, D] q / dO and [N, S, D] k / v (N = batch * heads)
-in float32 or bfloat16 with D in {16, 32, 64, 128}. On a CUDA tensor it
-launches its kernel (and counts the launch in ``LAUNCHES``) or raises; on a
-CPU tensor it computes its plain PyTorch twin, which repeats the kernel's
-arithmetic. :class:`FlashAttentionFunction` wires the three into autograd.
-Each source holds two kernels for its function: bfloat16 inputs run on the
-tensor cores (mma.sync), float32 inputs on the CUDA cores, where the
-products keep their float32 operands (the tensor cores would round them to
-TF32).
+:func:`flash_fwd` takes [N, T, D] q and [N, S, D] k, v (N = batch * heads)
+and launches ``flash_fwd`` or, at D = 512, ``flash_fwd_wide``;
+:func:`flash_fwd_packed` takes [B, T, H * D] q and [B, S, H * D] k, v; the
+backward wrappers take [N, T, D] with D in {16, 32, 64, 128}. All take
+float32 or bfloat16. On a CUDA tensor a wrapper launches its kernel (and
+counts the launch in ``LAUNCHES``) or raises; on a CPU tensor it computes
+its plain PyTorch twin, which repeats the kernel's arithmetic.
+:class:`FlashAttentionFunction` wires forward and backward into autograd;
+:func:`multihead_attention` is the forward-only entry of the Stable
+Diffusion models, routing each head dim to its kernel. Each source holds
+two kernels for its function: bfloat16 inputs run on the tensor cores
+(mma.sync), float32 inputs on the CUDA cores, where the products keep their
+float32 operands (the tensor cores would round them to TF32).
 
 Numerics (as the TPU kernels): products of input-dtype operands summed in
 float32, the 1/sqrt(D) scale applied to the float32 logits after the dot,
@@ -37,10 +47,18 @@ from ._build import LAUNCHES, launch, reset_launch_counts
 __all__ = ["flash_attention", "flash_attention_reference",
            "FlashAttentionFunction", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_fwd_plain", "flash_bwd_dq_plain",
-           "flash_bwd_dkv_plain", "LAUNCHES", "reset_launch_counts",
-           "SUPPORTED_HEAD_DIMS"]
+           "flash_bwd_dkv_plain", "flash_fwd_packed",
+           "flash_fwd_packed_plain", "multihead_attention", "LAUNCHES",
+           "reset_launch_counts", "SUPPORTED_HEAD_DIMS", "FWD_HEAD_DIMS",
+           "PACKED_HEAD_DIMS", "WIDE_HEAD_DIM"]
 
+# head dims of the backward kernels (and of FlashAttentionFunction)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# head dims of the forward: flash_fwd, and flash_fwd_wide at WIDE_HEAD_DIM
+FWD_HEAD_DIMS = (16, 32, 64, 80, 128)
+WIDE_HEAD_DIM = 512
+# head dims of flash_fwd_packed (D = 40: the Stable Diffusion 64x64 level)
+PACKED_HEAD_DIMS = (16, 32, 40, 64)
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
@@ -103,7 +121,9 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta
 
 # ------------------------------------------------------------------ wrappers
 
-def _check(q, k, v, *more):
+def _check(q, k, v, *more, dims=SUPPORTED_HEAD_DIMS, head_dim=None):
+    """Validate; True for CUDA tensors (launch), False for CPU (twin). The
+    head dim is the last axis unless ``head_dim`` gives it."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash kernels take [N, T, D] q and [N, S, D] k, v; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -123,10 +143,21 @@ def _check(q, k, v, *more):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash kernels run on cuda (or their plain twins "
                          f"on cpu), not {dev}")
-    if dev.type == "cuda" and d not in SUPPORTED_HEAD_DIMS:
+    d = d if head_dim is None else head_dim
+    if dev.type == "cuda" and d not in dims:
         raise ValueError(f"head dim {d} has no flash kernel; built for "
-                         f"{SUPPORTED_HEAD_DIMS}")
+                         f"{dims}")
     return dev.type == "cuda"
+
+
+def _no_grad_wanted(*tensors) -> None:
+    """The forward-only kernels give no gradient: refuse inputs that ask
+    for one rather than cut the graph silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("this flash forward has no backward kernel; call "
+                           "it under torch.no_grad() (or use "
+                           "flash_attention for head dims "
+                           f"{SUPPORTED_HEAD_DIMS})")
 
 
 def _arg(t: torch.Tensor) -> torch.Tensor:
@@ -139,18 +170,100 @@ def _arg(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel: (o [N,T,D] in v's dtype, lse [N,T] float32)."""
-    if not _check(q, k, v):
+    """Forward kernel: (o [N,T,D] in v's dtype, lse [N,T] float32); the
+    ``flash_fwd`` kernel for D in FWD_HEAD_DIMS, ``flash_fwd_wide`` for
+    D = 512."""
+    if not _check(q, k, v, dims=FWD_HEAD_DIMS + (WIDE_HEAD_DIM,)):
         return flash_fwd_plain(q, k, v)
+    _no_grad_wanted(q, k, v)
     q, k, v = _arg(q), _arg(k), _arg(v)
     n, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((n, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), n, t, k.shape[1], d,
-                int(q.dtype == torch.bfloat16), _scale(d))
+        launch("flash_fwd_wide" if d == WIDE_HEAD_DIM else "flash_fwd",
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               lse.data_ptr(), n, t, k.shape[1], d,
+               int(q.dtype == torch.bfloat16), _scale(d))
     return o, lse
+
+
+def _heads_first(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, L, H * D] -> [B * H, L, D]."""
+    b, n, hd = x.shape
+    return x.reshape(b, n, heads, hd // heads).transpose(1, 2) \
+        .reshape(b * heads, n, hd // heads)
+
+
+def _tokens_first(x: torch.Tensor, b: int) -> torch.Tensor:
+    """[B * H, L, D] -> [B, L, H * D]."""
+    bh, n, d = x.shape
+    return x.reshape(b, bh // b, n, d).transpose(1, 2).reshape(b, n, -1)
+
+
+def flash_fwd_packed_plain(q, k, v, heads: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the packed forward kernel: (o [B, T, H * D], lse
+    [B * H, T])."""
+    o, lse = flash_fwd_plain(_heads_first(q, heads), _heads_first(k, heads),
+                             _heads_first(v, heads))
+    return _tokens_first(o, q.shape[0]), lse
+
+
+def _check_packed(q, k, v, heads: int) -> int:
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError("flash_fwd_packed takes [B, T, H * D] q and "
+                         f"[B, S, H * D] k, v; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, hd = q.shape
+    if heads < 1 or hd % heads or k.shape[0] != b or k.shape[2] != hd:
+        raise ValueError(f"{heads} heads do not split q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    return hd // heads
+
+
+def flash_fwd_packed(q, k, v, heads: int, *, _raw_pad: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed forward kernel: (o [B, T, H * D] in v's dtype, lse [B * H, T]
+    float32) for token-major q [B, T, H * D] and k, v [B, S, H * D], read
+    and written in that layout. ``_raw_pad`` (kernel checks only) makes the
+    kernel read a padded head dim's padding from memory instead of zeroing
+    it."""
+    d = _check_packed(q, k, v, heads)
+    if not _check(q, k, v, dims=PACKED_HEAD_DIMS, head_dim=d):
+        return flash_fwd_packed_plain(q, k, v, heads)
+    _no_grad_wanted(q, k, v)
+    q, k, v = _arg(q), _arg(k), _arg(v)
+    b, t, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * heads, t), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        launch("flash_fwd_packed", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               o.data_ptr(), lse.data_ptr(), b, heads, t, k.shape[1], d,
+               int(q.dtype == torch.bfloat16), int(_raw_pad), _scale(d))
+    return o, lse
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        heads: int) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v per head, forward only, for token-major
+    q [B, T, H * D] and k, v [B, S, H * D] -> [B, T, H * D]: the attention
+    of the Stable Diffusion models (CrossAttention, VAEAttnBlock). Each head
+    dim goes to its kernel, self- and cross-attention alike and whatever
+    the token count: D in PACKED_HEAD_DIMS to ``flash_fwd_packed`` on the
+    layout as it is; D in FWD_HEAD_DIMS or D = 512 to ``flash_fwd`` (or
+    ``flash_fwd_wide``) on [B * H, T, D]. Other head dims (the SD 16x16 and
+    8x8 levels' D = 160) are plain PyTorch, as the JAX package computes
+    them outside its kernels. CPU tensors take the twins."""
+    d = _check_packed(q, k, v, heads)
+    if d in PACKED_HEAD_DIMS:
+        return flash_fwd_packed(q, k, v, heads)[0]
+    qh, kh, vh = (_heads_first(z, heads) for z in (q, k, v))
+    if d in FWD_HEAD_DIMS or d == WIDE_HEAD_DIM:
+        o = flash_fwd(qh, kh, vh)[0]
+    else:
+        o = flash_attention_reference(qh, kh, vh)
+    return _tokens_first(o, q.shape[0])
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:

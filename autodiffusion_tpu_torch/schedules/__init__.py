@@ -2,8 +2,8 @@
 
 from .beta import betas_for_alpha_bar, make_beta_schedule
 from .respace import respaced_betas, space_timesteps
-from .tables import (ScheduleTables, build_base_tables, build_tables,
-                     stack_tables)
+from .tables import (ScheduleTables, build_base_tables, build_sd_tables,
+                     build_tables, stack_tables)
 
 __all__ = [
     "betas_for_alpha_bar",
@@ -13,5 +13,6 @@ __all__ = [
     "ScheduleTables",
     "build_base_tables",
     "build_tables",
+    "build_sd_tables",
     "stack_tables",
 ]

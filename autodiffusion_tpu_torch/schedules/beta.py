@@ -1,7 +1,8 @@
 """Beta (noise) schedules, computed in float64 on the host.
 
 Reference behavior: guided_diffusion/gaussian_diffusion.py:18-62 (linear and
-cosine schedules).
+cosine schedules) and Stable Diffusion's
+ldm/modules/diffusionmodules/util.py:21-43 (sqrt-space "linear" schedule).
 All schedule derivation stays in host numpy float64 — the arrays are tiny
 (length T<=1000) and the downstream respacing math is sensitive to rounding;
 only the final per-step gathered tables are shipped to device as float32.
@@ -30,13 +31,18 @@ def betas_for_alpha_bar(num_steps: int, alpha_bar, max_beta: float = 0.999) -> n
     return np.asarray(betas, dtype=np.float64)
 
 
-def make_beta_schedule(name: str, num_steps: int) -> np.ndarray:
+def make_beta_schedule(name: str, num_steps: int, *,
+                       linear_start: float = None,
+                       linear_end: float = None) -> np.ndarray:
     """Return float64 betas of shape [num_steps] for a named schedule.
 
     ``linear``  — the DDPM linear schedule, scaled so any T is equivalent to
                   the canonical T=1000 run (scale = 1000/T).
     ``cosine``  — the improved-DDPM cosine schedule,
                   alpha_bar(t) = cos^2(((t + 0.008)/1.008) * pi/2).
+    ``sqrt_linear`` — Stable Diffusion's schedule: betas linear in sqrt-space
+                  between ``linear_start`` (default 8.5e-4) and ``linear_end``
+                  (default 1.2e-2).
     """
     if name == "linear":
         scale = 1000.0 / num_steps
@@ -47,4 +53,9 @@ def make_beta_schedule(name: str, num_steps: int) -> np.ndarray:
             num_steps,
             lambda t: math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2,
         )
+    if name == "sqrt_linear":
+        lo = 8.5e-4 if linear_start is None else linear_start
+        hi = 1.2e-2 if linear_end is None else linear_end
+        return np.linspace(lo ** 0.5, hi ** 0.5, num_steps,
+                           dtype=np.float64) ** 2
     raise ValueError(f"unknown beta schedule: {name!r}")

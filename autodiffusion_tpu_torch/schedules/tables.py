@@ -20,7 +20,7 @@ from .beta import make_beta_schedule
 from .respace import respaced_betas, space_timesteps
 
 __all__ = ["ScheduleTables", "build_tables", "build_base_tables",
-           "stack_tables"]
+           "build_sd_tables", "stack_tables"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +94,8 @@ def _derive(betas: np.ndarray) -> dict:
 
 
 def _to_tables(betas: np.ndarray, timestep_map: Sequence[int],
-               base_T: int) -> ScheduleTables:
-    d = _derive(betas)
+               base_T: int, derived: Optional[dict] = None) -> ScheduleTables:
+    d = _derive(betas) if derived is None else derived
     tmap = np.asarray(timestep_map, dtype=np.int64)
     cont = (tmap.astype(np.float64) + 1.0) / float(base_T)
     f32 = {k: torch.from_numpy(v.astype(np.float32)) for k, v in d.items()}
@@ -128,6 +128,57 @@ def build_tables(use_timesteps: Union[str, Iterable[int]], *,
     base_abar = np.cumprod(1.0 - base_betas)
     new_betas, timestep_map = respaced_betas(base_abar, use_timesteps)
     return _to_tables(new_betas, timestep_map, T)
+
+
+def build_sd_tables(use_timesteps: Iterable[int], *,
+                    base_num_steps: int = 1000,
+                    linear_start: float = 0.00085,
+                    linear_end: float = 0.012) -> ScheduleTables:
+    """Tables with CompVis DDIM/PLMS semantics
+    (ldm/modules/diffusionmodules/util.py:64-76 make_ddim_sampling_parameters).
+
+    Differs from :func:`build_tables` in one quirk, kept on purpose:
+    alphas_cumprod_prev[0] is alpha_bar[0] of the *base* process (not 1.0),
+    as ``alphas_prev = [alphacums[0]] + alphacums[steps[:-1]]``. CompVis's
+    "linear" schedule is sqrt-space linear, ``sqrt_linear`` here."""
+    base_betas = make_beta_schedule("sqrt_linear", base_num_steps,
+                                    linear_start=linear_start,
+                                    linear_end=linear_end)
+    T = len(base_betas)
+    steps = sorted(set(int(t) for t in use_timesteps))
+    if not steps:
+        raise ValueError("use_timesteps must be non-empty")
+    if steps[0] < 0 or steps[-1] >= T:
+        raise ValueError(f"timesteps must lie in [0, {T})")
+    abar = np.cumprod(1.0 - base_betas)
+    a = abar[steps]
+    a_prev = np.concatenate([[abar[0]], a[:-1]])
+    # per-step betas consistent with (a, a_prev) through the generic
+    # derivation, then every cumulative-product and posterior field from
+    # the exact CompVis arrays: with step 0 in the subset the quirk makes
+    # betas_k[0] == 0, and _derive's own cumprod would give 0/0 there
+    betas_k = 1.0 - a / a_prev
+    with np.errstate(divide="ignore", invalid="ignore"):
+        d = _derive(betas_k)
+    pv = betas_k * (1.0 - a_prev) / (1.0 - a)
+    plvc = (np.log(np.append(pv[1], pv[1:])) if len(betas_k) > 1
+            else np.log(np.maximum(pv, 1e-20)))
+    d.update(
+        posterior_variance=pv,
+        posterior_log_variance_clipped=plvc,
+        posterior_mean_coef1=betas_k * np.sqrt(a_prev) / (1.0 - a),
+        posterior_mean_coef2=((1.0 - a_prev) * np.sqrt(1.0 - betas_k)
+                              / (1.0 - a)),
+        alphas_cumprod=a,
+        alphas_cumprod_prev=a_prev,
+        alphas_cumprod_next=np.append(a[1:], 0.0),
+        sqrt_alphas_cumprod=np.sqrt(a),
+        sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - a),
+        log_one_minus_alphas_cumprod=np.log(1.0 - a),
+        sqrt_recip_alphas_cumprod=np.sqrt(1.0 / a),
+        sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / a - 1.0),
+    )
+    return _to_tables(betas_k, steps, T, derived=d)
 
 
 def stack_tables(tables: Sequence[ScheduleTables]) -> ScheduleTables:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the GPU, held against their plain twins:
-flash attention (forward, dQ, dK/dV), the fused GroupNorm (forward,
-backward) and the 3x3 convolutions (im2col, fused norm-act-conv).
+flash attention (forward at D <= 128 and D = 512, the packed small-head-dim
+forward, dQ, dK/dV), the fused GroupNorm (forward, backward) and the 3x3
+convolutions (im2col, fused norm-act-conv).
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda``, and
 skips where ``torch.cuda.is_available()`` is false. The file imports no
@@ -32,7 +33,8 @@ from autodiffusion_tpu_torch.ops.conv_im2col import (
 from autodiffusion_tpu_torch.ops.flash_attention import (
     LAUNCHES, flash_attention, flash_attention_reference, flash_bwd_dkv,
     flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain, flash_fwd,
-    flash_fwd_plain, reset_launch_counts)
+    flash_fwd_packed, flash_fwd_packed_plain, flash_fwd_plain,
+    multihead_attention, reset_launch_counts)
 from autodiffusion_tpu_torch.ops.fused_norm import (
     FusedGroupNormFunction, group_norm_bwd, group_norm_bwd_plain,
     group_norm_fwd, group_norm_fwd_plain, group_norm_reference)
@@ -135,6 +137,112 @@ def test_unsupported_head_dim_raises(cuda_device):
     q = torch.zeros(1, 8, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_fwd(q, q, q)
+
+
+def _limit_ratio(got, want, dtype):
+    """max |got - want| / limit (the limits of _assert_within_limit)."""
+    diff = (got.float() - want.float()).abs()
+    a = want.float().abs()
+    lim = 2e-5 * (1 + a) if dtype == torch.float32 else \
+        2 ** -6 * a + 2 ** -8 * a.max()
+    return float((diff / lim.clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s,d", [(1024, 1024, 80), (1024, 77, 80),
+                                   (300, 200, 80), (700, 650, 512),
+                                   (64, 130, 512)])
+def test_forward_new_head_dims_match_twin(cuda_device, dtype, t, s, d):
+    """flash_fwd at D = 80 (the SD 32x32 level) and D = 512 (the VAE
+    mid-block, the flash_fwd_wide kernel); a run with one 64-key tile
+    left out breaks the limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = _randn(gen, cuda_device, dtype, 2, t, d)
+    k, v = (_randn(gen, cuda_device, dtype, 2, s, d) for _ in range(2))
+    reset_launch_counts()
+    o, lse = flash_fwd(q, k, v)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    stem = "flash_fwd_wide" if d == 512 else "flash_fwd"
+    assert LAUNCHES == _launched(**{stem: 1})
+    _assert_within_limit(o, o_ref, dtype, "o")
+    _assert_within_limit(lse, lse_ref, torch.float32, "lse")
+    dropped = flash_fwd(q, k[:, 64:], v[:, 64:])[0]
+    assert _limit_ratio(dropped, o_ref, dtype) > 1
+
+
+def _packed_inputs(gen, dev, dtype, b, heads, d, t, s):
+    """Token-major q, k, v, the values of every other head eight times
+    larger, so that a kernel reading a neighbouring head's features breaks
+    the limit."""
+    scale = torch.tensor([1.0 if h % 2 == 0 else 8.0 for h in range(heads)],
+                         device=dev).repeat_interleave(d)
+    q = torch.randn(b, t, heads * d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, heads * d, generator=gen, device=dev).to(dtype)
+    v = (torch.randn(b, s, heads * d, generator=gen, device=dev)
+         * scale).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,d,t,s", [
+    (2, 8, 40, 300, 300), (2, 8, 40, 256, 77), (3, 8, 40, 130, 129),
+    (2, 5, 64, 100, 70), (1, 4, 32, 64, 64), (2, 2, 16, 50, 40)])
+def test_packed_forward_matches_twin(cuda_device, dtype, b, heads, d, t, s):
+    """flash_fwd_packed on the token-major layout against its twin; runs
+    with the heads shifted by one (a wrong head offset), with one 64-key
+    tile left out, and (D = 40 in bf16) with the padding lanes read from
+    memory instead of zeroed all break the limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = _packed_inputs(gen, cuda_device, dtype, b, heads, d, t, s)
+    reset_launch_counts()
+    o, lse = flash_fwd_packed(q, k, v, heads)
+    o_ref, lse_ref = flash_fwd_packed_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(flash_fwd_packed=1)
+    assert o.shape == q.shape and lse.shape == (b * heads, t)
+    _assert_within_limit(o, o_ref, dtype, "o")
+    _assert_within_limit(lse, lse_ref, torch.float32, "lse")
+    shifted = [z.roll(d, dims=2) for z in (k, v)]
+    faults = [flash_fwd_packed(q, *shifted, heads)[0]]
+    if s > 64:
+        faults.append(flash_fwd_packed(q, k[:, 64:], v[:, 64:], heads)[0])
+    if d % 16 and dtype == torch.bfloat16:
+        # (the float32 kernel runs on the CUDA cores and pads nothing)
+        faults.append(flash_fwd_packed(q, k, v, heads, _raw_pad=True)[0])
+    for bad in faults:
+        assert _limit_ratio(bad, o_ref, dtype) > 1
+
+
+@pytest.mark.cuda
+def test_multihead_attention_routes_each_head_dim(cuda_device):
+    """D = 40 to the packed kernel, D = 80 to flash_fwd, D = 512 to
+    flash_fwd_wide, D = 160 to plain PyTorch; each against the plain
+    twin."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for heads, d, stem in ((8, 40, "flash_fwd_packed"), (8, 80, "flash_fwd"),
+                           (1, 512, "flash_fwd_wide"), (8, 160, None)):
+        q = _randn(gen, cuda_device, torch.bfloat16, 2, 100, heads * d)
+        ctx = _randn(gen, cuda_device, torch.bfloat16, 2, 77, heads * d)
+        reset_launch_counts()
+        with torch.no_grad():
+            out = multihead_attention(q, ctx, ctx, heads)
+        want = flash_fwd_packed_plain(q, ctx, ctx, heads)[0]
+        torch.cuda.synchronize()
+        assert LAUNCHES == _launched(**({stem: 1} if stem else {}))
+        _assert_within_limit(out, want, torch.bfloat16, f"D={d}")
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_gradients(cuda_device):
+    q = torch.zeros(1, 64, 80, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        flash_fwd(q, q, q)
+    qp = torch.zeros(1, 64, 80, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        flash_fwd_packed(qp, qp, qp, 2)
 
 
 @pytest.fixture

@@ -1,7 +1,8 @@
 """Flash attention of the PyTorch port against the JAX package's kernels.
 
 On the CPU the port computes its plain twins; the JAX side runs its Pallas
-kernels in interpret mode with 64-token blocks, as tests/test_ops.py does.
+kernels in interpret mode with 64-token blocks (128 for the head-packed
+kernel), as tests/test_ops.py does.
 Tolerances are the JAX tests' own: forward 2e-5 (fp32) and 3e-2 (bf16);
 gradients 3e-5 (fp32) and 6e-2 (bf16), the tolerances
 tests/test_ops.py holds the Pallas backward to.
@@ -17,11 +18,13 @@ import pytest
 import torch
 
 from autodiffusion_tpu.ops import flash_attention as jax_flash
-from autodiffusion_tpu.ops.flash_attention import _flash_forward
+from autodiffusion_tpu.ops.flash_attention import (_flash_forward,
+                                                  _flash_forward_packed)
 from autodiffusion_tpu_torch.ops.flash_attention import (
     LAUNCHES, FlashAttentionFunction, flash_attention,
     flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_plain,
-    flash_bwd_dq, flash_bwd_dq_plain, flash_fwd, flash_fwd_plain,
+    flash_bwd_dq, flash_bwd_dq_plain, flash_fwd, flash_fwd_packed,
+    flash_fwd_packed_plain, flash_fwd_plain, multihead_attention,
     reset_launch_counts)
 from test_torch_package import one_torch_thread  # noqa: F401
 
@@ -138,3 +141,81 @@ def test_wrappers_reject_bad_inputs():
         flash_fwd(q, torch.zeros(2, 8, 32), torch.zeros(2, 8, 32))
     with pytest.raises(ValueError):
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def _tokens(a):
+    """[B, H, L, D] -> token-major [B, L, H * D]."""
+    b, h, n, d = a.shape
+    return torch.from_numpy(np.ascontiguousarray(
+        a.transpose(0, 2, 1, 3).reshape(b, n, h * d)))
+
+
+@pytest.mark.parametrize("t,s", [(128, 128), (128, 77), (200, 200),
+                                 (200, 77)])
+def test_packed_twin_matches_pallas_packed_kernel(t, s):
+    """flash_fwd_packed's twin (token-major [B, T, H * D], D = 40, 8
+    heads) against the JAX head-packed kernel with G = 3 heads a step
+    (8 heads: 3 groups, the last one padded), o and lse, float32: 2e-5."""
+    rng = np.random.RandomState(5)
+    q = rng.randn(2, 8, t, 40).astype(np.float32)
+    k, v = (rng.randn(2, 8, s, 40).astype(np.float32) for _ in range(2))
+    o_j, lse_j = _flash_forward_packed(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), 128, 128, True,
+                                       False, 3)
+    o, lse = flash_fwd_packed(_tokens(q), _tokens(k), _tokens(v), 8)
+    np.testing.assert_allclose(
+        o.numpy(), np.asarray(o_j).transpose(0, 2, 1, 3).reshape(2, t, 320),
+        atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("d,t,s", [(80, 100, 100), (80, 128, 77),
+                                   (512, 128, 128), (512, 70, 90)])
+def test_forward_twin_matches_pallas_at_sd_head_dims(d, t, s):
+    """flash_fwd's twin at D = 80 (SD 32x32) and D = 512 (the VAE
+    mid-block) against the JAX kernel, float32: 2e-5."""
+    q, k, v, _ = _inputs(t, s, d, "float32", 6)
+    want = np.asarray(_jax(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    _, lse_j = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              64, 64, True)
+    o, lse = flash_fwd(*(torch.from_numpy(a).reshape(4, -1, d)
+                         for a in (q, k, v)))
+    np.testing.assert_allclose(o.numpy().reshape(want.shape), want,
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :t],
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_multihead_attention_twins_agree_across_routes():
+    """On the CPU every route (packed D <= 64, flash_fwd D = 80, plain
+    D = 160) is the same function: each against the reference math."""
+    rng = np.random.RandomState(7)
+    reset_launch_counts()
+    for heads, d in ((8, 40), (2, 80), (2, 160), (1, 512), (3, 12)):
+        q = torch.from_numpy(rng.randn(2, 30, heads * d).astype(np.float32))
+        c = torch.from_numpy(rng.randn(2, 9, heads * d).astype(np.float32))
+        got = multihead_attention(q, c, c, heads)
+        want = flash_attention_reference(
+            *(z.reshape(2, -1, heads, d).transpose(1, 2) for z in (q, c, c)))
+        np.testing.assert_allclose(
+            got.numpy(), want.transpose(1, 2).reshape(2, 30, -1).numpy(),
+            atol=2e-6, rtol=2e-6)
+    assert set(LAUNCHES.values()) == {0}
+
+
+def test_packed_and_wide_wrappers_reject_bad_inputs():
+    q = torch.zeros(2, 8, 80)
+    with pytest.raises(ValueError, match="heads"):
+        flash_fwd_packed(q, q, q, 3)
+    with pytest.raises(ValueError):
+        flash_fwd_packed(q, torch.zeros(3, 8, 80), torch.zeros(3, 8, 80), 2)
+    with pytest.raises(ValueError):
+        flash_fwd_packed(q[0], q[0], q[0], 2)
+    with pytest.raises(TypeError):
+        flash_fwd_packed(q, q.half(), q, 2)
+    with pytest.raises(TypeError):
+        flash_fwd(torch.zeros(1, 4, 512), torch.zeros(1, 4, 512).double(),
+                  torch.zeros(1, 4, 512))
+    with pytest.raises(ValueError):
+        multihead_attention(q.to("meta"), q.to("meta"), q.to("meta"), 2)

@@ -263,3 +263,122 @@ def test_adm64_route_counts(monkeypatch):
         c(torch.empty(1, 3, 64, 64), torch.zeros(1))
         assert calls == {"fused_group_norm": 17, "conv3x3": 3,
                          "conv3x3_fused": 39}
+
+
+# ------------------------------------------------------- the Stable Diffusion towers
+
+SD_UNET = dict(in_channels=4, model_channels=64, out_channels=4,
+               num_res_blocks=1, attention_ds=(1, 2), channel_mult=(1, 2),
+               num_heads=2, context_dim=16)
+SD_VAE = dict(ch=64, ch_mult=(1, 2), num_res_blocks=1, attn_at_ds=(2,))
+
+
+def test_sd_unet_and_vae_match_jax_with_switches(switches):
+    """The SD UNet (ResBlocks without scale-shift, SpatialTransformer
+    norms at eps 1e-6) and the VAE decoder's ResnetBlocks (the fused conv
+    with its residual) on every route, against the JAX towers' plain
+    composition: 2e-4 (3e-4 for the VAE's deeper stack)."""
+    from autodiffusion_tpu.models import AutoencoderKL as JaxVAE
+    from autodiffusion_tpu.models import SDUNetModel as JaxSDUNet
+    from autodiffusion_tpu.models.sd_convert import convert_sd_unet, \
+        convert_vae
+    from autodiffusion_tpu_torch.models import (AutoencoderKL, SDUNetModel,
+                                                random_init_)
+
+    rng = np.random.RandomState(8)
+    unet = random_init_(SDUNetModel(**SD_UNET), 4)
+    fm = JaxSDUNet(**SD_UNET)
+    up = convert_sd_unet({k: v.numpy() for k, v in unet.state_dict().items()},
+                         fm, prefix="")
+    x = rng.randn(2, 4, IMG, IMG).astype(np.float32)
+    t = np.array([20.0, 600.0], np.float32)
+    ctx = rng.randn(2, 5, 16).astype(np.float32)
+    with torch.no_grad():
+        got = unet(torch.from_numpy(x), torch.from_numpy(t),
+                   torch.from_numpy(ctx))
+    want = fm.apply(up, jnp.asarray(_nhwc(x)), jnp.asarray(t),
+                    jnp.asarray(ctx))
+    np.testing.assert_allclose(got.numpy(), _nchw(want), atol=TOL, rtol=TOL)
+    assert min(switches.values()) > 0, switches
+
+    vae = random_init_(AutoencoderKL(**SD_VAE), 5)
+    fv = JaxVAE(**SD_VAE)
+    vp = convert_vae({k: v.numpy() for k, v in vae.state_dict().items()}, fv,
+                     prefix="")
+    z = rng.randn(2, 4, IMG, IMG).astype(np.float32)
+    calls = dict(switches)
+    with torch.no_grad():
+        got = vae.decode(torch.from_numpy(z))
+    want = fv.apply(vp, jnp.asarray(_nhwc(z)), method=fv.decode)
+    np.testing.assert_allclose(got.numpy(), _nchw(want), atol=3e-4,
+                               rtol=3e-4)
+    assert switches["conv3x3_fused"] > calls["conv3x3_fused"]
+
+
+def sd_route_counts():
+    """{route: calls} of one SD v1 UNet forward and one AutoencoderKL
+    decode at full width on the meta device, all three switches on, with
+    the attention kernels counted by head dim. The counts the launch
+    accounting of chip_smoke.py derives the same way."""
+    import sys
+
+    from autodiffusion_tpu_torch.models import create_sd_models
+
+    # the module (the package re-exports a function of the same name)
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+
+    out = {}
+    calls = dict.fromkeys(ROUTES + ("packed", "flash_fwd", "wide"), 0)
+
+    def recorder(name):
+        def run(x, *args, **kw):
+            calls[name] += 1
+            if name == "fused_group_norm":
+                return torch.empty_like(x)
+            w = args[0] if name == "conv3x3" else args[2]
+            return torch.empty((x.shape[0], w.shape[0], *x.shape[2:]),
+                               dtype=x.dtype, device=x.device)
+        return run
+
+    def attention(q, k, v, *heads, **kw):
+        calls["packed" if heads else
+              "wide" if q.shape[-1] == 512 else "flash_fwd"] += 1
+        return torch.empty_like(q), None
+
+    saved = {n: getattr(port_nn, n) for n in ROUTES}
+    saved_fa = (fa.flash_fwd_packed, fa.flash_fwd)
+    try:
+        for name in ROUTES:
+            setattr(port_nn, name, recorder(name))
+        fa.flash_fwd_packed = fa.flash_fwd = attention
+        with torch.device("meta"):
+            unet, vae, _ = create_sd_models(device="meta")
+            unet(torch.empty(1, 4, 64, 64), torch.zeros(1),
+                 torch.empty(1, 77, 768))
+            out["unet"] = dict(calls)
+            calls.update(dict.fromkeys(calls, 0))
+            vae.decode(torch.empty(1, 4, 64, 64))
+            out["decode"] = dict(calls)
+    finally:
+        for name, fn in saved.items():
+            setattr(port_nn, name, fn)
+        fa.flash_fwd_packed, fa.flash_fwd = saved_fa
+    return out
+
+
+def test_sd_route_counts(monkeypatch):
+    """SD v1 UNet: 22 ResBlocks (none up/down), both convs of each fused
+    (44); 16 SpatialTransformer norms and the out norm fused (17); the
+    three Upsample convs through the im2col conv; attention at D = 40 (5
+    transformers x 2) packed, at D = 80 (10) on flash_fwd, at D = 160
+    plain. The decoder: 14 ResnetBlocks (28 fused convs), the mid-block
+    attention's norm and norm_out fused, one D = 512 attention."""
+    for k, v in SWITCHES.items():
+        monkeypatch.setenv(k, v)
+    counts = sd_route_counts()
+    assert counts["unet"] == {"fused_group_norm": 17, "conv3x3": 3,
+                              "conv3x3_fused": 44, "packed": 10,
+                              "flash_fwd": 10, "wide": 0}
+    assert counts["decode"] == {"fused_group_norm": 2, "conv3x3": 0,
+                                "conv3x3_fused": 28, "packed": 0,
+                                "flash_fwd": 0, "wide": 1}

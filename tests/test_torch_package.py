@@ -97,8 +97,10 @@ def _entry_points():
     from autodiffusion_tpu_torch.fid import FIDStats, load_fid_inception
     from autodiffusion_tpu_torch.models import (ClassifierConfig,
                                                 create_classifier,
-                                                create_model)
-    from autodiffusion_tpu_torch.search import make_adm_fitness
+                                                create_model,
+                                                create_sd_models)
+    from autodiffusion_tpu_torch.search import (make_adm_fitness,
+                                                make_sd_fitness)
 
     def fitness(device=None):
         model = create_model(_tiny_unet_cfg(), device="cpu")
@@ -109,7 +111,22 @@ def _entry_points():
                                 num_samples=2, batch_size=2,
                                 candidate_chunk=1, feature_dim=4, **kw)
 
+    def sd_fitness(device=None):
+        kw = {} if device is None else {"device": device}
+        return make_sd_fitness(
+            unet=None, vae=None, context_bank=torch.zeros(2, 3, 4),
+            uncond_context=torch.zeros(3, 4), feature_fn=lambda x: x,
+            ref_stats=FIDStats(np.zeros(4), np.eye(4)), num_samples=2,
+            batch_size=2, candidate_chunk=1, feature_dim=4, **kw)
+
     return {
+        "cli.main search-sd": lambda **kw: main(
+            ["search-sd", "--ckpt", "sd.ckpt", "--clip_vocab", "v.json",
+             "--clip_merges", "m.txt", "--captions", "c.json",
+             "--inception_path", "i.pth", "--ref_stats", "r.npz"]
+            + (["--device", kw["device"]] if kw else [])),
+        "create_sd_models": lambda **kw: create_sd_models(**kw),
+        "make_sd_fitness": sd_fitness,
         "cli.main search": lambda **kw: main(
             ["search", "--model_path", "m.pt", "--inception_path", "i.pth",
              "--ref_stats", "r.npz"]
@@ -126,7 +143,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["cli.main search", "create_model",
                                   "create_classifier", "make_adm_fitness",
-                                  "load_fid_inception"])
+                                  "load_fid_inception", "cli.main search-sd",
+                                  "create_sd_models", "make_sd_fitness"])
 def test_entry_points_raise_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -140,9 +158,12 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
     assert next(eps["create_model"](device="cpu").parameters()).device \
         == torch.device("cpu")
     assert eps["make_adm_fitness"](device="cpu").device == torch.device("cpu")
+    assert eps["make_sd_fitness"](device="cpu").device == torch.device("cpu")
     # the CLI gets past the device check and fails on the missing files
     with pytest.raises(FileNotFoundError):
         eps["cli.main search"](device="cpu")
+    with pytest.raises(FileNotFoundError):
+        eps["cli.main search-sd"](device="cpu")
 
 
 def _run_smoke(cwd, env_extra):
