@@ -103,13 +103,15 @@ def cmd_search(args) -> int:
         resblock_updown=args.resblock_updown,
         use_new_attention_order=args.use_new_attention_order,
         use_bf16=args.use_bf16, dropout=args.dropout)
-    model = create_model(cfg, device=dev)
+    # frozen: the search reads no weight gradient
+    model = create_model(cfg, device=dev).requires_grad_(False)
     _load_state(model, args.model_path)
 
     classifier = None
     if args.classifier_path:
         classifier = create_classifier(
-            ClassifierConfig.adm64(image_size=args.image_size), device=dev)
+            ClassifierConfig.adm64(image_size=args.image_size),
+            device=dev).requires_grad_(False)
         _load_state(classifier, args.classifier_path)
 
     inception = load_fid_inception(args.inception_path, device=dev)

@@ -51,9 +51,9 @@ SOURCES = {
                                                          _c_void_p]),
     "group_norm_bwd": ("adt_group_norm_bwd",
                        [_c_void_p] * 15 + [_c_int] * 6 + [_c_void_p]),
-    "conv3x3": ("adt_conv3x3", [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p]),
+    "conv3x3": ("adt_conv3x3", [_c_void_p] * 5 + [_c_int] * 13 + [_c_void_p]),
     "conv3x3_fused": ("adt_conv3x3_fused",
-                      [_c_void_p] * 7 + [_c_int] * 6 + [_c_void_p]),
+                      [_c_void_p] * 8 + [_c_int] * 13 + [_c_void_p]),
 }
 
 # kernel (source stem) -> launches since the last reset: a wrapper adds one

@@ -14,7 +14,9 @@ ResBlock's GroupNorm, FiLM, SiLU and residual into the conv's own pass
 Layout: NCHW activations and OIHW weights, the port's own (the TPU kernels
 take NHWC and HWIO). The kernels read and write NCHW directly
 (csrc/conv3x3.cuh), so no copy of an activation surrounds a call; the
-weights go to the kernels as [C_out, 3, 3, C_in], one small copy a call.
+weights go to the kernels in one small copy a call, as [C_out, 3, 3, C_in]
+or, for the bf16 implicit GEMM, in tiles of 128 output by 16 input
+channels (:func:`_weights`).
 Stride 1, SAME padding, float32 or bfloat16, one dtype for x, w and the
 output; bias, a, b float32. Each wrapper launches
 its kernel on CUDA tensors (and counts the launch) or raises; on CPU
@@ -27,10 +29,19 @@ twin :func:`fused_conv_reference` mirrors the JAX oracle ``_xla_fused_ref``
 (conv_im2col.py:460-473): the residual is added after the cast of the conv
 output, so in bfloat16 kernel and twin may differ by one rounding there.
 
-Gradients: :func:`conv3x3` differentiates with PyTorch's conv gradients
-(``torch.nn.grad``), and :func:`conv3x3_fused` with autograd of its plain
-twin, as the JAX package differentiates both outside Pallas
-(conv_im2col.py:493-512,601-608).
+Launch plan: :func:`conv_plan` picks, from the shape alone, the kernel a
+CUDA call runs and, for the bf16 implicit GEMM, its wgmma width, tile,
+ring stages and K splits (csrc/conv3x3.cuh); the wrappers pass it to the
+C entry points, and the CPU tests check it at every site of both searches.
+
+Gradients: both differentiate with PyTorch's conv gradients
+(``torch.nn.grad``) in the dtype of x and w, as the JAX package's VJPs
+differentiate the XLA expressions outside Pallas
+(conv_im2col.py:493-512,601-608): the fused backward recomputes
+silu(x a + b), takes the conv's input gradient in x's dtype and the SiLU
+and affine in float32, and computes a weight, bias or residual gradient
+only where autograd asks for one (guidance through a frozen classifier
+asks for none).
 
 Gates: :func:`resolve_use_im2col` and :func:`resolve_use_fused_conv` decide
 from the channels, the dtype and the environment alone, each one switch
@@ -42,7 +53,9 @@ comes back only when an H100 A/B finds a site where a kernel wins.
 
 from __future__ import annotations
 
+import functools
 import os
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -53,7 +66,7 @@ from ._build import launch
 __all__ = ["conv3x3", "conv3x3_im2col", "conv3x3_reference", "conv3x3_fused",
            "conv3x3_fused_kernel", "fused_conv_reference", "Conv3x3Function",
            "Conv3x3FusedFunction", "resolve_use_im2col",
-           "resolve_use_fused_conv"]
+           "resolve_use_fused_conv", "ConvPlan", "conv_plan", "igemm_smem"]
 
 def _eligible(c_in: int, c_out: int, dtype) -> bool:
     # tiny contractions (the RGB stem, K = 27) or outputs (the final
@@ -100,6 +113,132 @@ def fused_conv_reference(x, a, b, w, bias=None, residual=None):
     return out if residual is None else out + residual
 
 
+# --------------------------------------------------------------- launch plan
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+SMEM_BLOCK_MAX = 232448    # 227 KB: the most shared memory one block takes
+# the pixel widths the kernel instantiates; a width of 144 (8 rows of 16)
+# spilled its 144 accumulators a thread and serialised the wgmmas, and ran
+# slower on an H100 than 80 (4 rows of 16) at the 16 x 16 sites (PERF.md)
+WGMMA_WIDTHS = (80, 136)
+CHUNK = 16                 # input channels per pipeline stage
+BM = 128                   # output channels a block (two consumer warpgroups)
+SUBTILES = 2               # pixel sub-tiles a block (one wgmma each per tap)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """What one CUDA call runs. ``kernel`` is "igemm" (the bf16 implicit
+    GEMM), "gather" (bf16 shapes it does not take) or "float32". For the
+    implicit GEMM: wgmma width ``nt`` (slab pixels a sub-tile), 128 output
+    channels and two sub-tiles of ``rows`` x ``tw`` output pixels a block
+    (``packed``: two whole images, else one band of rows above the
+    other), ``stages`` ring stages, ``splits`` K splits of
+    ``chunks_per_split`` 16-channel chunks, ``smem`` bytes of shared
+    memory a block and ``blocks`` blocks of the main pass."""
+    kernel: str
+    nt: int = 0
+    tw: int = 0
+    rows: int = 0
+    packed: int = 0
+    stages: int = 0
+    splits: int = 1
+    chunks_per_split: int = 0
+    smem: int = 0
+    blocks: int = 0
+
+    def args(self) -> tuple:
+        """The plan's arguments of the C entry points."""
+        return (self.nt, self.tw, self.rows, self.packed,
+                self.stages, self.splits, self.chunks_per_split)
+
+    def text(self) -> str:
+        if self.kernel != "igemm":
+            return self.kernel
+        return (f"igemm 128x2x{self.rows}x{self.tw}"
+                f"{' packed' if self.packed else ''} n{self.nt} "
+                f"s{self.stages} k/{self.splits}")
+
+
+def igemm_smem(nt: int, tw: int, rows: int, packed: int, stages: int,
+               w: int) -> int:
+    """Shared memory of an implicit-GEMM block (csrc/conv3x3.cuh's
+    Geometry): per stage the weights [2][9][128][8], the raw input boxes
+    [16][rows of the slab][w if the tile is whole rows, else tw + 16] and
+    a, b [2][2][16] float32, and an mbarrier; two slab buffers
+    [2][npix][8]."""
+    sw = tw + 2
+    raw_rows = SUBTILES * (rows + 2) if packed else SUBTILES * rows + 2
+    sub_rows = rows + 2 if packed else rows
+    need = (SUBTILES - 1) * sub_rows * sw + 2 * sw + 2 + nt
+    npix = -(-max(raw_rows * sw, need) // 8) * 8
+    raw_w = tw if tw == w else tw + 16
+    stage = BM * 9 * CHUNK * 2 + CHUNK * raw_rows * raw_w * 2 \
+        + SUBTILES * 2 * CHUNK * 4
+    return stages * (stage + 8) + 2 * (2 * npix * 8 * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(batch: int, c_in: int, c_out: int, h: int, w: int,
+              dtype=torch.bfloat16) -> ConvPlan:
+    """The launch plan of a CUDA call, from the shape alone.
+
+    bf16 with C_in % 16 == 0 and W % 8 == 0 runs the implicit GEMM:
+    sub-tiles of whole image rows where W <= 64, else of 64 columns; the
+    wgmma width that wastes the fewest pixels on halo columns and ragged
+    rows; two sub-tiles a block, two whole images where one fits a
+    sub-tile; 128 output channels a block (the last tile masked where
+    C_out % 128 != 0); as many ring stages (2-4) as fit one block a SM; and
+    K split into runs of whole chunks where that shortens the grid's
+    waves over the 132 SMs (with the pipeline's fill and drain and the
+    second pass counted), each split at least two chunks and the split
+    grid at least 132 blocks."""
+    if dtype != torch.bfloat16:
+        return ConvPlan("float32")
+    if c_in % CHUNK or w % 8:
+        return ConvPlan("gather")
+    tw = min(w, 64)
+
+    def use(nt):        # output pixels a block computes / slab pixels
+        rows = min(nt // (tw + 2), h)
+        if not rows:
+            return 0.0
+        if rows == h and tw == w:       # whole images, one a sub-tile
+            return h * w / nt
+        band = SUBTILES * rows
+        return h * tw / (-(-h // band) * SUBTILES * nt)
+
+    nt = max(WGMMA_WIDTHS, key=lambda n: (use(n), n))
+    rows = min(nt // (tw + 2), h)
+    packed = int(rows == h and tw == w)
+    stages = max(s for s in (2, 3, 4)
+                 if igemm_smem(nt, tw, rows, packed, s, w) <= SMEM_BLOCK_MAX)
+    if packed:
+        tiles = -(-batch // SUBTILES)
+    else:
+        tiles = batch * -(-h // (SUBTILES * rows)) * -(-w // tw)
+    tiles *= -(-c_out // BM)
+    chunks = c_in // CHUNK
+
+    def cost(s):
+        # in chunk times: waves x (chunks a block + the pipeline's fill
+        # and drain), and the second pass where K is split
+        per = -(-chunks // s)
+        return -(-tiles * s // SMS) * (per + 3) + (2 if s > 1 else 0)
+
+    splits = 1
+    for s in range(2, 9):
+        per = -(-chunks // s)
+        if per < 2 or -(-chunks // per) != s or tiles * s < SMS:
+            continue
+        if cost(s) < cost(splits):
+            splits = s
+    per = -(-chunks // splits)
+    return ConvPlan("igemm", nt, tw, rows, packed, stages, splits, per,
+                    igemm_smem(nt, tw, rows, packed, stages, w),
+                    tiles * splits)
+
+
 # ------------------------------------------------------------------ wrappers
 
 def _check(x, w, *more) -> bool:
@@ -137,22 +276,50 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _weights(w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """The weights [C_out, C_in, 3, 3] as the kernel reads them: [C_out, 3,
+    3, C_in] for the gather and float32 kernels; for the implicit GEMM,
+    tiles of 128 output by 16 input channels, [C_out / 128][C_in / 16][2]
+    [3][3][128][8] (zero past C_out), so that a chunk's weight tile is one
+    contiguous copy. One copy a call either way."""
+    if plan.kernel != "igemm":
+        return _arg(w.permute(0, 2, 3, 1))
+    c_out, c_in = w.shape[:2]
+    tiles = -(-c_out // BM)
+    if c_out % BM:
+        w = F.pad(w, (0, 0, 0, 0, 0, 0, 0, tiles * BM - c_out))
+    w = w.reshape(tiles, BM, c_in // CHUNK, 2, 8, 3, 3)
+    return _arg(w.permute(0, 2, 3, 5, 6, 1, 4))
+
+
+def _launch(stem: str, x, ptrs: tuple, c_out: int, plan: ConvPlan):
+    """Launch ``stem`` on x [B, C_in, H, W] with its input pointers
+    ``ptrs`` (x, the weights laid out by :func:`_weights`, and the fused
+    kernel's a, b, bias, residual) under ``plan``; returns y."""
+    bsz, c_in, h, wd = x.shape
+    y = torch.empty((bsz, c_out, h, wd), dtype=x.dtype, device=x.device)
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, bsz, c_out, h, wd),
+                         dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        launch(stem, *ptrs, y.data_ptr(), _ptr(ws), bsz, c_in, h, wd, c_out,
+               int(x.dtype == torch.bfloat16), *plan.args())
+    return y
+
+
 def conv3x3_im2col(x: torch.Tensor, w: torch.Tensor,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The conv kernel: [B, C_in, H, W] x [C_out, C_in, 3, 3] -> [B, C_out,
     H, W] in x's dtype (forward only)."""
     if not _check(x, w, bias):
         return conv3x3_reference(x, w, bias)
-    # the kernels take the weights as [C_out, 3, 3, C_in] (csrc/conv3x3.cuh)
-    x, w, bias = _arg(x), _arg(w.permute(0, 2, 3, 1)), _arg(bias,
-                                                            torch.float32)
-    bsz, c_in, h, wd = x.shape
-    y = torch.empty((bsz, w.shape[0], h, wd), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        launch("conv3x3", x.data_ptr(), w.data_ptr(), _ptr(bias),
-               y.data_ptr(), bsz, c_in, h, wd, w.shape[0],
-               int(x.dtype == torch.bfloat16))
-    return y
+    x, bias = _arg(x), _arg(bias, torch.float32)
+    plan = conv_plan(x.shape[0], x.shape[1], w.shape[0], x.shape[2],
+                     x.shape[3], x.dtype)
+    wt = _weights(w, plan)
+    return _launch("conv3x3", x, (x.data_ptr(), wt.data_ptr(), _ptr(bias)),
+                   w.shape[0], plan)
 
 
 def conv3x3_fused_kernel(x, a, b, w, bias=None, residual=None):
@@ -169,15 +336,14 @@ def conv3x3_fused_kernel(x, a, b, w, bias=None, residual=None):
                          f"got {tuple(residual.shape)}")
     if not on_cuda:
         return fused_conv_reference(x, a, b, w, bias, residual)
-    x, w = _arg(x), _arg(w.permute(0, 2, 3, 1))
+    x = _arg(x)
     a, b, bias = (_arg(t, torch.float32) for t in (a, b, bias))
     residual = _arg(residual, x.dtype)
-    y = torch.empty((bsz, c_out, h, wd), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        launch("conv3x3_fused", x.data_ptr(), a.data_ptr(), b.data_ptr(),
-               w.data_ptr(), _ptr(bias), _ptr(residual), y.data_ptr(), bsz,
-               c_in, h, wd, c_out, int(x.dtype == torch.bfloat16))
-    return y
+    plan = conv_plan(bsz, c_in, c_out, h, wd, x.dtype)
+    wt = _weights(w, plan)
+    return _launch("conv3x3_fused", x,
+                   (x.data_ptr(), a.data_ptr(), b.data_ptr(), wt.data_ptr(),
+                    _ptr(bias), _ptr(residual)), c_out, plan)
 
 
 class Conv3x3Function(torch.autograd.Function):
@@ -206,26 +372,42 @@ class Conv3x3Function(torch.autograd.Function):
 
 
 class Conv3x3FusedFunction(torch.autograd.Function):
-    """The fused conv kernel forward; autograd of the plain twin
-    :func:`fused_conv_reference` backward (conv_im2col.py:493-512)."""
+    """The fused conv kernel forward; the JAX VJP's backward
+    (conv_im2col.py:493-512): the conv's gradients in x's dtype, the SiLU
+    and the affine in float32, each gradient only where asked for."""
 
     @staticmethod
     def forward(ctx, x, a, b, w, bias, residual):
-        ctx.save_for_backward(x, a, b, w, bias, residual)
+        ctx.save_for_backward(x, a, b, w)
+        ctx.dtypes = tuple(None if t is None else t.dtype
+                           for t in (bias, residual))
         return conv3x3_fused_kernel(x, a, b, w, bias, residual)
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        wants = [t is not None and need
-                 for t, need in zip(saved, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(want) if t is not None
-                      else None for t, want in zip(saved, wants)]
-            out = fused_conv_reference(*leaves)
-            inputs = [t for t, want in zip(leaves, wants) if want]
-            grads = iter(torch.autograd.grad(out, inputs, g.to(out.dtype)))
-        return tuple(next(grads) if want else None for want in wants)
+        x, a, b, w = ctx.saved_tensors
+        need_x, need_a, need_b, need_w, need_bias, need_res = \
+            ctx.needs_input_grad
+        g = g.to(x.dtype)
+        u = x.float() * a[:, :, None, None] + b[:, :, None, None]
+        s = torch.sigmoid(u)
+        dx = da = db = dw = None
+        if need_w:
+            dw = torch.nn.grad.conv2d_weight((u * s).to(x.dtype), w.shape, g,
+                                             padding=1)
+        if need_x or need_a or need_b:
+            dh = torch.nn.grad.conv2d_input(x.shape, w, g, padding=1)
+            du = dh.float() * (s * (1 + u * (1 - s)))
+            if need_x:
+                dx = (du * a[:, :, None, None]).to(x.dtype)
+            if need_a:
+                da = (du * x.float()).sum(dim=(2, 3)).to(a.dtype)
+            if need_b:
+                db = du.sum(dim=(2, 3)).to(b.dtype)
+        dbias = g.float().sum(dim=(0, 2, 3)).to(ctx.dtypes[0]) \
+            if need_bias else None
+        dres = g.to(ctx.dtypes[1]) if need_res else None
+        return dx, da, db, dw, dbias, dres
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor,

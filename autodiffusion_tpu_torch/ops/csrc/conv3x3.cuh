@@ -1,6 +1,6 @@
 // 3x3 stride-1 SAME convolution as an implicit GEMM, for Hopper (sm_90a).
 // Shared by conv3x3.cu (the plain conv + bias) and conv3x3_fused.cu (the
-// norm-act-conv: silu(x a + b) applied to the input as it is loaded, and a
+// norm-act-conv: silu(x a + b) applied to the input as it is staged, and a
 // residual added in the epilogue).
 //
 // Replaces the TPU kernels autodiffusion_tpu/ops/conv_im2col.py::_conv_kernel
@@ -9,39 +9,73 @@
 // Here the product is written transposed, out^T = W [C_out, 9 C_in] x
 // patches^T [9 C_in, H W], because the port is NCHW: output rows are
 // channels and columns pixels, so the epilogue stores neighbouring pixels
-// of one channel, NCHW again with no transpose. M = C_out, N = B H W (a
-// block's 64 pixels lie in one sample), K = 9 C_in ordered (tap, ci): the
-// wrapper hands the weights as [C_out, 3, 3, C_in], so that the 16 (or 32)
-// k of one step share one tap. The patch matrix never exists in device
-// memory; device memory sees the input, the weights and the output.
+// of one channel, NCHW again with no transpose. K = 9 C_in is ordered
+// (chunk of 16 input channels, tap, channel): the wrapper hands the weights
+// as [C_out, 3, 3, C_in]. The patch matrix never exists in device memory.
 //
-// bfloat16 runs on the tensor cores (mma.sync.m16n8k16, bfloat16 operands,
-// float32 accumulators), in one of two kernels:
-//   * staged (C_in % 16 == 0 and W % 8 == 0, which the ADM shapes meet): a
-//     block owns a tile of 64 pixels, 4 rows x 16 columns (8 x 8 where
-//     W % 16 != 0), and 64, 96 or 128 output channels (4, 6 or 8 warps of
-//     16). Per chunk of 16 input channels it stages the tile and its
-//     one-pixel halo, 6 x 18 (10 x 10) pixels, once in shared memory,
-//     channels innermost (the TPU kernels' NHWC), zero in the padding and,
-//     in the fused kernel, through silu(x a + b) in float32;
-//     the nine taps are then nine shifted reads of that slab: each lane's
-//     ldmatrix row address is its pixel moved by (dh, dw), so the tap's
-//     B fragment needs no copy. Each input element is read and transformed
-//     once per block instead of once per tap.
-//   * generic (any other shape): each k-step gathers its [32, 64] patch
-//     slice element by element straight from the input.
-// float32 runs on the CUDA cores (4 x 4 outputs per thread, the patch slice
-// gathered as in the generic kernel), since the tensor cores would round
-// float32 operands to TF32. All add the bias (and the residual) to the
-// float32 accumulator and cast once.
+// Bound on this card: operations. Every bf16 site of ADM-64, the SD UNet
+// and the VAE decoder does 2 B H W C_out 9 C_in operations against a few
+// bytes per output (the ADM 1536 -> 768 8x8 conv at batch 32: 44 us of
+// tensor-core time, 17 us of bytes). What kept the earlier kernel (one
+// 16-channel chunk in flight, synchronous loads, a 64-pixel tile,
+// mma.sync) at 2-13 % of that bound was the weight traffic (each 64 pixels
+// re-read the block's whole weight slice), loads that nothing overlapped,
+// and grids of under two waves with long K at the 8x8 and 16x16 levels.
 //
-// Bound on this card at the ADM shapes: operations (2 B H W C_out 9 C_in
-// against a few bytes per output). Loads are synchronous and one chunk is
-// in flight; wgmma, TMA and a pipeline are later work.
+// bfloat16, the implicit-GEMM kernel (C_in % 16 == 0 and W % 8 == 0,
+// which every bf16 site of both searches meets). The launch plan (wgmma
+// width, tile, stages, splits) is chosen in Python from the shape alone
+// (ops/conv_im2col.py::conv_plan, which the CPU tests check) and passed in:
+//   * tile: 128 output channels (M; the last tile masked where C_out %
+//     128 != 0) by two sub-tiles of pixels (N). A sub-tile is `rows` rows
+//     of TW = min(W, 64) columns, read from the slab: the tile's rows plus
+//     a one-pixel halo, channels innermost, with a row stride of TW + 2,
+//     so that N = 80 or 136 slab pixels starting at the tap's shift
+//     (dh (TW + 2) + dw) are exactly the sub-tile's inputs for that tap.
+//     The two halo columns of each row are computed and thrown away (20 %
+//     extra at W = 8, 3-6 % at W >= 32). Where a whole 8 x 8 image fits a
+//     sub-tile, a block takes two images. Each weight byte fetched serves
+//     160-272 slab pixels (64 in the earlier kernel).
+//   * product: wgmma m64nNk16, A (weights, [k half][tap][co][8]) and B (the
+//     slab, [k half][pixel][8]) both K-major in shared memory without a
+//     swizzle, so the nine taps are nine descriptors into one slab, 16
+//     bytes apart per pixel of shift, and no tap is ever copied.
+//   * warp specialisation: two consumer warpgroups (64 output channels
+//     each) issue only wgmma and run the epilogue; a producer warpgroup
+//     loads and transforms, and gives up registers to them (setmaxnreg).
+//     Named barriers hand each slab buffer over and back.
+//   * loads: a ring of 2-4 shared-memory stages, each a 16-channel chunk's
+//     weight tile (one contiguous bulk copy of the wrapper's tiled weights
+//     [C_out / 128][C_in / 16][2][9][128][8]: a TMA box 16 bytes wide moved
+//     the same bytes at a fraction of the rate) and its raw NCHW input rows
+//     (TMA boxes over [B C_in][H][W], whose zero fill outside the tensor is
+//     the SAME padding; a box starts 16-byte aligned), completing on an
+//     mbarrier. Chunk k + stages - 1 is in flight while chunk k multiplies.
+//   * transform: one pass per element per block turns the raw stage into
+//     the channels-innermost slab the wgmma reads (in the fused kernel
+//     through silu(x a + b) in float32, rounded to bf16; outside the image
+//     zero). The producer transforms chunk k + 1 into the second of two
+//     slab buffers while the consumers multiply chunk k.
+//   * split K: where the output tiles cannot fill the 132 SMs, blockIdx.z
+//     takes a run of whole chunks and writes float32 partial sums to a
+//     workspace the wrapper allocates; a second pass adds the splits in a
+//     fixed order, the bias and the residual, and casts.
+// What bounds it now: shared-memory bandwidth (each wgmma reads its 64 x
+// 16 weight slice and the N x 16 slab slice; the two consumers read the
+// same slab) and the L2 traffic of the weight tiles, against which the
+// producer's transform competes; PERF.md has the per-site shares.
+// The earlier gather kernel stays for bf16 shapes the implicit GEMM does
+// not take; float32 runs on the CUDA cores (4 x 4 outputs per thread, the
+// patch slice gathered), since the tensor cores would round float32
+// operands to TF32. All add the bias (and the residual) to the float32
+// accumulator and cast once.
 #pragma once
+
+#include <cuda.h>
 
 #include "elementwise.cuh"
 #include "flash_mma.cuh"
+#include "wgmma.cuh"
 
 namespace adt {
 namespace conv {
@@ -56,8 +90,13 @@ struct Params {
   const float* b;     // [B, C_in] or null
   const void* res;    // [B, C_out, H, W] or null
   void* y;            // [B, C_out, H, W]
+  float* ws;          // split K: [splits, B, C_out, H, W] float32 partial sums
   int c_in, h, w, c_out, hw, k, p_tiles;
-  int tw;             // staged kernel: tile width (pixels), 64 / tw rows
+  // implicit-GEMM plan: tile columns and rows of a sub-tile, ring stages,
+  // K splits and the chunks each takes, tiles per image row band
+  int tw, rows, stages, splits, chunks_per_split, tiles_w;
+  // implicit GEMM: batch, and whether a block packs whole images
+  int batch, packed;
 };
 
 // One element of the patch matrix: row kk = tap * C_in + ci of the K axis
@@ -182,154 +221,430 @@ __global__ void __launch_bounds__(kThreads) conv3x3_bf16_kernel(const Params p) 
 }
 
 
-// ------------------------------------------------------- bfloat16, staged
+// ------------------------------------------- bfloat16, implicit GEMM (wgmma)
 
-constexpr int CI = 16;           // input channels per chunk (one k16 step per tap)
-constexpr int SLDA = 9 * CI + 8; // weight row in shared memory: 9 taps x 16 ci, padded
-constexpr int SPIX = CI + 8;     // staged pixel: 16 channels, padded to 48 bytes so that
-                                 // ldmatrix's eight 16-byte rows fall in distinct banks
+constexpr int CI = 16;            // input channels per chunk: one k16 step per tap
+constexpr int NS = 2;             // pixel sub-tiles a block, one wgmma each per tap
+constexpr int kBM = 128;          // output channels a block: two consumer warpgroups
+constexpr int kSmemMax = 232448;  // 227 KB, the most a block may take
 
-// Shared memory of the staged kernel: the weight tile and the input slab.
-inline size_t staged_smem(int warps, int tw) {
-  return (size_t)(warps * 16 * SLDA + (64 / tw + 2) * (tw + 2) * SPIX) * sizeof(bf16);
+// The block's slab: `raw_rows` rows of TW + 2 pixels, channels innermost.
+// Slab row i is input row h0 - 1 + i of sample b0 (one TMA box of
+// 2 rows + 2 rows), or, where a block packs two whole images (`packed`, H == rows),
+// row i % (H + 2) - 1 of sample b0 + i / (H + 2) (one box of H + 2 rows
+// each). Sub-tile s starts at slab row s * sub_rows. Shared memory, in
+// bytes (the same formulas as ops/conv_im2col.py::igemm_smem): per stage
+// the weight tile [2][9][128][8] (k half, tap, output channel, 8 input
+// channels), the raw boxes [boxes][16][box_rows][raw_w] (columns c0 - 8
+// .. c0 + TW + 7, since a TMA box starts 16-byte aligned, or 0 .. W - 1
+// where the tile is whole rows, whose halo columns are padding) and the
+// chunk's a, b ([2][2][16] float32); then two slab buffers [2][npix][8]
+// and one mbarrier a stage.
+struct Geometry {
+  int sw, raw_w, col_off, boxes, box_rows, raw_rows, sub_rows, npix;
+  int w_bytes, raw_bytes, stage_bytes, op_bytes;
+  __host__ __device__ Geometry(int nt, int tw, int rows, int packed, int w) {
+    sw = tw + 2;
+    raw_w = tw == w ? tw : tw + 16;
+    col_off = tw == w ? -1 : 7;
+    boxes = packed ? NS : 1;
+    box_rows = packed ? rows + 2 : NS * rows + 2;
+    raw_rows = boxes * box_rows;
+    sub_rows = packed ? rows + 2 : rows;
+    const int need = (NS - 1) * sub_rows * sw + 2 * sw + 2 + nt;
+    npix = ((raw_rows * sw > need ? raw_rows * sw : need) + 7) / 8 * 8;
+    w_bytes = kBM * 9 * CI * 2;
+    raw_bytes = CI * raw_rows * raw_w * 2;
+    stage_bytes = w_bytes + raw_bytes + NS * 2 * CI * 4;
+    op_bytes = 2 * npix * 8 * 2;
+  }
+  __host__ __device__ size_t smem(int stages) const {
+    return (size_t)stages * (stage_bytes + 8) + 2 * (size_t)op_bytes;
+  }
+};
+
+// Where a block sits: sample b0 and row h0 (the first slab row's image row
+// + 1), column c0, and how many samples there are.
+struct Tile {
+  int b0, h0, c0, batch;
+  // (sample, input row) of slab row i; false where it lies outside
+  __device__ __forceinline__ bool slab_row(const Params& p, int i, int& bi, int& ih) const {
+    if (p.packed) {
+      bi = b0 + i / (p.rows + 2);
+      ih = i % (p.rows + 2) - 1;
+    } else {
+      bi = b0;
+      ih = h0 - 1 + i;
+    }
+    return bi < batch && ih >= 0 && ih < p.h;
+  }
+};
+
+// ---- mbarriers and TMA
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity `parity` to complete; a wait of seconds
+// (a copy that never lands) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P;\nmbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1ll << 28)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+// One contiguous run of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-template <bool FUSED, bool RES, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32) conv3x3_staged_kernel(const Params p) {
-  using namespace adt::mma;
-  constexpr int NT = WARPS * 32;
-  constexpr int BMW = WARPS * 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [BMW][SLDA]: k = tap * 16 + ci
-  bf16* sX = sA + BMW * SLDA;                // [(R + 2)(TW + 2)][SPIX]
+// Named barriers between the producer warpgroup and the two consumers:
+// kFull + i (slab buffer i holds the next chunk), kEmpty + i (the
+// consumers are done with the chunk of parity i), kProducer (the
+// producer's threads all see a chunk). Barrier 0 is __syncthreads'.
+constexpr int kThreadsWS = 3 * 128;
+constexpr int kFull = 1, kEmpty = 3, kProducer = 5;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
-  const int tw = p.tw, tr = 64 / tw, sw = tw + 2;
-  const int npos = (tr + 2) * sw;
-  const int b = blockIdx.x / p.p_tiles;
-  const int ti = blockIdx.x % p.p_tiles;
-  const int tiles_per_row = p.w / tw;
-  const int h0 = (ti / tiles_per_row) * tr, c0 = (ti % tiles_per_row) * tw;
-  const int co0 = blockIdx.y * BMW;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bf16* xb = static_cast<const bf16*>(p.x) + (size_t)b * p.c_in * p.hw;
-  const bf16* wt = static_cast<const bf16*>(p.wt);
-  const float* ab = FUSED ? p.a + (size_t)b * p.c_in : nullptr;
-  const float* bb = FUSED ? p.b + (size_t)b * p.c_in : nullptr;
+// The copies of chunk `kc` into one stage, completing on `bar`: the weight
+// tile, one contiguous bulk copy of the wrapper's tiled weights
+// [C_out / 128][C_in / 16][2][9][128][8], and the raw input boxes (TMA over
+// the input seen as [B C_in][H][W], everything outside zero: the SAME
+// padding).
+__device__ __forceinline__ void issue_chunk(const Params& p, const Geometry& g, const Tile& t,
+                                            const CUtensorMap* xmap,
+                                            unsigned char* stage, uint64_t* bar, int co0, int kc) {
+  mbar_expect_tx(bar, g.w_bytes + g.raw_bytes);
+  const size_t tile = ((size_t)(co0 / kBM) * (p.c_in / CI) + kc) * (g.w_bytes / 2);
+  bulk_load(stage, static_cast<const bf16*>(p.wt) + tile, g.w_bytes, bar);
+  const int box = CI * g.box_rows * g.raw_w * 2;
+  for (int s = 0; s < g.boxes; ++s)
+    tma_load_3d(stage + g.w_bytes + s * box, xmap, g.col_off < 0 ? 0 : t.c0 - 8,
+                p.packed ? -1 : t.h0 - 1,
+                (t.b0 + s) * p.c_in + kc * CI, bar);
+}
 
-  // the slab pixel this thread stages (npos <= 108 <= NT): its offset in
-  // a channel plane (-1 in the padding) and in the slab
-  const int pos = threadIdx.x;
-  const int rr = pos / sw, cc = pos - rr * sw;
-  const int ih = h0 - 1 + rr, iw = c0 - 1 + cc;
-  const bool staging = pos < npos;
-  const int goff = staging && ih >= 0 && ih < p.h && iw >= 0 && iw < p.w
-                       ? ih * p.w + iw : -1;
-  const int soff = pos * SPIX;
-  // this lane's ldmatrix row in the slab for its pixel of each 16-pixel
-  // group, at tap (0, 0); tap (dh, dw) adds (dh * sw + dw) * SPIX
-  int brow[4];
+// silu(z) = z sigmoid(z) = h (1 + tanh(h)), h = z / 2: one MUFU operation
+// (tanh.approx, relative error about 2^-11) where exp and a divide take two;
+// the result is rounded to bf16 next.
+__device__ __forceinline__ float silu_fast(float z) {
+  const float h = 0.5f * z;
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(h));
+  return fmaf(h, t, h);
+}
+
+// A raw stage into the slab [k half][npix][8]: slab pixel (i, c) is input
+// (slab row i, column c0 - 1 + c), zero outside the image; in the fused
+// kernel through silu(x a + b) in float32 first. The slab's pixels past its
+// rows feed only dropped outputs and are not written. (Units of two pixels
+// with paired loads measured slower: their 16-byte stores conflict.)
+template <bool FUSED>
+__device__ __forceinline__ void transform(const Params& p, const Geometry& g, const Tile& t,
+                                          const unsigned char* stage, bf16* op, int lt) {
+  const bf16* sR = reinterpret_cast<const bf16*>(stage + g.w_bytes);
+  const float* sAB = reinterpret_cast<const float*>(stage + g.w_bytes + g.raw_bytes);
+  const int plane = g.box_rows * g.raw_w;
+  const float inv_sw = 1.f / g.sw;
+  const int used = g.raw_rows * g.sw;
+  for (int u = lt; u < 2 * used; u += 128) {
+    const int kh = u >= used;
+    const int pix = u - kh * used;
+    const int i = __float2int_rz((pix + 0.5f) * inv_sw), c = pix - i * g.sw;
+    const int iw = t.c0 - 1 + c;
+    int bi, ih;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (t.slab_row(p, i, bi, ih) && iw >= 0 && iw < p.w) {
+      const int bx = p.packed ? bi - t.b0 : 0;
+      const bf16* src = sR + ((bx * CI + kh * 8) * g.box_rows + i - bx * g.box_rows) * g.raw_w +
+                        c + g.col_off;
+      const float* ab = sAB + (bi - t.b0) * 2 * CI + kh * 8;
+      float f[8];
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    const int n = np * 16 + (lane & 7) + (lane >> 4) * 8;
-    const int r = n / tw, c = n - r * tw;
-    brow[np] = (r * sw + c) * SPIX + ((lane >> 3) & 1) * 8;
+      for (int e = 0; e < 8; ++e) {
+        f[e] = __bfloat162float(src[e * plane]);
+        if (FUSED) f[e] = silu_fast(f[e] * ab[e] + ab[CI + e]);
+      }
+      v = make_uint4(adt::mma::pack(f[0], f[1]), adt::mma::pack(f[2], f[3]),
+                     adt::mma::pack(f[4], f[5]), adt::mma::pack(f[6], f[7]));
+    }
+    *reinterpret_cast<uint4*>(op + ((size_t)kh * g.npix + pix) * 8) = v;
+  }
+}
+
+// Warp-specialised: warpgroups 0 and 1 each own 64 output channels of the
+// block's 128 and run only wgmma and the epilogue; warpgroup 2 (the
+// producer) issues the TMA copies and runs the transform, and hands most
+// of its registers to the consumers (setmaxnreg). The producer transforms
+// chunk k while the consumers multiply chunk k - 1, and refills a stage
+// once the consumers are done with the chunk that held it.
+template <bool FUSED, bool RES, int NT>
+__global__ void __launch_bounds__(kThreadsWS, 1)
+    conv3x3_igemm_kernel(const Params p, const __grid_constant__ CUtensorMap xmap) {
+  constexpr int NACC = NT / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Geometry g(NT, p.tw, p.rows, p.packed, p.w);
+  const int img = blockIdx.x / p.p_tiles, ti = blockIdx.x - img * p.p_tiles;
+  Tile t;
+  t.batch = p.batch;
+  t.b0 = p.packed ? img * NS : img;
+  t.h0 = p.packed ? 0 : (ti / p.tiles_w) * NS * p.rows;
+  t.c0 = (ti % p.tiles_w) * p.tw;
+  const int co0 = blockIdx.y * kBM;
+  const int kc0 = blockIdx.z * p.chunks_per_split;
+  const int nk = min(p.c_in / CI, kc0 + p.chunks_per_split) - kc0;
+  const int S = p.stages;
+  const int wgi = threadIdx.x >> 7, lt = threadIdx.x & 127;
+  auto stage = [&](int s) { return smem + (size_t)s * g.stage_bytes; };
+  auto slab = [&](int i) {
+    return reinterpret_cast<bf16*>(smem + (size_t)S * g.stage_bytes + (size_t)i * g.op_bytes);
+  };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)S * g.stage_bytes + 2 * g.op_bytes);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bars + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // ---- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::: "memory");
+    if (lt == 0)
+      for (int s = 0; s < S - 1 && s < nk; ++s)
+        issue_chunk(p, g, t, &xmap, stage(s), bars + s, co0, kc0 + s);
+    for (int k = 0; k < nk; ++k) {
+      unsigned char* st = stage(k % S);
+      if (FUSED && lt < NS * 2 * CI) {  // the chunk's a, b of each sample
+        const int s = lt / (2 * CI), q = lt - s * 2 * CI;
+        const int bi = t.b0 + s;
+        reinterpret_cast<float*>(st + g.w_bytes + g.raw_bytes)[lt] =
+            bi < t.batch ? (q < CI ? p.a : p.b)[(size_t)bi * p.c_in + (kc0 + k) * CI + (q & 15)]
+                         : 0.f;
+      }
+      mbar_wait(bars + k % S, (k / S) & 1);
+      bar_sync(kProducer, 128);
+      transform<FUSED>(p, g, t, st, slab(k & 1), lt);
+      adt::wg::fence_proxy_async();
+      bar_arrive(kFull + (k & 1), kThreadsWS);
+      // refill the stage of chunk k - 1 once the consumers are done with it
+      if (k >= 1) bar_sync(kEmpty + ((k - 1) & 1), kThreadsWS);
+      if (lt == 0 && k + S - 1 < nk)
+        issue_chunk(p, g, t, &xmap, stage((k + S - 1) % S), bars + (k + S - 1) % S, co0,
+                    kc0 + k + S - 1);
+    }
+    return;
   }
 
-  float acc[8][4];
-  zero(acc);
-  for (int ci0 = 0; ci0 < p.c_in; ci0 += CI) {
-    __syncthreads();
-    // weights: BMW rows x 9 taps x 16 channels, two 16-byte loads per tap
-    for (int idx = threadIdx.x; idx < BMW * 18; idx += NT) {
-      const int r = idx / 18, q = idx - r * 18;
-      const int co = co0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (co < p.c_out)
-        v = *reinterpret_cast<const uint4*>(wt + ((size_t)co * 9 + (q >> 1)) * p.c_in + ci0 +
-                                            (q & 1) * 8);
-      *reinterpret_cast<uint4*>(sA + r * SLDA + q * 8) = v;
-    }
-    // the input slab, eight channels per 16-byte store
-    if (staging) {
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+  float acc[NS][NACC];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float v[8];
+  for (int s = 0; s < NS; ++s)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int ci = ci0 + half * 8 + e;
-          v[e] = 0.f;
-          if (goff >= 0) {
-            v[e] = to_f32(xb[(size_t)ci * p.hw + goff]);
-            if (FUSED) {  // rounded to bf16 next, so the fast exp and divide do
-              const float u = v[e] * ab[ci] + bb[ci];
-              v[e] = __fdividef(u, 1.f + __expf(-u));
-            }
-          }
-        }
-        const uint4 u = make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]),
-                                   pack(v[6], v[7]));
-        *reinterpret_cast<uint4*>(sX + soff + half * 8) = u;
+    for (int i = 0; i < NACC; ++i) acc[s][i] = 0.f;
+  const bool active = co0 + wgi * 64 < p.c_out;
+  // A: [k half][tap][128][8], the warpgroup's 64 rows; B: [k half][npix][8]
+  const uint32_t a_lbo = 9 * kBM * 16, b_lbo = g.npix * 16;
+  for (int k = 0; k < nk; ++k) {
+    bar_sync(kFull + (k & 1), kThreadsWS);
+    if (active) {
+      mbar_wait(bars + k % S, (k / S) & 1);  // the weights' copy, seen by this thread
+      const bf16* sa = reinterpret_cast<const bf16*>(stage(k % S)) + wgi * 64 * 8;
+      const bf16* sb = slab(k & 1);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) adt::wg::fence_operands(acc[s]);
+      adt::wg::fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint64_t da = adt::wg::desc(sa + tap * kBM * 8, a_lbo, 128);
+        const int shift = (tap / 3) * g.sw + tap % 3;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          adt::wg::mma<NT>(acc[s], da,
+                           adt::wg::desc(sb + (s * g.sub_rows * g.sw + shift) * 8, b_lbo, 128));
       }
-    }
-    __syncthreads();
-
+      adt::wg::commit();
+      // chunk k - 1's products are done: its stage and slab may be reused
+      adt::wg::wait_one();
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = ((tap / 3) * sw + tap % 3) * SPIX;
-      uint32_t a[4];
-      ldsm_x4(a[0], a[1], a[2], a[3], sA + (warp * 16 + (lane & 15)) * SLDA + tap * CI +
-                                          (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3, sX + brow[np] + shift);
-        mma16816(acc[2 * np], a, b0, b1);
-        mma16816(acc[2 * np + 1], a, b2, b3);
-      }
+      for (int s = 0; s < NS; ++s) adt::wg::fence_operands(acc[s]);
     }
+    if (k >= 1) bar_arrive(kEmpty + ((k - 1) & 1), kThreadsWS);
   }
+  adt::wg::wait_all();
+#pragma unroll
+  for (int s = 0; s < NS; ++s) adt::wg::fence_operands(acc[s]);
+  if (!active) return;
 
-  // epilogue: C rows are channels, columns pixels; the two neighbours of
-  // a lane lie in one image row (TW % 8 == 0)
-  const int g = lane >> 2, t = lane & 3;
+  // epilogue: column n of sub-tile s is output row n / sw of the sub-tile,
+  // column c0 + n % sw; the two halo columns of each slab row and the
+  // columns past the tile are dropped. A lane's two neighbours lie in one
+  // image row.
+  const int warp = lt >> 5, lane = lt & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
   const bf16* res = static_cast<const bf16*>(p.res);
   bf16* y = static_cast<bf16*>(p.y);
+  const bool split = p.splits > 1;
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
-    const int co = co0 + warp * 16 + g + 8 * h2;
+    const int co = co0 + wgi * 64 + warp * 16 + gq + 8 * h2;
     if (co >= p.c_out) continue;
-    const float bv = p.bias ? p.bias[co] : 0.f;
-    const size_t row = ((size_t)b * p.c_out + co) * p.hw;
+    const float bv = (!split && p.bias) ? p.bias[co] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = j * 8 + 2 * t;
-      const int r = n / tw, c = n - r * tw;
-      if (h0 + r >= p.h) continue;
-      const size_t px = (size_t)(h0 + r) * p.w + c0 + c;
-      float v0 = acc[j][2 * h2] + bv, v1 = acc[j][2 * h2 + 1] + bv;
-      if (RES) {
-        const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(res + row + px);
-        v0 += __bfloat162float(r2.x);
-        v1 += __bfloat162float(r2.y);
+    for (int s = 0; s < NS; ++s) {
+      const int bi = p.packed ? t.b0 + s : t.b0;
+      if (bi >= t.batch) continue;
+      const int oh0 = p.packed ? 0 : t.h0 + s * p.rows;
+      const size_t row = ((size_t)bi * p.c_out + co) * p.hw;
+      float* part = split ? p.ws + (size_t)blockIdx.z * t.batch * p.c_out * p.hw + row : nullptr;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int n = j * 8 + 2 * t4;
+        const int r = n / g.sw, c = n - r * g.sw;
+        const int oh = oh0 + r, ow = t.c0 + c;
+        if (c >= p.tw || r >= p.rows || oh >= p.h || ow >= p.w) continue;
+        const size_t px = (size_t)oh * p.w + ow;
+        float v0 = acc[s][4 * j + 2 * h2] + bv, v1 = acc[s][4 * j + 2 * h2 + 1] + bv;
+        if (split) {
+          *reinterpret_cast<float2*>(part + px) = make_float2(v0, v1);
+          continue;
+        }
+        if (RES) {
+          const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(res + row + px);
+          v0 += __bfloat162float(r2.x);
+          v1 += __bfloat162float(r2.y);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(y + row + px) = __floats2bfloat162_rn(v0, v1);
       }
-      *reinterpret_cast<__nv_bfloat162*>(y + row + px) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
-// The staged kernel's tile width for a W x C_in input, or 0 where it does
-// not apply.
-inline int staged_tile_width(int c_in, int w) {
-  if (c_in % CI) return 0;
-  return w % 16 == 0 ? 16 : (w % 8 == 0 ? 8 : 0);
+// Split K's second pass: the partial sums of the splits added in order,
+// then the bias and the residual, one cast; four outputs a thread (H W % 8
+// == 0).
+template <bool RES>
+__global__ void __launch_bounds__(256) conv3x3_split_reduce(const Params p, size_t n) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 s = *reinterpret_cast<const float4*>(p.ws + i);
+  for (int k = 1; k < p.splits; ++k) {
+    const float4 t = *reinterpret_cast<const float4*>(p.ws + (size_t)k * n + i);
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+    s.w += t.w;
+  }
+  const int co = (int)((i / p.hw) % p.c_out);
+  const float bv = p.bias ? p.bias[co] : 0.f;
+  float v[4] = {s.x + bv, s.y + bv, s.z + bv, s.w + bv};
+  if (RES) {
+    const uint2 r = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(p.res) + i);
+    const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
+    v[0] += __bfloat162float(r2[0].x);
+    v[1] += __bfloat162float(r2[0].y);
+    v[2] += __bfloat162float(r2[1].x);
+    v[3] += __bfloat162float(r2[1].y);
+  }
+  *reinterpret_cast<uint2*>(static_cast<bf16*>(p.y) + i) =
+      make_uint2(adt::mma::pack(v[0], v[1]), adt::mma::pack(v[2], v[3]));
 }
 
-template <bool FUSED, bool RES, int WARPS>
-inline void launch_staged(Params q, int batch, cudaStream_t st) {
-  q.p_tiles = ((q.h + 64 / q.tw - 1) / (64 / q.tw)) * (q.w / q.tw);
-  const dim3 grid(batch * q.p_tiles, (q.c_out + WARPS * 16 - 1) / (WARPS * 16));
-  conv3x3_staged_kernel<FUSED, RES, WARPS>
-      <<<grid, WARPS * 32, staged_smem(WARPS, q.tw), st>>>(q);
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map with `rank` dims (innermost first), byte strides of
+// dims 1.., a box, no swizzle, zero fill outside.
+inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool FUSED, bool RES, int NT>
+inline int launch_igemm(Params q, int batch, cudaStream_t st) {
+  const Geometry g(NT, q.tw, q.rows, q.packed, q.w);
+  const size_t smem = g.smem(q.stages);
+  if (smem > (size_t)kSmemMax) return -1;
+  CUtensorMap xmap;
+  const cuuint64_t xdims[3] = {(cuuint64_t)q.w, (cuuint64_t)q.h, (cuuint64_t)batch * q.c_in};
+  const cuuint64_t xstr[2] = {(cuuint64_t)q.w * 2, (cuuint64_t)q.hw * 2};
+  const cuuint32_t xbox[3] = {(cuuint32_t)g.raw_w, (cuuint32_t)g.box_rows, CI};
+  if (!make_map(&xmap, q.x, 3, xdims, xstr, xbox)) return -2;
+  // once per instantiation: allow dynamic shared memory above 48 KB
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv3x3_igemm_kernel<FUSED, RES, NT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  q.batch = batch;
+  q.tiles_w = (q.w + q.tw - 1) / q.tw;
+  q.p_tiles = q.packed ? 1 : ((q.h + NS * q.rows - 1) / (NS * q.rows)) * q.tiles_w;
+  const int groups = q.packed ? (batch + NS - 1) / NS : batch;
+  const dim3 grid(groups * q.p_tiles, (q.c_out + kBM - 1) / kBM, q.splits);
+  conv3x3_igemm_kernel<FUSED, RES, NT><<<grid, kThreadsWS, smem, st>>>(q, xmap);
+  if (q.splits > 1) {
+    const size_t n = (size_t)batch * q.c_out * q.hw;
+    const unsigned blocks = (unsigned)((n / 4 + 255) / 256);
+    conv3x3_split_reduce<RES><<<blocks, 256, 0, st>>>(q, n);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ----------------------------------------------------------------- float32
@@ -400,21 +715,42 @@ __global__ void __launch_bounds__(kFThreads) conv3x3_f32_kernel(const Params p) 
   }
 }
 
-// Launch the kernel for the dtype and the fused / residual variant.
+// The launch plan of a bf16 call (ops/conv_im2col.py::conv_plan): nt = 0
+// for the gather kernel, else the implicit GEMM's wgmma width (80 or 136),
+// a sub-tile's columns and rows, whether a block
+// packs whole images, stages (2-4), splits and the chunks each split takes.
+struct Plan {
+  int nt, tw, rows, packed, stages, splits, chunks_per_split;
+};
+
+// Launch the kernel for the dtype, the plan and the fused / residual
+// variant. Returns -1 for a plan the kernels do not take.
 template <bool FUSED, bool RES>
-inline int launch(const Params& p, int batch, int is_bf16, cudaStream_t st) {
-  const int tw = staged_tile_width(p.c_in, p.w);
-  if (is_bf16 && tw) {
-    // 64, 96 or 128 output channels a block: the largest that divides C_out
+inline int launch(const Params& p, int batch, int is_bf16, const Plan& plan, cudaStream_t st) {
+  if (is_bf16 && plan.nt) {
+    const int sw = plan.tw + 2;
+    const int chunks = p.c_in / CI;
+    if (p.c_in % CI || p.w % 8 || plan.tw % 8 || plan.tw > p.w || plan.rows < 1 ||
+        plan.rows * sw > plan.nt || (plan.packed && (plan.rows != p.h || plan.tw != p.w)) ||
+        plan.stages < 2 || plan.stages > 4 || plan.splits < 1 ||
+        plan.chunks_per_split < 1 || (plan.splits - 1) * plan.chunks_per_split >= chunks ||
+        plan.splits * plan.chunks_per_split < chunks || (plan.splits > 1 && !p.ws))
+      return -1;
     Params q = p;
-    q.tw = tw;
-    if (p.c_out % 128 == 0)
-      launch_staged<FUSED, RES, 8>(q, batch, st);
-    else if (p.c_out % 96 == 0)
-      launch_staged<FUSED, RES, 6>(q, batch, st);
-    else
-      launch_staged<FUSED, RES, 4>(q, batch, st);
-  } else if (is_bf16) {
+    q.tw = plan.tw;
+    q.rows = plan.rows;
+    q.packed = plan.packed;
+    q.stages = plan.stages;
+    q.splits = plan.splits;
+    q.chunks_per_split = plan.chunks_per_split;
+#define ADT_CONV_IGEMM(NT) \
+  if (plan.nt == NT) return launch_igemm<FUSED, RES, NT>(q, batch, st);
+    ADT_CONV_IGEMM(80)
+    ADT_CONV_IGEMM(136)
+#undef ADT_CONV_IGEMM
+    return -1;
+  }
+  if (is_bf16) {
     const dim3 grid(batch * ((p.hw + BN - 1) / BN), (p.c_out + BM - 1) / BM);
     Params q = p;
     q.p_tiles = (p.hw + BN - 1) / BN;

@@ -43,8 +43,14 @@ def make_adm_fitness(*, model, image_size: int, feature_fn: Callable,
                      device=None) -> BatchedFIDFitness:
     """Fitness for timestep-only (joint=False) or joint timestep +
     architecture candidates. ``model`` / ``classifier`` are the port's
-    UNetModel / EncoderUNetModel on ``device`` (cuda by default)."""
+    UNetModel / EncoderUNetModel on ``device`` (cuda by default); their
+    parameters are frozen (``requires_grad_(False)``)."""
     dev = resolve_device(device)
+    # frozen: guidance differentiates the classifier with respect to its
+    # input only, so no weight gradient is asked for
+    model.requires_grad_(False)
+    if classifier is not None:
+        classifier.requires_grad_(False)
     if not use_ddim:
         raise NotImplementedError("ancestral sampling (p_sample_loop) is not "
                                   "ported yet; use use_ddim=True")

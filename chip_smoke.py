@@ -21,10 +21,13 @@ Phases, each of which raises on failure:
    route to them (batch 32, bf16 and fp32; the sites are read from the
    models themselves, run on the meta device), the GroupNorm backward also
    chained through its ``autograd.Function``; a sabotaged run of each
-   (a conv with one C_out block or one halo row left out, a GroupNorm
-   with one group's statistics taken from the wrong group) must break the
-   limit; each timed beside its twin, its bound and ``F.conv2d`` /
-   ``F.group_norm`` (forward, or its autograd backward);
+   (a conv, in its launch plan's tiling, with one 128-channel tile, one
+   halo row or, where K is split, one split left out; a GroupNorm with one
+   group's statistics taken from the wrong group) must break the limit;
+   each timed beside its twin, its bound and ``F.conv2d`` /
+   ``F.group_norm`` (forward, or its autograd backward), the convs with
+   their plan and share of the bound, and summed per guided step, SD UNet
+   call and decode;
 4. parity: two guided DDIM steps of the full-width ADM-64 UNet and
    classifier (float32, seeded random weights) on the GPU against the same
    run on the CPU, where every kernel is its plain twin: once with the
@@ -35,7 +38,9 @@ Phases, each of which raises on failure:
 6. A/B: the same guided DDIM-4 run with the switches off, each alone, the
    fused norm with the fused conv, and all three on, one round (three
    rounds of each are in PERF.md): wall time per step, device-busy time
-   per step (profiler) and idle share of every run
+   per step (profiler), idle share and weight- and input-gradient conv
+   time of every run (the guided models frozen, as the search freezes
+   them: any weight-gradient kernel fails the phase)
    (``chiprun_out/chip_smoke_profile_fused.txt``: the kernels of a run
    with all three on);
 7. search: ``adt-torch search`` through its Python entry at full ADM-64
@@ -562,8 +567,8 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
     import torch
     import torch.nn.functional as F
     from autodiffusion_tpu_torch.ops.conv_im2col import (
-        conv3x3_fused_kernel, conv3x3_im2col, conv3x3_reference,
-        fused_conv_reference)
+        BM, CHUNK, conv3x3_fused_kernel, conv3x3_im2col, conv3x3_reference,
+        conv_plan, fused_conv_reference)
     from autodiffusion_tpu_torch.ops.fused_norm import (
         FusedGroupNormFunction, group_norm_bwd, group_norm_bwd_plain,
         group_norm_fwd, group_norm_fwd_plain)
@@ -689,18 +694,29 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
                         other = None if key[4] else res
                         errs.append(compare(kern(x, wt, other),
                                             plain(other), dname, tol))
-                    # sabotage: the last C_out block (64 channels) left
-                    # out, and one input row left out of one output row
+                    # sabotage, in the plan's tiling: the last tile of
+                    # 128 output channels left out; the halo row above a
+                    # block's (or a sub-tile's) first row left out of that
+                    # output row; where K is split, the last split's input
+                    # channels left out
+                    plan = conv_plan(batch, c_in, c_out, h, w, dt)
                     w_bad = wt.clone()
-                    w_bad[-64:] = 0
+                    w_bad[(c_out - 1) // BM * BM:] = 0
                     faults = [kern(x, w_bad)]
                     if h > 1:
-                        row = h // 2
+                        band = plan.rows or h // 2
+                        row = next((r for r in (2 * band, band)
+                                    if 0 < r < h), h // 2)
                         x_bad = x.clone()
                         x_bad[:, :, row - 1] = zero_row
                         bad = y.clone()
                         bad[:, :, row] = kern(x_bad, wt)[:, :, row]
                         faults.append(bad)
+                    if plan.splits > 1:
+                        w_split = wt.clone()
+                        w_split[:, (plan.splits - 1) * plan.chunks_per_split
+                                * CHUNK:] = 0
+                        faults.append(kern(x, w_split))
                     torch.cuda.synchronize()
                     sabotage = min(compare(f, y_ref, dname, tol)[1]
                                    for f in faults)
@@ -716,6 +732,12 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
                                                             dname, batch),
                          LIMIT_TEXT["float32 conv" if dname == "float32"
                                     else dname], batch)
+                    r = rows[-1]
+                    r.update(plan=plan.text(),
+                             bound_share=r["bound_ms"] / r["ms"])
+                    log(f"  plan {r['plan']}: {100 * r['bound_share']:.1f}% "
+                        f"of the bound, {r['ms'] / r['library_ms']:.2f}x "
+                        "F.conv2d")
                     del x, wt, res, y, y_ref, faults
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -725,18 +747,23 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
     return rows
 
 
-def new_kernels_per_step(rows):
-    """{kernel: (kernel ms, library ms)} of one guided DDIM step at batch
-    32 in bf16 with the switches on, summed over the sites."""
+def new_kernels_per_step(rows, unit="guided DDIM step (batch 32"):
+    """{kernel: (kernel ms, library ms, bound ms)} of one guided DDIM step
+    at batch 32 (or one SD UNet call or decode: ``unit``) in bf16 with the
+    switches on, summed over the sites."""
     out = {}
     for name in NEW_KERNELS:
         sel = [r for r in rows if r["name"] == name
                and r["dtype"] == "bfloat16"]
-        out[name] = (sum(r["count"] * r["ms"] for r in sel),
-                     sum(r["count"] * r["library_ms"] for r in sel))
-        log(f"{name} per guided DDIM step (batch 32, bf16, "
-            f"{sum(r['count'] for r in sel)} launches): kernel "
-            f"{out[name][0]:.4f} ms, library {out[name][1]:.4f} ms")
+        if not sel:
+            continue
+        out[name] = tuple(sum(r["count"] * r[k] for r in sel)
+                          for k in ("ms", "library_ms", "bound_ms"))
+        log(f"{name} per {unit}, bf16, {sum(r['count'] for r in sel)} "
+            f"launches): kernel {out[name][0]:.4f} ms, library "
+            f"{out[name][1]:.4f} ms ({out[name][0] / out[name][1]:.2f}x), "
+            f"bound {out[name][2]:.4f} ms "
+            f"({100 * out[name][2] / out[name][0]:.1f}%)")
     return out
 
 
@@ -787,6 +814,10 @@ def guided_run(unet_sd, cls_sd):
     m.load_state_dict(unet_sd)
     c = create_classifier(ClassifierConfig.adm64(), device="cuda")
     c.load_state_dict(cls_sd)
+    # frozen, as the search's models are: guidance asks for no weight
+    # gradient
+    m.requires_grad_(False)
+    c.requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(5)
     y = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
     tables = build_tables("ddim4", base_schedule="cosine").to("cuda")
@@ -829,10 +860,21 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
                     run()
                     torch.cuda.synchronize()
                 busy, kernels = device_busy(prof, 4)
+            # weight- and input-gradient convolutions (cuDNN's wgrad and
+            # dgrad kernels): no wgrad where the models are frozen
+            wgrad, dgrad = (sum(e.self_device_time_total for e in kernels
+                                if tag in e.key.lower()) / 1e3 / 4
+                            for tag in ("wgrad", "dgrad"))
             runs[name].append(dict(wall_ms=wall, busy_ms=busy,
-                                   idle=1 - busy / wall))
+                                   idle=1 - busy / wall, wgrad_ms=wgrad,
+                                   dgrad_ms=dgrad))
             log(f"A/B round {rnd} {name:22s} wall {wall:.2f} ms/step, "
-                f"busy {busy:.2f} ms/step, idle {100 * (1 - busy / wall):.1f}%")
+                f"busy {busy:.2f} ms/step, idle {100 * (1 - busy / wall):.1f}%"
+                f", wgrad {wgrad:.3f} ms/step, dgrad {dgrad:.3f} ms/step")
+            if wgrad:
+                raise AssertionError(f"A/B {name}: {wgrad:.3f} ms/step of "
+                                     "weight-gradient kernels under frozen "
+                                     "models")
             if rnd == 0 and name == "all":
                 os.makedirs(OUT, exist_ok=True)
                 with open(os.path.join(OUT, "chip_smoke_profile_fused.txt"),
@@ -840,7 +882,10 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
                     f.write(f"{smi_line()}\nguided DDIM-4, ADM-64 bf16, "
                             f"batch 32, {' '.join(f'{k}={v}' for k, v in SWITCHES_ON.items())}; "
                             "device time per step by kernel\n"
-                            + "\n".join(profile_lines(kernels, 4)) + "\n")
+                            + "\n".join(profile_lines(kernels, 4))
+                            + f"\nweight-gradient (wgrad) kernels {wgrad:.3f}"
+                            f" ms/step, input-gradient (dgrad) kernels "
+                            f"{dgrad:.3f} ms/step\n")
     summary = {}
     for name, rs in runs.items():
         wall = sorted(r["wall_ms"] for r in rs)[len(rs) // 2]
@@ -1582,10 +1627,13 @@ def main() -> int:
         # parity of the full-width towers, a profile and two searches
         sd = sd_sites()
         sd_attn_rows = phase_sd_attention(sd)
-        sd_rows = []
+        sd_rows, sd_ms = [], {}
         for part, batch in (("unet", SD_UNET_BATCH), ("decode", SD_BATCH)):
-            sd_rows += phase_new_kernels(
+            part_rows = phase_new_kernels(
                 {k: sd[part].get(k, {}) for k in NEW_KERNELS}, batch, reps=5)
+            sd_ms[part] = new_kernels_per_step(
+                part_rows, f"SD {part} call (batch {batch}")
+            sd_rows += part_rows
         weights = sd_weights()
         sd_parity = phase_sd_parity(weights, {"switches off": SWITCHES_OFF,
                                               "switches on": SWITCHES_ON})
@@ -1645,6 +1693,7 @@ def main() -> int:
                                        for k, v in d.items()}
                                 for part, d in sd.items()},
                    "sd_attention_rows": sd_attn_rows, "sd_kernel_rows": sd_rows,
+                   "sd_new_kernels_ms_per_call": sd_ms,
                    "sd_parity": {k: v[0] for k, v in sd_parity.items()},
                    "sd_profile": sd_prof,
                    "sd_search": sd_search, "sd_search_switches_on":

@@ -180,9 +180,9 @@ def test_conv3x3_fused_bf16_matches_jax_kernel():
 
 @pytest.mark.parametrize("with_res", [True, False])
 def test_conv3x3_fused_gradients_match_jax(with_res):
-    """conv3x3_fused's backward (autograd of the plain twin) against the
-    JAX custom VJP (the VJP of its XLA expression): dx, da, db, dw, dbias
-    and dresidual."""
+    """conv3x3_fused's backward (the conv's gradients, the SiLU and the
+    affine, as the JAX VJP differentiates its XLA expression) against the
+    JAX custom VJP: dx, da, db, dw, dbias and dresidual."""
     x, k, bias, a, off, res, g = _inputs(5)
     jargs = [jnp.asarray(v) for v in (x, a, off, k, bias)]
     if with_res:
@@ -208,6 +208,52 @@ def test_conv3x3_fused_gradients_match_jax(with_res):
     _close(got[4].numpy(), want[4], name="dbias")
     if with_res:
         _close(_nhwc(got[5]), want[5], name="dresidual")
+
+
+def test_guidance_through_frozen_classifier_takes_no_weight_gradient(
+        monkeypatch):
+    """Classifier guidance through the fused and im2col conv routes: the
+    gradient with respect to the input is the same whether the classifier's
+    weights are frozen (as the search freezes them) or not, and with them
+    frozen no weight gradient is computed (conv2d_weight would raise)."""
+    from autodiffusion_tpu_torch.models import random_init_
+    from autodiffusion_tpu_torch.models.unet import EncoderUNetModel
+    from autodiffusion_tpu_torch.samplers import classifier_cond_fn
+
+    for k, v in {"ADT_FUSED_NORM": "1", "ADT_IM2COL_CONV": "1",
+                 "ADT_FUSED_CONV": "all"}.items():
+        monkeypatch.setenv(k, v)
+    routes = []
+    for name in ("conv3x3", "conv3x3_fused"):
+        real = getattr(port_nn, name)
+        monkeypatch.setattr(port_nn, name,
+                            lambda *a, _n=name, _r=real, **kw:
+                            routes.append(_n) or _r(*a, **kw))
+    clf = random_init_(EncoderUNetModel(
+        image_size=8, in_channels=3, out_channels=10, model_channels=64,
+        num_res_blocks=1, attention_ds=(2,), channel_mult=(1, 2),
+        num_head_channels=32, use_scale_shift_norm=True,
+        resblock_updown=True).eval(), 3)
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(2, 3, 8, 8).astype(np.float32))
+    t = torch.tensor([40.0, 700.0])
+    y = torch.tensor([2, 7])
+
+    wgrads = []
+    real_wgrad = torch.nn.grad.conv2d_weight
+    monkeypatch.setattr(torch.nn.grad, "conv2d_weight",
+                        lambda *a, **kw: wgrads.append(1) or real_wgrad(*a,
+                                                                        **kw))
+    unfrozen = classifier_cond_fn(clf, y, 1.0)(x, t)
+    assert wgrads and {"conv3x3", "conv3x3_fused"} <= set(routes)
+
+    def no_wgrad(*args, **kw):
+        raise AssertionError("a weight gradient was computed")
+
+    monkeypatch.setattr(torch.nn.grad, "conv2d_weight", no_wgrad)
+    clf.requires_grad_(False)
+    frozen = classifier_cond_fn(clf, y, 1.0)(x, t)
+    torch.testing.assert_close(frozen, unfrozen, atol=0, rtol=0)
 
 
 def test_conv3x3_module_routes(monkeypatch):

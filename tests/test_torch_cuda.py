@@ -29,7 +29,7 @@ import torch
 
 from autodiffusion_tpu_torch.ops.conv_im2col import (
     conv3x3, conv3x3_fused, conv3x3_fused_kernel, conv3x3_im2col,
-    conv3x3_reference, fused_conv_reference)
+    conv3x3_reference, conv_plan, fused_conv_reference)
 from autodiffusion_tpu_torch.ops.flash_attention import (
     LAUNCHES, flash_attention, flash_attention_reference, flash_bwd_dkv,
     flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain, flash_fwd,
@@ -328,8 +328,27 @@ def test_group_norm_autograd_matches_twin(cuda_device, dtype):
                                        msg=lambda m: f"{name}: {m}")
 
 
-CONV_SHAPES = [(2, 192, 192, 64, 64), (3, 72, 100, 7, 9),
-               (4, 256, 128, 16, 16), (2, 64, 64, 1, 5), (32, 768, 768, 8, 8)]
+# (B, C_in, C_out, H, W) and the plan a bf16 call takes: the implicit GEMM
+# (ops/conv_im2col.py::conv_plan) at whole-row tiles, split K (ADM's
+# 1536 -> 768 8x8 level), a half-masked 128-channel tile (C_out 192),
+# tiles of 64 columns of a 512-wide row, ragged H (13 rows in bands of 8)
+# and the 16-wide tile; the gather kernel at C_in % 16 != 0 or W % 8 != 0
+CONV_SHAPES = [((2, 192, 192, 64, 64), "igemm"),
+               ((3, 72, 100, 7, 9), "gather"),
+               ((4, 256, 128, 16, 16), "igemm"),
+               ((2, 64, 64, 1, 5), "gather"),
+               ((32, 768, 768, 8, 8), "igemm"),
+               ((32, 1536, 768, 8, 8), "igemm split"),
+               ((32, 576, 192, 64, 64), "igemm"),
+               ((1, 128, 128, 512, 512), "igemm"),
+               ((2, 256, 128, 13, 32), "igemm")]
+
+
+def _conv_f32_tol(c_in):
+    """chip_smoke.py's float32 conv limit: two float32 sums of K = 9 C_in
+    products in other orders differ by about sqrt(K) roundings, so the
+    limit grows as sqrt(K) past 9 x 768."""
+    return 2e-5 * max(1.0, 9 * c_in / (9 * 768)) ** 0.5
 
 
 def _conv_inputs(gen, dev, dtype, b, c_in, c_out, h, w):
@@ -345,8 +364,15 @@ def _conv_inputs(gen, dev, dtype, b, c_in, c_out, h, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", CONV_SHAPES)
-def test_conv_kernels_match_twins(cuda_device, no_tf32, dtype, shape):
+@pytest.mark.parametrize("shape,plan", CONV_SHAPES)
+def test_conv_kernels_match_twins(cuda_device, no_tf32, dtype, shape, plan):
+    got_plan = conv_plan(shape[0], shape[1], shape[2], shape[3], shape[4],
+                         dtype)
+    if dtype == torch.float32:
+        assert got_plan.kernel == "float32"
+    else:
+        assert got_plan.kernel == plan.split()[0]
+        assert got_plan.splits > 1 or not plan.endswith("split")
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     x, wt, bias, a, off, res = _conv_inputs(gen, cuda_device, dtype, *shape)
     reset_launch_counts()
@@ -364,14 +390,18 @@ def test_conv_kernels_match_twins(cuda_device, no_tf32, dtype, shape):
     assert LAUNCHES == _launched(conv3x3=2, conv3x3_fused=2)
     for name, (got, want) in pairs.items():
         assert got.shape == (shape[0], shape[2], shape[3], shape[4])
-        _assert_within_limit(got, want, dtype, name)
+        _assert_within_limit(got, want, dtype, name, _conv_f32_tol(shape[1]))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_autograd_matches_twin(cuda_device, no_tf32, dtype):
-    """conv3x3 (kernel forward, PyTorch conv gradients) and conv3x3_fused
-    (kernel forward, autograd of the twin) against autograd of the twins."""
+    """conv3x3 and conv3x3_fused (kernel forwards; PyTorch's conv gradients
+    in the dtype of x and w, the fused SiLU and affine in float32) against
+    autograd of the twins, which take the conv gradients in float32. In
+    bf16 the kernels' backward rounds the conv's input gradient to bf16
+    before the SiLU derivative (as the JAX VJP does), one rounding the
+    twin lacks: 6e-2 (1 + |twin|) covers it with a margin of about ten."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     x, wt, bias, a, off, res = _conv_inputs(gen, cuda_device, dtype,
                                             2, 128, 64, 16, 16)
