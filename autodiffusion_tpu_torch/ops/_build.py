@@ -24,7 +24,8 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["build_all", "library", "launch", "last_build_seconds",
-           "ptxas_report", "LAUNCHES", "reset_launch_counts"]
+           "ptxas_report", "ptxas_kernels", "LAUNCHES",
+           "reset_launch_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -38,10 +39,11 @@ SOURCES = {
     "flash_fwd": ("adt_flash_fwd",
                   [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_fwd_packed": ("adt_flash_fwd_packed",
-                         [_c_void_p] * 5 + [_c_int] * 7 + [_c_float,
-                                                           _c_void_p]),
+                         [_c_void_p] * 5 + [_c_int] * 7 + [_c_float]
+                         + [_c_int] * 2 + [_c_void_p]),
     "flash_fwd_wide": ("adt_flash_fwd_wide",
-                       [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
+                       [_c_void_p] * 5 + [_c_int] * 5 + [_c_float]
+                       + [_c_int] * 2 + [_c_void_p]),
     "flash_bwd_dq": ("adt_flash_bwd_dq",
                      [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_bwd_dkv": ("adt_flash_bwd_dkv",
@@ -170,15 +172,36 @@ def last_build_seconds() -> Optional[float]:
     return _build_seconds
 
 
-def ptxas_report() -> str:
-    """The register / shared-memory / spill lines nvcc's ptxas printed for
-    the kernels built in this checkout (empty when every library was
-    reused from an earlier build)."""
-    out = []
+def ptxas_kernels() -> Dict[str, tuple]:
+    """{(source stem, mangled kernel name): (registers, spill store bytes,
+    spill load bytes)} from the reports nvcc's ptxas printed for the
+    kernels built in this checkout (empty where every library was reused
+    from an earlier build)."""
+    out = {}
     for stem in SOURCES:
         path = os.path.join(BUILD_DIR, f"{stem}.log")
-        if os.path.exists(path):
-            with open(path) as f:
-                out += [f"{stem}: {line.strip()}" for line in f
-                        if "registers" in line or "spill" in line]
-    return "\n".join(out)
+        if not os.path.exists(path):
+            continue
+        name, spill = None, (0, 0)
+        with open(path) as f:
+            for line in f:
+                if "Function properties for" in line:
+                    name = line.split("Function properties for")[1].strip()
+                elif "spill stores" in line and name:
+                    nums = [int(w) for w in line.replace(",", " ").split()
+                            if w.isdigit()]
+                    spill = (nums[1], nums[2])
+                elif "Used" in line and "registers" in line and name:
+                    regs = int(line.split("Used")[1].split()[0])
+                    out[(stem, name)] = (regs, *spill)
+                    name, spill = None, (0, 0)
+    return out
+
+
+def ptxas_report() -> str:
+    """One line a kernel built in this checkout: its source, name,
+    registers and spill bytes, as ptxas reported them."""
+    return "\n".join(f"{stem}: {name}: {regs} registers, {st} bytes spill "
+                     f"stores, {ld} bytes spill loads"
+                     for (stem, name), (regs, st, ld)
+                     in ptxas_kernels().items())

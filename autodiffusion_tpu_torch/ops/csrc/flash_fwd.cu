@@ -21,11 +21,11 @@ extern "C" int adt_flash_fwd(const void* q, const void* k, const void* v, void* 
   if (n == 0 || t_len == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: ADT_LAUNCH_FWD(16, 16, 1, 16, 0, is_bf16); break;
-    case 32: ADT_LAUNCH_FWD(32, 32, 1, 32, 0, is_bf16); break;
-    case 64: ADT_LAUNCH_FWD(64, 64, 1, 64, 0, is_bf16); break;
-    case 80: ADT_LAUNCH_FWD(80, 80, 1, 80, 0, is_bf16); break;
-    case 128: ADT_LAUNCH_FWD(128, 128, 1, 128, 0, is_bf16); break;
+    case 16: ADT_LAUNCH_FWD(16, is_bf16); break;
+    case 32: ADT_LAUNCH_FWD(32, is_bf16); break;
+    case 64: ADT_LAUNCH_FWD(64, is_bf16); break;
+    case 80: ADT_LAUNCH_FWD(80, is_bf16); break;
+    case 128: ADT_LAUNCH_FWD(128, is_bf16); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,10 @@ Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    and the build of every CUDA kernel from ``autodiffusion_tpu_torch/ops/
-   csrc`` (nvcc, sm_90a, one process per source, in parallel);
+   csrc`` (nvcc, sm_90a, one process per source, in parallel), with each
+   kernel's registers and spills as ptxas reports them (the pipelined
+   wgmma forwards must not spill) and their exponentials in the machine
+   code (cuobjdump);
 2. kernels: the flash-attention forward, dQ and dK/dV kernels against
    their plain PyTorch twins at the ADM-64 attention shapes (batch 32,
    head dim 64, bf16 and fp32, plus a ragged length), alone and chained
@@ -62,13 +65,16 @@ Phases, each of which raises on failure:
    the packed kernel the heads shifted by one and the padding lanes left
    unzeroed) that must break the limit; then the GroupNorm forward, im2col
    conv and fused conv at every SD UNet and VAE decoder site the switches
-   route to them; all timed beside their twins, bounds and library calls;
+   route to them; all timed beside their twins, bounds (with the share of
+   the bound each reaches) and library calls, the D = 40 rows also beside
+   the softmax's exponential floor (T S n / 3.9e12 s^-1);
 9. SD parity: CLIP on two prompts, two PLMS steps of the UNet with
    classifier-free guidance at batch 1 and one VAE decode, full width,
    float32, seeded random weights, GPU against the CPU twins, switches off
    and on;
 10. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler
-    (``chiprun_out/chip_smoke_profile_sd.txt``);
+    (``chiprun_out/chip_smoke_profile_sd.txt``), with the packed forward's
+    line of a UNet call and the wide forward's line of the decode;
 11. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
     scale 7.5, 512 x 512, chunk 2 x batch 4, 8 samples per candidate,
     population 4, one epoch) from a seeded random-weight CompVis-layout
@@ -119,6 +125,10 @@ TILE = 64
 # H100 SXM: dense bf16 tensor-core and float32 (non-tensor) peaks, HBM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# special-function (MUFU.EX2) results a second on the H100 (the
+# FlashAttention-3 paper's figure): the floor of a softmax at a small head
+# dim, where the exponentials outlast the matrix products
+EXP_PER_S = 3.9e12
 KERNEL_INFO = {
     "flash_fwd": ("autodiffusion_tpu_torch/ops/csrc/flash_fwd.cu",
                   "autodiffusion_tpu/ops/flash_attention.py:80"),
@@ -271,6 +281,45 @@ def compare(got, want, dtype: str, f32_tol: float = 2e-5):
     diff = (got.float() - want.float()).abs()
     return float(diff.max()), float((diff / limit(want, dtype,
                                                   f32_tol)).max())
+
+
+# the pipelined wgmma kernels whose registers ptxas must fit without a
+# spill (csrc/flash_wgmma.cuh)
+PIPELINED = ("flash_fwd_packed_kernel", "flash_fwd_wide_kernel")
+
+
+def phase_ptxas():
+    """{kernel: registers, spill bytes and MUFU.EX2 count} of the
+    pipelined flash forwards, as ptxas reported them and as cuobjdump
+    reads their machine code; a spill fails."""
+    from autodiffusion_tpu_torch.ops import _build
+
+    rows = {name: v for (_, name), v in _build.ptxas_kernels().items()
+            if any(p in name for p in PIPELINED)}
+    missing = [p for p in PIPELINED if not any(p in n for n in rows)]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
+    for name, (regs, st, ld) in sorted(rows.items()):
+        log(f"ptxas {name}: {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    spilled = [n for n, (_, st, ld) in rows.items() if st or ld]
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers of {spilled}")
+    out = {n: dict(registers=r, spill_stores=st, spill_loads=ld)
+           for n, (r, st, ld) in rows.items()}
+    # the softmax's exponentials in the machine code: one MUFU.EX2 a logit
+    # (and two a tile for the rescale), no accurate expf routine
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for stem in ("flash_fwd_packed", "flash_fwd_wide"):
+        sass = subprocess.run([cuobjdump, "-sass", _build.library(stem)._name],
+                              capture_output=True, text=True).stdout
+        for fn in sass.split("Function : ")[1:]:
+            name = fn.split("\n")[0].strip()
+            if name in out:
+                out[name]["mufu_ex2"] = fn.count("MUFU.EX2")
+                log(f"SASS {name}: {fn.count('MUFU.EX2')} MUFU.EX2, "
+                    f"{fn.count('HGMMA')} HGMMA")
+    return out
 
 
 def phase_kernels():
@@ -543,12 +592,14 @@ def _row(rows, failures, name, site, count, dname, errs, sabotage, timing,
                      dtype=dname, max_abs_err=err, err_over_limit=worst,
                      limit=limit_text, sabotaged_over_limit=sabotage,
                      ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bnd[0], bound_by=bnd[1]))
+                     bound_ms=bnd[0], bound_by=bnd[1],
+                     bound_share=bnd[0] / ms))
     log(f"kernel {name:14s} {site} x{count} {dname:8s} "
         f"max_abs_err={err:.3e} max err/limit={worst:.3f} (sabotaged: "
         f"{float('nan') if sabotage is None else sabotage:.1f}) "
         f"{'ok' if ok else 'FAIL'}  ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        f"library_ms={lib_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}; "
+        f"{100 * bnd[0] / ms:.1f}% of it)")
     if not ok:
         failures.append((name, site, dname, err, worst))
     if sabotage is not None and sabotage <= 1:
@@ -1269,6 +1320,14 @@ def phase_sd_attention(sites):
                  f"T={t} S={s_len} H={heads} D={d}", count, dname, errs,
                  sabotage, timing, bnd, LIMIT_TEXT[dname], batch)
             rows[-1].update(T=t, S=s_len, heads=heads, head_dim=d)
+            if d == 40:
+                # the softmax's exponentials: T S n of them a launch
+                floor_ms = t * s_len * n / EXP_PER_S * 1e3
+                rows[-1]["exp_floor_ms"] = floor_ms
+                log(f"    D = 40: exponential floor {floor_ms:.4f} ms (T S n "
+                    f"/ 3.9e12 s^-1) beside the bound {bnd[0]:.4f} ms "
+                    f"({bnd[1]}); the kernel at {100 * floor_ms / timing[0]:.1f}"
+                    f"% of the floor")
             del q, k, v, q4, k4, v4
             torch.cuda.empty_cache()
     if failures:
@@ -1454,6 +1513,16 @@ def phase_sd_profile(weights):
         log("SD profile (UNet): " + line)
     for line in lines_d[:4]:
         log("SD profile (decode): " + line)
+    # the two pipelined forwards' own lines
+    for part, kernels, steps, name in (("UNet", k_u, calls, "flash_fwd_packed"),
+                                       ("decode", k_d, 1, "flash_fwd_wide")):
+        mine = [e for e in kernels if name + "_kernel" in e.key]
+        if not mine:
+            raise AssertionError(f"SD profile: no {name} kernel in the {part}")
+        for line in profile_lines(mine, steps):
+            log(f"SD profile ({part}, {name}): " + line)
+        res[f"{name}_ms_per_{part.lower()}"] = sum(
+            e.self_device_time_total for e in mine) / 1e3 / steps
     del unet, vae
     return res
 
@@ -1587,6 +1656,7 @@ def main() -> int:
     log(f"kernel build (nvcc sm_90a, parallel): "
         f"{_build.last_build_seconds():.1f} s")
     log(_build.ptxas_report())
+    ptxas = phase_ptxas()
 
     rows = phase_kernels()
     attn_ms, attn_sdpa_ms = attention_per_step(rows)
@@ -1697,7 +1767,8 @@ def main() -> int:
                    "sd_parity": {k: v[0] for k, v in sd_parity.items()},
                    "sd_profile": sd_prof,
                    "sd_search": sd_search, "sd_search_switches_on":
-                       sd_search_on, "kernels_line": line,
+                       sd_search_on, "ptxas_pipelined": ptxas,
+                   "kernels_line": line,
                    "total_s": time.time() - t_start}, f, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps(line))

@@ -172,6 +172,25 @@ def test_forward_new_head_dims_match_twin(cuda_device, dtype, t, s, d):
     assert _limit_ratio(dropped, o_ref, dtype) > 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_forward_at_the_vae_site(cuda_device, dtype):
+    """flash_fwd_wide at the VAE mid-block's T = S = 4096 (batch 1): every
+    key tile and both consumers' halves of the contraction; a run with one
+    64-key tile left out breaks the limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (_randn(gen, cuda_device, dtype, 1, 4096, 512) for _ in range(3))
+    reset_launch_counts()
+    o, lse = flash_fwd(q, k, v)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(flash_fwd_wide=1)
+    _assert_within_limit(o, o_ref, dtype, "o")
+    _assert_within_limit(lse, lse_ref, torch.float32, "lse")
+    dropped = flash_fwd(q, k[:, 64:], v[:, 64:])[0]
+    assert _limit_ratio(dropped, o_ref, dtype) > 1
+
+
 def _packed_inputs(gen, dev, dtype, b, heads, d, t, s):
     """Token-major q, k, v, the values of every other head eight times
     larger, so that a kernel reading a neighbouring head's features breaks
@@ -189,12 +208,20 @@ def _packed_inputs(gen, dev, dtype, b, heads, d, t, s):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,heads,d,t,s", [
     (2, 8, 40, 300, 300), (2, 8, 40, 256, 77), (3, 8, 40, 130, 129),
-    (2, 5, 64, 100, 70), (1, 4, 32, 64, 64), (2, 2, 16, 50, 40)])
+    (2, 5, 64, 100, 70), (1, 4, 32, 64, 64), (2, 2, 16, 50, 40),
+    # every packed head dim at the edges of the bf16 kernel's ring (keys
+    # in tiles of 128, at most 4 stages): S under one tile (77), S not a
+    # multiple of the tile and longer than all the stages together
+    # (1000), ragged T, batch > 1
+    (2, 8, 16, 1000, 1000), (2, 3, 16, 257, 77), (2, 4, 32, 1000, 77),
+    (2, 4, 32, 333, 1000), (2, 8, 40, 1000, 1000), (2, 8, 40, 1000, 77),
+    (3, 5, 64, 333, 1000), (2, 5, 64, 1000, 77)])
 def test_packed_forward_matches_twin(cuda_device, dtype, b, heads, d, t, s):
     """flash_fwd_packed on the token-major layout against its twin; runs
     with the heads shifted by one (a wrong head offset), with one 64-key
-    tile left out, and (D = 40 in bf16) with the padding lanes read from
-    memory instead of zeroed all break the limit."""
+    tile left out, and (D = 40 in bf16) with the padding chunk read from
+    memory (the next head's features) instead of zeroed all break the
+    limit."""
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     q, k, v = _packed_inputs(gen, cuda_device, dtype, b, heads, d, t, s)
     reset_launch_counts()
