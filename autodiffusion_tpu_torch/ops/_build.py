@@ -39,11 +39,10 @@ SOURCES = {
     "flash_fwd": ("adt_flash_fwd",
                   [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_fwd_packed": ("adt_flash_fwd_packed",
-                         [_c_void_p] * 5 + [_c_int] * 7 + [_c_float]
-                         + [_c_int] * 2 + [_c_void_p]),
+                         [_c_void_p] * 5 + [_c_int] * 7 + [_c_float,
+                                                           _c_void_p]),
     "flash_fwd_wide": ("adt_flash_fwd_wide",
-                       [_c_void_p] * 5 + [_c_int] * 5 + [_c_float]
-                       + [_c_int] * 2 + [_c_void_p]),
+                       [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_bwd_dq": ("adt_flash_bwd_dq",
                      [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "flash_bwd_dkv": ("adt_flash_bwd_dkv",
@@ -64,6 +63,7 @@ LAUNCHES: Dict[str, int] = {stem: 0 for stem in SOURCES}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_paths: Dict[str, str] = {}   # source stem -> the library loaded for it
 _build_seconds: Optional[float] = None
 
 
@@ -97,6 +97,11 @@ def _digest(stem: str, flags: list) -> str:
     return h.hexdigest()[:16]
 
 
+def _log(so: str) -> str:
+    """The nvcc output of the build that made library ``so``."""
+    return so[:-len(".so")] + ".log"
+
+
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Build (or reuse) every kernel library and load it. Returns
     {source stem: CDLL}. Thread-safe; builds once per process."""
@@ -117,7 +122,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 continue
             nvcc = nvcc or _nvcc()
             tmp = f"{so}.{os.getpid()}.tmp"
-            log = open(os.path.join(BUILD_DIR, f"{stem}.log"), "w")
+            log = open(_log(so), "w")
             cmd = [nvcc, *flags, "-o", tmp, os.path.join(CSRC, stem + ".cu")]
             procs[stem] = (subprocess.Popen(cmd, stdout=log,
                                             stderr=subprocess.STDOUT), tmp, log)
@@ -132,7 +137,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         if failed:
             msgs = []
             for stem in failed:
-                with open(os.path.join(BUILD_DIR, f"{stem}.log")) as f:
+                with open(_log(paths[stem])) as f:
                     msgs.append(f"--- {stem}.cu ---\n{f.read()[-4000:]}")
             raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
         for stem, (fn_name, argtypes) in SOURCES.items():
@@ -141,6 +146,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _libs[stem] = lib
+        _paths.update(paths)
         _build_seconds = time.time() - t0
         return _libs
 
@@ -174,12 +180,12 @@ def last_build_seconds() -> Optional[float]:
 
 def ptxas_kernels() -> Dict[str, tuple]:
     """{(source stem, mangled kernel name): (registers, spill store bytes,
-    spill load bytes)} from the reports nvcc's ptxas printed for the
-    kernels built in this checkout (empty where every library was reused
-    from an earlier build)."""
+    spill load bytes)} of the kernels in the libraries this process loaded,
+    from the report nvcc's ptxas printed when it built each of them (empty
+    before :func:`build_all`)."""
     out = {}
-    for stem in SOURCES:
-        path = os.path.join(BUILD_DIR, f"{stem}.log")
+    for stem, so in _paths.items():
+        path = _log(so)
         if not os.path.exists(path):
             continue
         name, spill = None, (0, 0)
@@ -199,7 +205,7 @@ def ptxas_kernels() -> Dict[str, tuple]:
 
 
 def ptxas_report() -> str:
-    """One line a kernel built in this checkout: its source, name,
+    """One line a kernel of the loaded libraries: its source, name,
     registers and spill bytes, as ptxas reported them."""
     return "\n".join(f"{stem}: {name}: {regs} registers, {st} bytes spill "
                      f"stores, {ld} bytes spill loads"

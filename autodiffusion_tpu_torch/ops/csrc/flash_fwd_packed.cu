@@ -30,7 +30,8 @@
 //     lands as [chunk][token][8], the no-swizzle core-matrix layout the
 //     wgmma reads: K-major for Q and K, MN-major for V. Head h's chunks
 //     start at chunk h D / 8. K and V stream through a ring of 2-4 stages
-//     (the launch plan's, ops/flash_attention.py::packed_plan).
+//     (ring_stages: as many as there are key tiles, as two blocks an SM
+//     allow).
 //   * padding: D = 40 is padded to 48. The padding chunk of Q, K and V is
 //     zeroed once and no copy writes it, so it adds zero products to the
 //     logits and its output columns are never stored. (`raw_pad`, for the
@@ -62,14 +63,25 @@ constexpr int kBM = 128;  // query rows a block
 constexpr int kBN = 128;  // keys a tile
 constexpr int kBlocksPerSM = 2;  // 128 registers a thread
 
-// Shared memory, in bytes (ops/flash_attention.py::packed_plan computes
-// the same): Q [DP / 8][128][8] bf16, then for each stage K and V
-// [DP / 8][128][8] bf16, then the mbarriers (q, full[stages]) and a count
-// of the warps done with each stage (8 bytes a stage).
+// Shared memory, in bytes: Q [DP / 8][128][8] bf16, then for each stage K
+// and V [DP / 8][128][8] bf16, then the mbarriers (q, full[stages]) and a
+// count of the warps done with each stage (8 bytes a stage).
 __host__ __device__ constexpr int q_bytes(int dp) { return dp / 8 * kBM * 16; }
 __host__ __device__ constexpr int tile_bytes(int dp) { return dp / 8 * kBN * 16; }
 __host__ __device__ constexpr int smem_bytes(int dp, int stages) {
   return q_bytes(dp) + stages * 2 * tile_bytes(dp) + (1 + 2 * stages) * 8;
+}
+
+// The ring's depth: one stage a key tile, 2 to 4, and no more than let
+// kBlocksPerSM blocks share an SM's 228 KB (the system keeps 1 KB of it a
+// block).
+constexpr int kSmemPerSM = 233472, kSmemReserved = 1024;
+constexpr int ring_stages(int dp, int s_len) {
+  const int tiles = (s_len + kBN - 1) / kBN;
+  int stages = tiles < 2 ? 2 : tiles > 4 ? 4 : tiles;
+  while (stages > 2 && kBlocksPerSM * (smem_bytes(dp, stages) + kSmemReserved) > kSmemPerSM)
+    --stages;
+  return stages;
 }
 
 template <int D, int DP>
@@ -219,10 +231,10 @@ __global__ void __launch_bounds__(fa::kThreads, kBlocksPerSM)
 
 template <int D, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int heads,
-           int t_len, int s_len, int raw_pad, float scale, int stages, int smem,
-           cudaStream_t st) {
-  if (stages < 2 || stages > 4 || smem != smem_bytes(DP, stages) || smem > fa::kSmemMax)
-    return -1;
+           int t_len, int s_len, int raw_pad, float scale, cudaStream_t st) {
+  const int stages = ring_stages(DP, s_len), smem = smem_bytes(DP, stages);
+  static_assert(kBlocksPerSM * (smem_bytes(DP, 2) + kSmemReserved) <= kSmemPerSM,
+                "two stages must let kBlocksPerSM blocks share an SM");
   const int box_chunks = raw_pad ? DP / 8 : D / 8;
   // [B][L][H D] bf16; one copy: 8 features of a tile's tokens of one sample
   const cuuint64_t row = (cuuint64_t)heads * D;
@@ -250,24 +262,22 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace adt
 
 // q, o [B, T, heads * head_dim]; k, v [B, S, heads * head_dim]; lse [B *
-// heads, T]. bfloat16 takes the launch plan's ring stages and shared bytes
-// (ops/flash_attention.py::packed_plan; -1 if they disagree with the
-// kernel's own layout); raw_pad (kernel checks only) copies the padding
-// chunk of a head dim that is not a multiple of 16 from memory (the next
-// head's features) instead of leaving it zero. -1 for a head dim without
-// an instantiation.
+// heads, T]. raw_pad (kernel checks only) copies the padding chunk of a
+// head dim that is not a multiple of 16 from memory (the next head's
+// features) instead of leaving it zero. -1 for a head dim without an
+// instantiation.
 extern "C" int adt_flash_fwd_packed(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int b, int heads, int t_len, int s_len,
                                     int head_dim, int is_bf16, int raw_pad, float scale,
-                                    int stages, int smem, void* stream) {
+                                    void* stream) {
   if (b == 0 || heads == 0 || t_len == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (head_dim) {
-      case 16: return adt::packed::launch<16, 16>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, stages, smem, st);
-      case 32: return adt::packed::launch<32, 32>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, stages, smem, st);
-      case 40: return adt::packed::launch<40, 48>(q, k, v, o, lse, b, heads, t_len, s_len, raw_pad, scale, stages, smem, st);
-      case 64: return adt::packed::launch<64, 64>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, stages, smem, st);
+      case 16: return adt::packed::launch<16, 16>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, st);
+      case 32: return adt::packed::launch<32, 32>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, st);
+      case 40: return adt::packed::launch<40, 48>(q, k, v, o, lse, b, heads, t_len, s_len, raw_pad, scale, st);
+      case 64: return adt::packed::launch<64, 64>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, st);
       default: return -1;
     }
   }

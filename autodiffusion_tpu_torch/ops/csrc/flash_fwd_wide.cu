@@ -48,10 +48,10 @@ constexpr int kBlockCols = 64;  // columns a TMA copy (128 bytes, the swizzle's 
 constexpr int kQBytes = kBM * kD * 2;
 constexpr int kTileBytes = kBN * kD * 2;
 constexpr int kXBytes = 2 * 2 * kBM * kBN * 4;  // [tile parity][warpgroup][64 x 32] float32
-// Shared memory, in bytes (ops/flash_attention.py::wide_plan computes the
-// same): up to 1 KB to align the swizzled tiles, Q, the stages (K then V),
-// the exchange, the mbarriers (q, K full[2], V full[2]).
+// Shared memory, in bytes: up to 1 KB to align the swizzled tiles, Q, the
+// stages (K then V), the exchange, the mbarriers (q, K full[2], V full[2]).
 constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kTileBytes + kXBytes + (1 + 2 * kStages) * 8;
+static_assert(kSmem <= fa::kSmemMax, "the wide kernel's shared memory");
 
 __global__ void __launch_bounds__(fa::kThreads, 1)
     flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -187,19 +187,16 @@ __global__ void __launch_bounds__(fa::kThreads, 1)
 }  // namespace wide
 }  // namespace adt
 
-// q, o [n, T, 512]; k, v [n, S, 512]; lse [n, T]. bfloat16 takes the
-// launch plan's ring stages and shared bytes (ops/flash_attention.py::
-// wide_plan; -1 if they disagree with the kernel's). -1 for another head
+// q, o [n, T, 512]; k, v [n, S, 512]; lse [n, T]. -1 for another head
 // dim.
 extern "C" int adt_flash_fwd_wide(const void* q, const void* k, const void* v, void* o,
                                   float* lse, int n, int t_len, int s_len, int head_dim,
-                                  int is_bf16, float scale, int stages, int smem, void* stream) {
+                                  int is_bf16, float scale, void* stream) {
   if (head_dim != adt::wide::kD) return -1;
   if (n == 0 || t_len == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using namespace adt::wide;
-    if (stages != kStages || smem != kSmem || smem > adt::fa::kSmemMax) return -1;
     // [n][L][512] bf16; one copy: a 64-column block of 64 (q) or 32 rows
     const cuuint64_t qdims[3] = {kD, (cuuint64_t)t_len, (cuuint64_t)n};
     const cuuint64_t kdims[3] = {kD, (cuuint64_t)s_len, (cuuint64_t)n};

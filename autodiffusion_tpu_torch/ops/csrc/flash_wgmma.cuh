@@ -8,13 +8,16 @@
 // and keep their K and V tiles in flight with TMA copies into a ring of
 // shared-memory stages, each completing on a `full` mbarrier; a thread of
 // the block issues the copies between its own products. There is no
-// separate producer warp: ptxas sizes the registers of a block with wgmma
-// by whole warpgroups, so a third (producer) warpgroup or even one more
-// warp caps every thread at 168 registers, and the wide kernel's m64n256
-// accumulator alone takes 128 (it spilled at 168; setmaxnreg on a lone
-// producer warp left the consumers' increase waiting for ever). At 256
-// threads ptxas may give a thread 255 (the wide kernel), or 128 with two
-// blocks an SM (the packed kernel).
+// separate producer. A block of 384 threads leaves each thread at most
+// 168 registers, and the wide kernel takes 172 (its m64n256 accumulator
+// alone 128). A producer warpgroup that gives its registers to the two
+// consumers (setmaxnreg.dec 40 / .inc 232, as conv3x3.cuh does at 72 /
+// 216) still compiled to 168 registers with a 64-byte spill and ran
+// slower (tools/kernel_ab.py wide_producer); so did a ping-pong of the
+// packed kernel's two warpgroups on named barriers, which spilled at 128
+// (tools/kernel_ab.py packed_pingpong). At 256 threads ptxas may give a
+// thread 255 (the wide kernel), or 128 with two blocks an SM (the packed
+// kernel).
 //
 // A warpgroup's S tile is the m64nBN wgmma accumulator of its 64 query rows
 // (wgmma.cuh: s[4 j + e] is row 16 w + g + 8 (e >> 1), key 8 j + 2 t +

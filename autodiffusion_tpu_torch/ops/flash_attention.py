@@ -27,10 +27,8 @@ its plain PyTorch twin, which repeats the kernel's arithmetic.
 Diffusion models, routing each head dim to its kernel. Each source holds
 two kernels for its function: bfloat16 inputs run on the tensor cores
 (mma.sync; the packed and wide forwards as wgmma kernels fed by TMA
-copies, whose launch plans :func:`packed_plan` and :func:`wide_plan`
-compute from the shape), float32 inputs on the CUDA cores, where the
-products keep their float32 operands (the tensor cores would round them to
-TF32).
+copies), float32 inputs on the CUDA cores, where the products keep their
+float32 operands (the tensor cores would round them to TF32).
 
 Numerics (as the TPU kernels): products of input-dtype operands summed in
 float32, the 1/sqrt(D) scale applied to the float32 logits after the dot,
@@ -41,7 +39,6 @@ product, outputs in the input dtype, lse in float32.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -54,8 +51,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_bwd_dkv_plain", "flash_fwd_packed",
            "flash_fwd_packed_plain", "multihead_attention", "LAUNCHES",
            "reset_launch_counts", "SUPPORTED_HEAD_DIMS", "FWD_HEAD_DIMS",
-           "PACKED_HEAD_DIMS", "WIDE_HEAD_DIM", "AttnPlan", "packed_plan",
-           "wide_plan"]
+           "PACKED_HEAD_DIMS", "WIDE_HEAD_DIM"]
 
 # head dims of the backward kernels (and of FlashAttentionFunction)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -64,77 +60,9 @@ FWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 WIDE_HEAD_DIM = 512
 # head dims of flash_fwd_packed (D = 40: the Stable Diffusion 64x64 level)
 PACKED_HEAD_DIMS = (16, 32, 40, 64)
-# an H100 SM's shared memory, and what the system keeps of it a block
-SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
-
-
-# ------------------------------------------------------------- launch plans
-
-@dataclass(frozen=True)
-class AttnPlan:
-    """Launch plan of a bf16 pipelined flash forward (``flash_fwd_packed``
-    or ``flash_fwd_wide``), from the shape alone, as the kernel lays out
-    its shared memory (csrc/flash_fwd_packed.cu, csrc/flash_fwd_wide.cu;
-    the C entry point refuses a plan whose stages or bytes differ).
-
-    ``rows`` query rows a block, ``key_tile`` keys a ring stage,
-    ``stages`` stages; one TMA copy moves a ``box`` of (features, rows)
-    of K or V (Q: (features, ``rows``)), ``copies`` of them a tile, the
-    copies of head h starting at feature chunk ``head_chunks[h]`` (16-byte
-    chunks of the token's H * D features); ``smem`` bytes of dynamic
-    shared memory; ``blocks`` in the grid."""
-    rows: int
-    key_tile: int
-    stages: int
-    box: Tuple[int, int]
-    copies: int
-    head_chunks: Tuple[int, ...]
-    smem: int
-    blocks: int
-
-
-def packed_plan(b: int, heads: int, t: int, s: int, d: int,
-                raw_pad: bool = False) -> AttnPlan:
-    """The packed forward's plan: 128 query rows of one (sample, head) a
-    block, keys in tiles of 128 through a ring of 2-4 stages (as many as
-    there are tiles, at most 4, and no more than let two blocks share an
-    SM); one copy is one 16-byte chunk (8 features) of 128 tokens, D / 8
-    copies a tile (one more, the next head's, with ``raw_pad``), the
-    padded head dim's last chunk zeroed once. Shared memory: Q
-    [D_pad / 8][128][8] bf16, K and V [D_pad / 8][128][8] a stage, 8 bytes
-    an mbarrier (q, and one a stage) and 8 a stage for the count of warps
-    done with it."""
-    rows = key_tile = 128
-    dp = -(-d // 16) * 16
-    chunk = 8 * 2                      # bytes of one copy's row
-
-    def smem_of(stages):
-        return dp // 8 * rows * chunk \
-            + stages * 2 * dp // 8 * key_tile * chunk + (1 + 2 * stages) * 8
-    stages = min(4, max(2, -(-s // key_tile)))
-    while stages > 2 and 2 * (smem_of(stages) + SMEM_RESERVED) > SMEM_PER_SM:
-        stages -= 1
-    smem = smem_of(stages)
-    copies = dp // 8 if raw_pad and dp > d else d // 8
-    return AttnPlan(rows, key_tile, stages, (8, key_tile), copies,
-                    tuple(h * d // 8 for h in range(heads)), smem,
-                    b * heads * -(-t // rows))
-
-
-def wide_plan(n: int, t: int) -> AttnPlan:
-    """The D = 512 forward's plan: 64 query rows a block, keys in tiles of
-    32 through two stages; one copy is a 64-column block (128 bytes, the
-    swizzle's row), 8 a tile. Shared memory: 1 KB of alignment slack,
-    Q [8][64][64] bf16, K and V [8][32][64] a stage, the two warpgroups'
-    float32 partial logits [2][2][64][32], 8 bytes an mbarrier."""
-    rows, key_tile, stages, d = 64, 32, 2, WIDE_HEAD_DIM
-    smem = 1024 + rows * d * 2 + stages * 2 * key_tile * d * 2 \
-        + 2 * 2 * rows * key_tile * 4 + (1 + 2 * stages) * 8
-    return AttnPlan(rows, key_tile, stages, (64, key_tile), d // 64, (0,),
-                    smem, n * -(-t // rows))
 
 
 # ---------------------------------------------------------------- plain twins
@@ -253,15 +181,11 @@ def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     n, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((n, t), dtype=torch.float32, device=q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), n, t, k.shape[1], d,
-            int(q.dtype == torch.bfloat16), _scale(d))
     with torch.cuda.device(q.device):
-        if d == WIDE_HEAD_DIM:
-            plan = wide_plan(n, t)
-            launch("flash_fwd_wide", *args, plan.stages, plan.smem)
-        else:
-            launch("flash_fwd", *args)
+        launch("flash_fwd_wide" if d == WIDE_HEAD_DIM else "flash_fwd",
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               lse.data_ptr(), n, t, k.shape[1], d,
+               int(q.dtype == torch.bfloat16), _scale(d))
     return o, lse
 
 
@@ -314,12 +238,10 @@ def flash_fwd_packed(q, k, v, heads: int, *, _raw_pad: bool = False
     b, t, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b * heads, t), dtype=torch.float32, device=q.device)
-    plan = packed_plan(b, heads, t, k.shape[1], d, _raw_pad)
     with torch.cuda.device(q.device):
         launch("flash_fwd_packed", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                o.data_ptr(), lse.data_ptr(), b, heads, t, k.shape[1], d,
-               int(q.dtype == torch.bfloat16), int(_raw_pad), _scale(d),
-               plan.stages, plan.smem)
+               int(q.dtype == torch.bfloat16), int(_raw_pad), _scale(d))
     return o, lse
 
 

@@ -11,6 +11,8 @@ The CUDA kernels themselves are held against these twins on the GPU by
 tests/test_torch_cuda.py.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 from autodiffusion_tpu.ops import flash_attention as jax_flash
 from autodiffusion_tpu.ops.flash_attention import (_flash_forward,
                                                   _flash_forward_packed)
+from autodiffusion_tpu_torch.models import create_sd_models
 from autodiffusion_tpu_torch.ops.flash_attention import (
     LAUNCHES, FlashAttentionFunction, flash_attention,
     flash_attention_reference, flash_bwd_dkv, flash_bwd_dkv_plain,
@@ -156,18 +159,68 @@ def test_packed_twin_matches_pallas_packed_kernel(t, s):
     """flash_fwd_packed's twin (token-major [B, T, H * D], D = 40, 8
     heads) against the JAX head-packed kernel with G = 3 heads a step
     (8 heads: 3 groups, the last one padded), o and lse, float32: 2e-5."""
-    rng = np.random.RandomState(5)
-    q = rng.randn(2, 8, t, 40).astype(np.float32)
-    k, v = (rng.randn(2, 8, s, 40).astype(np.float32) for _ in range(2))
+    _check_packed_twin(2, 8, 40, t, s, np.random.RandomState(5))
+
+
+def _check_packed_twin(b, heads, d, t, s, rng):
+    """The packed twin against the JAX head-packed kernel (G = 128 // D
+    heads a step), o and lse, float32: 2e-5."""
+    q = rng.randn(b, heads, t, d).astype(np.float32)
+    k, v = (rng.randn(b, heads, s, d).astype(np.float32) for _ in range(2))
     o_j, lse_j = _flash_forward_packed(jnp.asarray(q), jnp.asarray(k),
                                        jnp.asarray(v), 128, 128, True,
-                                       False, 3)
-    o, lse = flash_fwd_packed(_tokens(q), _tokens(k), _tokens(v), 8)
+                                       False, 128 // d)
+    o, lse = flash_fwd_packed(_tokens(q), _tokens(k), _tokens(v), heads)
     np.testing.assert_allclose(
-        o.numpy(), np.asarray(o_j).transpose(0, 2, 1, 3).reshape(2, t, 320),
+        o.numpy(), np.asarray(o_j).transpose(0, 2, 1, 3).reshape(b, t, -1),
         atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=2e-5,
                                rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,heads,d,t,s", [
+    # the shapes at the edges of the bf16 kernel's key ring that
+    # tests/test_torch_cuda.py runs on the card: every packed head dim, S
+    # under one 128-key tile (77), S past all the stages (1000), ragged T
+    (2, 8, 16, 1000, 1000), (2, 3, 16, 257, 77), (2, 4, 32, 1000, 77),
+    (2, 4, 32, 333, 1000), (2, 8, 40, 1000, 1000), (2, 8, 40, 1000, 77),
+    (3, 5, 64, 333, 1000), (2, 5, 64, 1000, 77)])
+def test_packed_twin_matches_pallas_at_ring_edges(b, heads, d, t, s):
+    _check_packed_twin(b, heads, d, t, s, np.random.RandomState(d + t + s))
+
+
+def test_sd_sites_are_the_known_ones(monkeypatch):
+    """multihead_attention at full width (meta device, batch 1): the SD
+    UNet's packed calls are the 64x64 level's self- and cross-attention
+    (D = 40, 8 heads), and the decoder's one D = 512 call is the
+    mid-block over 4096 tokens; nothing else reaches either kernel."""
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+
+    def sites(part):
+        packed, wide = set(), set()
+
+        def rec_packed(q, k, v, heads, **kw):
+            packed.add((q.shape[1], k.shape[1], heads, q.shape[2] // heads))
+            return torch.empty_like(q), None
+
+        def rec_fwd(q, k, v):
+            if q.shape[-1] == 512:
+                wide.add((q.shape[0], q.shape[1], k.shape[1]))
+            return torch.empty_like(q), None
+
+        monkeypatch.setattr(fa, "flash_fwd_packed", rec_packed)
+        monkeypatch.setattr(fa, "flash_fwd", rec_fwd)
+        with torch.device("meta"):
+            unet, vae, _ = create_sd_models(device="meta")
+            if part == "unet":
+                unet(torch.empty(1, 4, 64, 64), torch.zeros(1),
+                     torch.empty(1, 77, 768))
+            else:
+                vae.decode(torch.empty(1, 4, 64, 64))
+        return packed, wide
+
+    assert sites("unet") == ({(4096, 4096, 8, 40), (4096, 77, 8, 40)}, set())
+    assert sites("decode") == (set(), {(1, 4096, 4096)})
 
 
 @pytest.mark.parametrize("d,t,s", [(80, 100, 100), (80, 128, 77),

@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""A/B of a variant of a pipelined flash forward against the tree's kernel,
+on one NVIDIA GPU.
+
+    python3 tools/kernel_ab.py VARIANT
+
+VARIANT names an entry of ``VARIANTS`` below: a kernel source stem and
+the exact text replacements that turn ``autodiffusion_tpu_torch/ops/csrc``
+into the variant. The script applies them to a copy of the sources under
+``autodiffusion_tpu_torch/ops/_build/variants/`` (gitignored), builds the
+stem there with the package's nvcc flags and prints ptxas's registers and
+spills for it. A worker process then checks the variant against the
+kernel's plain twin at the ring-edge shapes of tests/test_torch_cuda.py,
+within chip_smoke.py's bf16 limit, and workers time the tree's kernel and
+the variant at the Stable Diffusion sites (chip_smoke.cuda_ms, one-call
+CUDA-event medians) in the order tree, variant, variant, tree. Each
+library runs in its own process: two libraries holding the same kernels
+in one process fail their launches.
+
+The variants kept here are designs that were measured and not adopted;
+``PERF.md`` §6 holds their numbers.
+"""
+
+import ctypes
+import json
+import math
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+# name -> (source stem, {file: [(old, new), ...]}); each old text must
+# occur exactly once in the tree's file
+VARIANTS = {
+    # the two consumer warpgroups of a block take turns on the tensor
+    # cores (FlashAttention-3's ping-pong): warpgroup w issues P V of tile
+    # j - 1 and S = Q K^T of tile j on named barrier 1 + w, which the
+    # other opens once it has issued its own, so that one's softmax runs
+    # under the other's products
+    "packed_pingpong": ("flash_fwd_packed", {"flash_fwd_packed.cu": [(
+        """  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    mbar_wait(full + s, (j / stages) & 1);
+    qk(sacc, s);
+    wg::wait_all();
+    wg::fence_operands(sacc);
+    const int valid = s_len - j * kBN;
+    float alpha[2];
+    fa::online_softmax<kBN>(sacc, m, l, alpha, valid, valid < kBN, scale_log2, t);
+    fa::rescale(oacc, alpha);
+    fa::pack_p<kBN>(pa, sacc);
+    pv(pa, s);
+    wg::wait_all();
+    wg::fence_operands(oacc);
+    wg::fence_operands(pa);
+    if (lane == 0) {
+      // the stage's count reaches 8 u after its u-th tile
+      __threadfence_block();
+      if (atomicAdd(done + s, 1u) == 8u * (j / stages) + 7u && j + stages < n_tiles)
+        issue(j + stages);
+    }
+  }""",
+        """  if (wgi == 1) bar_arrive(1, fa::kThreads);
+  for (int j = 0; j <= n_tiles; ++j) {
+    if (j < n_tiles) mbar_wait(full + j % stages, (j / stages) & 1);
+    bar_sync(1 + wgi, fa::kThreads);
+    if (j > 0) pv(pa, (j - 1) % stages);
+    if (j < n_tiles) qk(sacc, j % stages);
+    if (wgi == 0 || j < n_tiles) bar_arrive(2 - wgi, fa::kThreads);
+    wg::wait_all();
+    wg::fence_operands(oacc);
+    wg::fence_operands(pa);
+    wg::fence_operands(sacc);
+    if (j > 0 && lane == 0) {
+      const int u = j - 1, s = u % stages;
+      __threadfence_block();
+      if (atomicAdd(done + s, 1u) == 8u * (u / stages) + 7u && u + stages < n_tiles)
+        issue(u + stages);
+    }
+    if (j < n_tiles) {
+      const int valid = s_len - j * kBN;
+      float alpha[2];
+      fa::online_softmax<kBN>(sacc, m, l, alpha, valid, valid < kBN, scale_log2, t);
+      fa::rescale(oacc, alpha);
+      fa::pack_p<kBN>(pa, sacc);
+    }
+  }""")]}),
+    # a producer warpgroup issues every copy and gives its registers to
+    # the two consumers (setmaxnreg.dec 40 / .inc 232 at 384 threads);
+    # the consumers release K and V stages on mbarriers of their own and
+    # exchange their partial logits behind a 256-thread named barrier
+    "wide_producer": ("flash_fwd_wide", {
+        "tma.cuh": [(
+            "__device__ __forceinline__ uint64_t global_ns() {",
+            """__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ uint64_t global_ns() {""")],
+        "flash_fwd_wide.cu": [
+            ("+ kXBytes + (1 + 2 * kStages) * 8;",
+             "+ kXBytes + (1 + 4 * kStages) * 8;\n"
+             "constexpr int kThreadsWS = 3 * 128;"),
+            ("__global__ void __launch_bounds__(fa::kThreads, 1)",
+             "__global__ void __launch_bounds__(kThreadsWS, 1)"),
+            ("  uint64_t* vfull = kfull + kStages;\n",
+             "  uint64_t* vfull = kfull + kStages;\n"
+             "  uint64_t* kempty = vfull + kStages;\n"
+             "  uint64_t* vempty = kempty + kStages;\n"),
+            ("  const int c = threadIdx.x >> 7, lt = threadIdx.x & 127;",
+             "  const int wgi = threadIdx.x >> 7, lt = threadIdx.x & 127;"),
+            ("    for (int s = 0; s < 2 * kStages; ++s) mbar_init(kfull + s, 1);",
+             """    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kfull + s, 1);
+      mbar_init(vfull + s, 1);
+      mbar_init(kempty + s, 1);
+      mbar_init(vempty + s, 8);
+    }"""),
+            ("""  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, kQBytes);
+    for (int cb = 0; cb < kD / kBlockCols; ++cb)
+      tma_load_3d(sq + cb * kBM * 128, &qmap, cb * kBlockCols, r0, bh, qbar);
+    issue_k(0);
+    if (n_tiles > 1) issue_k(1);
+    issue_v(0);
+  }
+""",
+             """  if (wgi == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\\n" ::: "memory");
+    if (lt == 0) {
+      mbar_expect_tx(qbar, kQBytes);
+      for (int cb = 0; cb < kD / kBlockCols; ++cb)
+        tma_load_3d(sq + cb * kBM * 128, &qmap, cb * kBlockCols, r0, bh, qbar);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages, u = j / kStages;
+        if (u > 0) mbar_wait(kempty + s, (u - 1) & 1);
+        issue_k(j);
+        if (u > 0) mbar_wait(vempty + s, (u - 1) & 1);
+        issue_v(j);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n" ::: "memory");
+  const int c = wgi - 1;
+"""),
+            ("""    __syncthreads();
+    // past the barrier both warpgroups are done with K(j) and V(j - 1):
+    // their stages take K(j + 2) and V(j + 1)
+    if (threadIdx.x == 0) {
+      if (j + 2 < n_tiles) issue_k(j + 2);
+      if (j + 1 < n_tiles) issue_v(j + 1);
+    }""",
+             """    bar_sync(1, 2 * 128);
+    if (c == 0 && lt == 0) mbar_arrive(kempty + s);"""),
+            ("""    wg::wait_all();
+    wg::fence_operands(oacc);
+  }
+""",
+             """    wg::wait_all();
+    wg::fence_operands(oacc);
+    if (lane == 0) mbar_arrive(vempty + s);
+  }
+"""),
+            ("<<<n * t_tiles, adt::fa::kThreads, kSmem, st>>>",
+             "<<<n * t_tiles, kThreadsWS, kSmem, st>>>"),
+        ]}),
+}
+
+# (B, heads, D, T, S) checked; the SD sites timed (the UNet's batch 16,
+# the decoder's 8)
+CHECK = {"flash_fwd_packed": [(2, 8, 40, 300, 300), (2, 8, 16, 1000, 1000),
+                              (2, 3, 16, 257, 77), (2, 4, 32, 333, 1000),
+                              (2, 8, 40, 1000, 77), (3, 5, 64, 333, 1000),
+                              (2, 5, 64, 1000, 77), (16, 8, 40, 4096, 4096),
+                              (16, 8, 40, 4096, 77)],
+         "flash_fwd_wide": [(2, 1, 512, 700, 650), (2, 1, 512, 64, 130),
+                            (1, 1, 512, 4096, 4096), (8, 1, 512, 4096, 4096)]}
+TIME = {"flash_fwd_packed": [(16, 8, 40, 4096, 4096), (16, 8, 40, 4096, 77)],
+        "flash_fwd_wide": [(8, 1, 512, 4096, 4096)]}
+
+
+def patch(name, out):
+    """Copy the kernel sources to ``out``/csrc with the variant's edits."""
+    from autodiffusion_tpu_torch.ops import _build
+
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC, os.path.join(out, "csrc"))
+    for fname, pairs in VARIANTS[name][1].items():
+        path = os.path.join(out, "csrc", fname)
+        with open(path) as f:
+            text = f.read()
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: {fname} no longer holds the text "
+                                 f"the variant replaces: {old[:60]!r}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+
+
+def build(name):
+    """The variant's library, built from a patched copy of the sources."""
+    from autodiffusion_tpu_torch.ops import _build
+
+    stem = VARIANTS[name][0]
+    out = os.path.join(_build.BUILD_DIR, "variants", name)
+    patch(name, out)
+    so = os.path.join(out, stem + ".so")
+    r = subprocess.run([_build._nvcc(), *_build._flags(), "-o", so,
+                        os.path.join(out, "csrc", stem + ".cu")],
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode:
+        raise SystemExit(f"nvcc failed:\n{(r.stdout + r.stderr)[-4000:]}")
+    # ptxas: registers and spills of the bf16 kernel (its name ends the
+    # "Function properties" line; the float32 kernel is left out)
+    name_re = re.compile(r"Function properties for (\S+)")
+    kernel = None
+    for line in (r.stdout + r.stderr).splitlines():
+        m = name_re.search(line)
+        if m:
+            kernel = m.group(1)
+        elif kernel and "f32" not in kernel and (
+                "spill" in line or "Used" in line):
+            print(f"ptxas {kernel[:60]}: {line.strip()}", flush=True)
+    return so
+
+
+def worker(lib, stem, mode):
+    """Check (mode "check") or time (mode "time") one library's kernel;
+    prints one JSON line."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from autodiffusion_tpu_torch.ops import _build
+    from autodiffusion_tpu_torch.ops.flash_attention import (
+        flash_fwd_packed_plain, flash_fwd_plain)
+
+    if lib == "tree":
+        fn = getattr(_build.library(stem), _build.SOURCES[stem][0])
+    else:
+        fn = getattr(ctypes.CDLL(lib), _build.SOURCES[stem][0])
+        fn.argtypes, fn.restype = _build.SOURCES[stem][1], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def call(q, k, v, heads, d):
+        b, t, _ = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty(b * heads, t, device="cuda")
+        dims = (b, heads, t, k.shape[1], d, 1, 0) \
+            if stem == "flash_fwd_packed" else (b, t, k.shape[1], d, 1)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), *dims, 1 / math.sqrt(d), stream)
+        if rc:
+            raise RuntimeError(f"launch failed: {rc}")
+        return o, lse
+
+    out = {}
+    for b, heads, d, t, s in (CHECK if mode == "check" else TIME)[stem]:
+        q, k, v = (torch.randn(b, n, heads * d, generator=gen,
+                               device="cuda").bfloat16() for n in (t, s, s))
+        key = f"{b}x{heads}x{d} T{t} S{s}"
+        if mode == "check":
+            o, lse = call(q, k, v, heads, d)
+            if stem == "flash_fwd_packed":
+                wo, wl = flash_fwd_packed_plain(q, k, v, heads)
+            else:
+                wo, wl = flash_fwd_plain(q, k, v)
+            _, share = cs.compare(o, wo, "bfloat16")
+            lse_err = float((lse - wl).abs().max())
+            out[key] = dict(share_of_limit=share, lse_err=lse_err)
+            if share > 1 or lse_err > 2e-3:
+                raise AssertionError(f"{key}: disagrees with the twin")
+        else:
+            qh, kh, vh = (z.reshape(b, -1, heads, d).transpose(1, 2)
+                          for z in (q, k, v))
+            out[key] = dict(
+                ms=cs.cuda_ms(lambda: call(q, k, v, heads, d)),
+                sdpa_ms=cs.cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+    print(json.dumps(out), flush=True)
+
+
+def run(args):
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--worker", *args], capture_output=True, text=True,
+                       timeout=600, cwd=ROOT)
+    if r.returncode:
+        raise SystemExit(f"worker {args} failed:\n{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def main(name):
+    import chip_smoke as cs
+
+    print(cs.smi_line(), flush=True)
+    stem = VARIANTS[name][0]
+    so = build(name)
+    for key, row in run([so, stem, "check"]).items():
+        print(f"check {key}: {row['share_of_limit']:.3f} of the limit, "
+              f"lse {row['lse_err']:.2e}", flush=True)
+    for lib, label in (("tree", "tree"), (so, name), (so, name),
+                       ("tree", "tree")):
+        for key, row in run([lib, stem, "time"]).items():
+            print(f"time {label} {key}: {row['ms']:.4f} ms, SDPA "
+                  f"{row['sdpa_ms']:.4f} ms", flush=True)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--worker":
+        worker(*sys.argv[2:])
+    else:
+        main(sys.argv[1])
