@@ -1,8 +1,9 @@
-// Tensor-core pieces of the bfloat16 flash-attention kernels (sm_80+ mma.sync,
-// built for sm_90a).
+// Tensor-core pieces of the bfloat16 flash-attention backward kernels
+// (sm_80+ mma.sync, built for sm_90a), and the fragment helpers (pack,
+// quad_max, quad_sum) the wgmma forwards share (flash_wgmma.cuh).
 //
 // Work split: a block of four warps owns 64 rows of the resident operand
-// (query rows in the forward and dQ kernels, key rows in the dK/dV kernel),
+// (query rows in the dQ kernel, key rows in the dK/dV kernel),
 // 16 per warp, held in registers as mma A fragments for the whole kernel.
 // The streamed operand passes through shared memory in tiles of 64 (or 32)
 // rows, stored bfloat16 with each row padded by 8 elements so that the

@@ -1,10 +1,10 @@
-// Pieces shared by the two pipelined flash forwards for Hopper (sm_90a),
-// flash_fwd_packed.cu (D <= 64 on the token-major layout) and
-// flash_fwd_wide.cu (D = 512): the online softmax of one key tile held in
-// a wgmma accumulator, and the rounding of its probabilities to the bf16
-// register A operand of the P V product.
+// Pieces shared by the three pipelined flash forwards for Hopper (sm_90a),
+// flash_fwd.cu (D <= 128), flash_fwd_packed.cu (D <= 64 on the token-major
+// layout) and flash_fwd_wide.cu (D = 512): the online softmax of one key
+// tile held in a wgmma accumulator, and the rounding of its probabilities
+// to the bf16 register A operand of the P V product.
 //
-// Both kernels run two warpgroups that issue only wgmma and the softmax,
+// The kernels run two warpgroups that issue only wgmma and the softmax,
 // and keep their K and V tiles in flight with TMA copies into a ring of
 // shared-memory stages, each completing on a `full` mbarrier; a thread of
 // the block issues the copies between its own products. There is no
@@ -16,8 +16,8 @@
 // slower (tools/kernel_ab.py wide_producer); so did a ping-pong of the
 // packed kernel's two warpgroups on named barriers, which spilled at 128
 // (tools/kernel_ab.py packed_pingpong). At 256 threads ptxas may give a
-// thread 255 (the wide kernel), or 128 with two blocks an SM (the packed
-// kernel).
+// thread 255 (the wide kernel, flash_fwd.cu at D = 128), or 128 with two
+// blocks an SM (the packed kernel, flash_fwd.cu up to D = 80).
 //
 // A warpgroup's S tile is the m64nBN wgmma accumulator of its 64 query rows
 // (wgmma.cuh: s[4 j + e] is row 16 w + g + 8 (e >> 1), key 8 j + 2 t +

@@ -7,7 +7,8 @@ forward (``_attn_kernel``), its head-packed small-head-dim variant
 (built by ``ops/_build.py`` with nvcc for sm_90a):
 
   flash_fwd         o, lse = softmax(q k^T / sqrt(D)) v, logsumexp, for
-                    D in {16, 32, 64, 80, 128}
+                    D in {16, 32, 64, 80, 128}, on [N, T, D] or on the
+                    token-major [B, T, H * D] layout
   flash_fwd_wide    the same at D = 512 (the VAE mid-block's single head),
                     each logit computed once for all 512 output columns
   flash_fwd_packed  the same for D in {16, 32, 40, 64} on the token-major
@@ -15,8 +16,9 @@ forward (``_attn_kernel``), its head-packed small-head-dim variant
   flash_bwd_dq      dq from (q, k, v, dO, lse, delta)
   flash_bwd_dkv     dk, dv from the same
 
-:func:`flash_fwd` takes [N, T, D] q and [N, S, D] k, v (N = batch * heads)
-and launches ``flash_fwd`` or, at D = 512, ``flash_fwd_wide``;
+:func:`flash_fwd` takes [N, T, D] q and [N, S, D] k, v (N = batch * heads),
+or with ``heads`` H the token-major [B, T, H * D] q and [B, S, H * D] k, v,
+and launches ``flash_fwd`` or, at D = 512 and one head, ``flash_fwd_wide``;
 :func:`flash_fwd_packed` takes [B, T, H * D] q and [B, S, H * D] k, v; the
 backward wrappers take [N, T, D] with D in {16, 32, 64, 128}. All take
 float32 or bfloat16. On a CUDA tensor a wrapper launches its kernel (and
@@ -26,8 +28,8 @@ its plain PyTorch twin, which repeats the kernel's arithmetic.
 :func:`multihead_attention` is the forward-only entry of the Stable
 Diffusion models, routing each head dim to its kernel. Each source holds
 two kernels for its function: bfloat16 inputs run on the tensor cores
-(mma.sync; the packed and wide forwards as wgmma kernels fed by TMA
-copies), float32 inputs on the CUDA cores, where the products keep their
+(the three forwards as wgmma kernels fed by TMA copies, the backward on
+mma.sync), float32 inputs on the CUDA cores, where the products keep their
 float32 operands (the tensor cores would round them to TF32).
 
 Numerics (as the TPU kernels): products of input-dtype operands summed in
@@ -170,22 +172,33 @@ def _arg(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel: (o [N,T,D] in v's dtype, lse [N,T] float32); the
-    ``flash_fwd`` kernel for D in FWD_HEAD_DIMS, ``flash_fwd_wide`` for
-    D = 512."""
-    if not _check(q, k, v, dims=FWD_HEAD_DIMS + (WIDE_HEAD_DIM,)):
-        return flash_fwd_plain(q, k, v)
+def flash_fwd(q, k, v, heads: int = 1
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward kernel: (o in v's dtype, lse [N, T] float32) for [N, T, D] q
+    and [N, S, D] k, v; with ``heads`` H > 1, (o [B, T, H * D], lse
+    [B * H, T]) for the token-major [B, T, H * D] q and [B, S, H * D] k, v,
+    read and written in that layout. The ``flash_fwd`` kernel for D in
+    FWD_HEAD_DIMS, ``flash_fwd_wide`` for D = 512 (one head)."""
+    d = _check_packed(q, k, v, heads)
+    if not _check(q, k, v, dims=FWD_HEAD_DIMS + (WIDE_HEAD_DIM,),
+                  head_dim=d):
+        return flash_fwd_plain(q, k, v) if heads == 1 else \
+            flash_fwd_packed_plain(q, k, v, heads)
+    if d == WIDE_HEAD_DIM and heads != 1:
+        raise ValueError("the D = 512 kernel takes one head; got "
+                         f"{heads} heads")
     _no_grad_wanted(q, k, v)
     q, k, v = _arg(q), _arg(k), _arg(v)
-    n, t, d = q.shape
+    b, t, _ = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((n, t), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b * heads, t), dtype=torch.float32, device=q.device)
+    dims = (b, t, k.shape[1], d) if d == WIDE_HEAD_DIM else \
+        (b, heads, t, k.shape[1], d)
     with torch.cuda.device(q.device):
         launch("flash_fwd_wide" if d == WIDE_HEAD_DIM else "flash_fwd",
                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               lse.data_ptr(), n, t, k.shape[1], d,
-               int(q.dtype == torch.bfloat16), _scale(d))
+               lse.data_ptr(), *dims, int(q.dtype == torch.bfloat16),
+               _scale(d))
     return o, lse
 
 
@@ -213,7 +226,7 @@ def flash_fwd_packed_plain(q, k, v, heads: int
 
 def _check_packed(q, k, v, heads: int) -> int:
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
-        raise ValueError("flash_fwd_packed takes [B, T, H * D] q and "
+        raise ValueError("the token-major forwards take [B, T, H * D] q and "
                          f"[B, S, H * D] k, v; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, _, hd = q.shape
@@ -250,20 +263,20 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(D)) v per head, forward only, for token-major
     q [B, T, H * D] and k, v [B, S, H * D] -> [B, T, H * D]: the attention
     of the Stable Diffusion models (CrossAttention, VAEAttnBlock). Each head
-    dim goes to its kernel, self- and cross-attention alike and whatever
-    the token count: D in PACKED_HEAD_DIMS to ``flash_fwd_packed`` on the
-    layout as it is; D in FWD_HEAD_DIMS or D = 512 to ``flash_fwd`` (or
-    ``flash_fwd_wide``) on [B * H, T, D]. Other head dims (the SD 16x16 and
-    8x8 levels' D = 160) are plain PyTorch, as the JAX package computes
-    them outside its kernels. CPU tensors take the twins."""
+    dim goes to its kernel on the layout as it is, self- and cross-attention
+    alike and whatever the token count: D in PACKED_HEAD_DIMS to
+    ``flash_fwd_packed``; D in FWD_HEAD_DIMS (the SD 32x32 level's D = 80)
+    to ``flash_fwd``; one head of D = 512 (the VAE mid-block) to
+    ``flash_fwd_wide``. Other head dims (the SD 16x16 and 8x8 levels'
+    D = 160) are plain PyTorch on [B * H, T, D], as the JAX package
+    computes them outside its kernels. CPU tensors take the twins."""
     d = _check_packed(q, k, v, heads)
     if d in PACKED_HEAD_DIMS:
         return flash_fwd_packed(q, k, v, heads)[0]
-    qh, kh, vh = (_heads_first(z, heads) for z in (q, k, v))
-    if d in FWD_HEAD_DIMS or d == WIDE_HEAD_DIM:
-        o = flash_fwd(qh, kh, vh)[0]
-    else:
-        o = flash_attention_reference(qh, kh, vh)
+    if d in FWD_HEAD_DIMS or (d == WIDE_HEAD_DIM and heads == 1):
+        return flash_fwd(q, k, v, heads=heads)[0]
+    o = flash_attention_reference(*(_heads_first(z, heads)
+                                    for z in (q, k, v)))
     return _tokens_first(o, q.shape[0])
 
 

@@ -17,7 +17,8 @@ Phases, each of which raises on failure:
    through ``FlashAttentionFunction`` as the sampler runs them, within
    limits that a kernel with one tile dropped is shown to break; each
    timed with CUDA events beside its twin, its bound on the card and
-   ``F.scaled_dot_product_attention``;
+   ``F.scaled_dot_product_attention``, the forward also beside the packed
+   kernel run on the same tensors as one head;
 3. the fused GroupNorm forward and backward, the im2col conv and the fused
    norm-act-conv against their twins at every ADM-64 site the three
    switches (``ADT_FUSED_NORM=1 ADT_IM2COL_CONV=1 ADT_FUSED_CONV=all``)
@@ -36,14 +37,16 @@ Phases, each of which raises on failure:
    run on the CPU, where every kernel is its plain twin: once with the
    switches off, once with all three on;
 5. profile: one guided DDIM-4 run at batch 32 in bf16 under
-   ``torch.profiler``: device time by kernel, the flash kernels' share and
-   the device's idle share (``chiprun_out/chip_smoke_profile.txt``);
+   ``torch.profiler``: device time by kernel, the flash kernels' share
+   (the forward's own line) and the device's idle share
+   (``chiprun_out/chip_smoke_profile.txt``);
 6. A/B: the same guided DDIM-4 run with the switches off, each alone, the
    fused norm with the fused conv, and all three on, one round (three
    rounds of each are in PERF.md): wall time per step, device-busy time
-   per step (profiler), idle share and weight- and input-gradient conv
-   time of every run (the guided models frozen, as the search freezes
-   them: any weight-gradient kernel fails the phase)
+   per step (profiler), idle share, the GroupNorm forward's kernels and
+   weight- and input-gradient conv time of every run (the guided models
+   frozen, as the search freezes them: any weight-gradient kernel fails
+   the phase)
    (``chiprun_out/chip_smoke_profile_fused.txt``: the kernels of a run
    with all three on);
 7. search: ``adt-torch search`` through its Python entry at full ADM-64
@@ -59,11 +62,12 @@ Phases, each of which raises on failure:
 8. SD kernels: at every attention site of the Stable Diffusion v1 UNet
    and VAE decoder (read from the models on the meta device), the packed
    small-head-dim forward (D = 40, T = 4096, S = 4096 and 77, plus a
-   ragged T), the flash forward at D = 80 and at D = 512 against their
-   twins at the search's device batch (8, the UNet's doubled by guidance
-   to 16), bf16 and fp32, with sabotaged runs (a dropped 64-key tile; for
-   the packed kernel the heads shifted by one and the padding lanes left
-   unzeroed) that must break the limit; then the GroupNorm forward, im2col
+   ragged T), the flash forward at D = 80 (T = 1024, S = 1024 and 77) and
+   at D = 512, all on the token-major layout the models hand them, against
+   their twins at the search's device batch (8, the UNet's doubled by
+   guidance to 16), bf16 and fp32, with sabotaged runs (a dropped 64-key
+   tile; the heads shifted by one; for the packed kernel the padding lanes
+   left unzeroed) that must break the limit; then the GroupNorm forward, im2col
    conv and fused conv at every SD UNet and VAE decoder site the switches
    route to them; all timed beside their twins, bounds (with the share of
    the bound each reaches) and library calls, the D = 40 rows also beside
@@ -72,9 +76,11 @@ Phases, each of which raises on failure:
    classifier-free guidance at batch 1 and one VAE decode, full width,
    float32, seeded random weights, GPU against the CPU twins, switches off
    and on;
-10. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler
-    (``chiprun_out/chip_smoke_profile_sd.txt``), with the packed forward's
-    line of a UNet call and the wide forward's line of the decode;
+10. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler,
+    switches off and on (``chiprun_out/chip_smoke_profile_sd.txt``,
+    ``chip_smoke_profile_sd_fused.txt``), with the packed and D = 80
+    forwards' lines of a UNet call, the wide forward's line of the decode
+    and the GroupNorm forward's time in each;
 11. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
     scale 7.5, 512 x 512, chunk 2 x batch 4, 8 samples per candidate,
     population 4, one epoch) from a seeded random-weight CompVis-layout
@@ -285,7 +291,8 @@ def compare(got, want, dtype: str, f32_tol: float = 2e-5):
 
 # the pipelined wgmma kernels whose registers ptxas must fit without a
 # spill (csrc/flash_wgmma.cuh)
-PIPELINED = ("flash_fwd_packed_kernel", "flash_fwd_wide_kernel")
+PIPELINED = ("flash_fwd_tma_kernel", "flash_fwd_packed_kernel",
+             "flash_fwd_wide_kernel")
 
 
 def phase_ptxas():
@@ -310,7 +317,7 @@ def phase_ptxas():
     # the softmax's exponentials in the machine code: one MUFU.EX2 a logit
     # (and two a tile for the rescale), no accurate expf routine
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for stem in ("flash_fwd_packed", "flash_fwd_wide"):
+    for stem in ("flash_fwd", "flash_fwd_packed", "flash_fwd_wide"):
         sass = subprocess.run([cuobjdump, "-sass", _build.library(stem)._name],
                               capture_output=True, text=True).stdout
         for fn in sass.split("Function : ")[1:]:
@@ -333,7 +340,8 @@ def phase_kernels():
     import torch.nn.functional as F
     from autodiffusion_tpu_torch.ops.flash_attention import (
         FlashAttentionFunction, flash_bwd_dkv, flash_bwd_dkv_plain,
-        flash_bwd_dq, flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
+        flash_bwd_dq, flash_bwd_dq_plain, flash_fwd, flash_fwd_packed,
+        flash_fwd_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, failures = [], []
@@ -410,6 +418,10 @@ def phase_kernels():
                     sdpa_bwd_ms),
             }
             del og, qg, kg, vg
+            # the packed kernel on the same [N, T, 64] tensors as one head
+            # of N samples: the floor flash_fwd is held to at every site
+            packed_ms = cuda_ms(lambda: flash_fwd_packed(q, k, v, 1)) \
+                if dt == torch.bfloat16 else None
             for name, es in errs.items():
                 err = max(e for e, _ in es)
                 worst = max(w for _, w in es)
@@ -422,6 +434,8 @@ def phase_kernels():
                            dropped_tile_over_limit=dropped.get(name),
                            ok=ok, ms=ms, plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                if name == "flash_fwd" and packed_ms is not None:
+                    row["packed_heads1_ms"] = packed_ms
                 rows.append(row)
                 log(f"kernel {name:14s} T={t:5d} H={h:2d} {dname:8s} "
                     f"max_abs_err={err:.3e} max err/limit={worst:.3f} "
@@ -429,7 +443,9 @@ def phase_kernels():
                     f"{dropped.get(name, float('nan')):.1f}) "
                     f"{'ok' if ok else 'FAIL'}  ms={ms:.4f} "
                     f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({b_by})")
+                    f"bound_ms={b_ms:.4f} ({b_by})"
+                    + (f" packed_heads1_ms={packed_ms:.4f}"
+                       if "packed_heads1_ms" in row else ""))
                 if not ok:
                     failures.append((name, t, h, dname, err))
     if failures:
@@ -913,15 +929,18 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
                 busy, kernels = device_busy(prof, 4)
             # weight- and input-gradient convolutions (cuDNN's wgrad and
             # dgrad kernels): no wgrad where the models are frozen
-            wgrad, dgrad = (sum(e.self_device_time_total for e in kernels
-                                if tag in e.key.lower()) / 1e3 / 4
-                            for tag in ("wgrad", "dgrad"))
+            # and the fused GroupNorm forward's kernels
+            wgrad, dgrad, gn_fwd = (
+                sum(e.self_device_time_total for e in kernels
+                    if tag in e.key.lower()) / 1e3 / 4
+                for tag in ("wgrad", "dgrad", "group_norm_fwd_"))
             runs[name].append(dict(wall_ms=wall, busy_ms=busy,
                                    idle=1 - busy / wall, wgrad_ms=wgrad,
-                                   dgrad_ms=dgrad))
+                                   dgrad_ms=dgrad, gn_fwd_ms=gn_fwd))
             log(f"A/B round {rnd} {name:22s} wall {wall:.2f} ms/step, "
                 f"busy {busy:.2f} ms/step, idle {100 * (1 - busy / wall):.1f}%"
-                f", wgrad {wgrad:.3f} ms/step, dgrad {dgrad:.3f} ms/step")
+                f", wgrad {wgrad:.3f} ms/step, dgrad {dgrad:.3f} ms/step, "
+                f"GroupNorm forward {gn_fwd:.3f} ms/step")
             if wgrad:
                 raise AssertionError(f"A/B {name}: {wgrad:.3f} ms/step of "
                                      "weight-gradient kernels under frozen "
@@ -990,7 +1009,14 @@ def phase_profile(unet_sd, cls_sd):
         f"{n_kernels:.0f} device kernels, peak memory {peak_gb:.2f} GB")
     for line in lines[:8]:
         log("profile: " + line)
+    fwd = [e for e in kernels if "flash_fwd_tma_kernel" in e.key]
+    if not fwd:
+        raise AssertionError("profile: no flash_fwd_tma kernel in the step")
+    for line in profile_lines(fwd, 4):
+        log("profile (flash_fwd): " + line)
+    fwd_ms = sum(e.self_device_time_total for e in fwd) / 1e3 / 4
     return dict(step_ms=step_ms, busy_ms=busy_ms, flash_ms=flash_ms,
+                flash_fwd_ms=fwd_ms,
                 kernels_per_step=n_kernels, peak_gb=peak_gb, top=lines)
 
 
@@ -1194,9 +1220,9 @@ def sd_sites():
                                  q.shape[2] // heads))
         return torch.empty_like(q), None
 
-    def fwd(q, k, v):
+    def fwd(q, k, v, heads=1):
         add("flash_fwd_wide" if q.shape[-1] == 512 else "flash_fwd",
-            (q.shape[1], k.shape[1], q.shape[0], q.shape[2]))
+            (q.shape[1], k.shape[1], heads, q.shape[2] // heads))
         return torch.empty_like(q), None
 
     saved = {n: getattr(port_nn, n)
@@ -1233,18 +1259,20 @@ def per_call(sites, switched_on: bool):
 def phase_sd_attention(sites):
     """flash_fwd_packed (D = 40: the SD 64x64 level's self-attention over
     4096 tokens and cross-attention over 77, plus a ragged T), flash_fwd at
-    D = 80 (the 32x32 level) and flash_fwd_wide at D = 512 (the VAE
-    mid-block) against their twins at the search's device batch (the UNet's
-    doubled by guidance), bf16 and fp32, within the kernel limits; runs with
-    one 64-key tile left out, and for the packed kernel with the heads
-    shifted by one (a wrong head offset) and with the D = 40 padding read
-    from memory instead of zeroed, must break them. Every other head's
-    values are eight times larger, so that reading a neighbour shows. Each
-    timed beside its twin, its bound and F.scaled_dot_product_attention."""
+    D = 80 (the 32x32 level, self- and cross-attention) and flash_fwd_wide
+    at D = 512 (the VAE mid-block), all on the token-major [B, L, H * D]
+    layout the models hand them, against their twins at the search's device
+    batch (the UNet's doubled by guidance), bf16 and fp32, within the
+    kernel limits; runs with one 64-key tile left out, with the heads
+    shifted by one (a wrong head offset; where there are several) and for
+    the packed kernel with the D = 40 padding read from memory instead of
+    zeroed, must break them. Every other head's values are eight times
+    larger, so that reading a neighbour shows. Each timed beside its twin,
+    its bound and F.scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
     from autodiffusion_tpu_torch.ops.flash_attention import (
-        flash_fwd, flash_fwd_packed, flash_fwd_packed_plain, flash_fwd_plain)
+        flash_fwd, flash_fwd_packed, flash_fwd_packed_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     shapes = []   # (kernel, T, S, heads, D, batch, calls per UNet call/decode)
@@ -1272,27 +1300,20 @@ def phase_sd_attention(sites):
             if kernel == "flash_fwd_packed":
                 def kern(kk=k, vv=v, **kw):
                     return flash_fwd_packed(q, kk, vv, heads, **kw)
-
-                def plain():
-                    return flash_fwd_packed_plain(q, k, v, heads)
             else:
-                # flash_fwd takes [B * H, L, D], as multihead_attention
-                # hands it the heads
-                q, k, v = (z.reshape(z.shape[0], z.shape[1], heads, d)
-                           .transpose(1, 2).reshape(-1, z.shape[1], d)
-                           .contiguous() for z in (q, k, v))
+                # as multihead_attention hands it the projections
+                def kern(kk=k, vv=v):
+                    return flash_fwd(q, kk, vv, heads=heads)
 
-                def kern(kk=k, vv=v, **kw):
-                    return flash_fwd(q, kk, vv)
-
-                def plain():
-                    return flash_fwd_plain(q, k, v)
+            def plain():
+                return flash_fwd_packed_plain(q, k, v, heads)
             with torch.no_grad():
                 o, lse = kern()
                 o_ref, lse_ref = plain()
                 faults = [kern(k[:, 64:], v[:, 64:])[0]] if s_len > 64 else []
-                if kernel == "flash_fwd_packed":
+                if heads > 1:
                     faults.append(kern(k.roll(d, 2), v.roll(d, 2))[0])
+                if kernel == "flash_fwd_packed":
                     if d % 16 and dt == torch.bfloat16:
                         # (the float32 kernel has no padding to leave)
                         faults.append(kern(_raw_pad=True)[0])
@@ -1303,12 +1324,8 @@ def phase_sd_attention(sites):
                     if faults else None
                 del faults, o, lse, o_ref, lse_ref
                 # [B, H, L, D] views for the library call
-                if kernel == "flash_fwd_packed":
-                    q4, k4, v4 = (z.view(batch, z.shape[1], heads, d)
-                                  .transpose(1, 2) for z in (q, k, v))
-                else:
-                    q4, k4, v4 = (z.view(batch, heads, z.shape[1], d)
-                                  for z in (q, k, v))
+                q4, k4, v4 = (z.view(batch, z.shape[1], heads, d)
+                              .transpose(1, 2) for z in (q, k, v))
                 reps = 5 if t * s_len >= 4096 * 4096 else 10
                 timing = (cuda_ms(kern, reps=reps),
                           cuda_ms(plain, reps=reps),
@@ -1430,12 +1447,15 @@ def phase_sd_parity(weights, envs):
     return result
 
 
-def phase_sd_profile(weights):
+def phase_sd_profile(weights, label: str = "switches off"):
     """One PLMS-4 fitness batch of the search in bf16 (5 UNet calls at
-    batch 16 with guidance, then the VAE decode of 8 latents): host-clock
-    time of an unprofiled run, then each part under torch.profiler:
-    device busy and idle per UNet call, the top kernels, the attention
-    kernels' share, and the decode's share of the batch's device time."""
+    batch 16 with guidance, then the VAE decode of 8 latents) under the
+    switches in force: host-clock time of an unprofiled run, then each part
+    under torch.profiler: device busy and idle per UNet call, the top
+    kernels, the attention kernels' and the GroupNorm forward's share, and
+    the decode's share of the batch's device time
+    (``chiprun_out/chip_smoke_profile_sd.txt``, or ``..._sd_fused.txt``
+    with the switches on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from autodiffusion_tpu_torch.models import SD_SCALE_FACTOR
@@ -1484,12 +1504,18 @@ def phase_sd_profile(weights):
     busy_dec, k_d = device_busy(prof_d, 1)
     attn = sum(e.self_device_time_total for e in k_u
                if "flash_fwd" in e.key) / 1e3 / calls
+    gn_u, gn_d = (sum(e.self_device_time_total for e in ks
+                      if "group_norm_fwd_" in e.key) / 1e3 / n
+                  for ks, n in ((k_u, calls), (k_d, 1)))
     lines_u, lines_d = profile_lines(k_u, calls), profile_lines(k_d, 1)
     os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, "chip_smoke_profile_sd.txt"), "w") as f:
-        f.write(f"{smi_line()}\nSD v1 PLMS-4 fitness batch, bf16, UNet at "
-                f"batch {SD_UNET_BATCH} (guidance), decode of {SD_BATCH}; "
-                "device time per UNet call by kernel\n" + "\n".join(lines_u)
+    fname = "chip_smoke_profile_sd" + (
+        "_fused" if label != "switches off" else "") + ".txt"
+    with open(os.path.join(OUT, fname), "w") as f:
+        f.write(f"{smi_line()}\nSD v1 PLMS-4 fitness batch, bf16, {label}, "
+                f"UNet at batch {SD_UNET_BATCH} (guidance), decode of "
+                f"{SD_BATCH}; device time per UNet call by kernel\n"
+                + "\n".join(lines_u)
                 + "\n\ndevice time of one VAE decode by kernel\n"
                 + "\n".join(lines_d) + "\n")
     batch_busy = calls * busy_call + busy_dec
@@ -1497,24 +1523,27 @@ def phase_sd_profile(weights):
                idle_unet=1 - busy_call / wall_call,
                attention_ms_per_unet_call=attn,
                attention_share=attn / busy_call,
+               gn_fwd_ms_per_unet_call=gn_u, gn_fwd_ms_per_decode=gn_d,
                decode_wall_ms=(t2 - t1) * 1e3, decode_busy_ms=busy_dec,
                decode_share=busy_dec / batch_busy,
                batch_wall_ms=(t2 - t0) * 1e3, peak_gb=peak_gb,
                top_unet=lines_u[:10], top_decode=lines_d[:10])
-    log(f"SD profile: UNet call at batch {SD_UNET_BATCH} (bf16): "
+    log(f"SD profile ({label}): UNet call at batch {SD_UNET_BATCH} (bf16): "
         f"{wall_call:.2f} ms wall, device busy {busy_call:.2f} ms (idle "
         f"{100 * res['idle_unet']:.1f}%), attention kernels {attn:.2f} ms "
         f"({100 * res['attention_share']:.1f}% of busy); VAE decode of "
         f"{SD_BATCH}: {res['decode_wall_ms']:.2f} ms wall, busy "
         f"{busy_dec:.2f} ms ({100 * res['decode_share']:.1f}% of the batch's "
         f"device time); PLMS-4 batch {res['batch_wall_ms']:.1f} ms wall; "
-        f"peak memory {peak_gb:.2f} GB")
+        f"peak memory {peak_gb:.2f} GB; GroupNorm forward kernels "
+        f"{gn_u:.3f} ms a UNet call, {gn_d:.3f} ms a decode")
     for line in lines_u[:6]:
         log("SD profile (UNet): " + line)
     for line in lines_d[:4]:
         log("SD profile (decode): " + line)
-    # the two pipelined forwards' own lines
+    # the three pipelined forwards' own lines
     for part, kernels, steps, name in (("UNet", k_u, calls, "flash_fwd_packed"),
+                                       ("UNet", k_u, calls, "flash_fwd_tma"),
                                        ("decode", k_d, 1, "flash_fwd_wide")):
         mine = [e for e in kernels if name + "_kernel" in e.key]
         if not mine:
@@ -1714,6 +1743,8 @@ def main() -> int:
                                  f"{missing}")
         with switches(SWITCHES_OFF):
             sd_prof = phase_sd_profile(weights)
+        with switches(SWITCHES_ON):
+            sd_prof_on = phase_sd_profile(weights, "switches on")
         paths = sd_search_files(weights, paths)
         del weights
         sd_search = phase_sd_search(paths, SWITCHES_OFF, sd, "default")
@@ -1765,7 +1796,7 @@ def main() -> int:
                    "sd_attention_rows": sd_attn_rows, "sd_kernel_rows": sd_rows,
                    "sd_new_kernels_ms_per_call": sd_ms,
                    "sd_parity": {k: v[0] for k, v in sd_parity.items()},
-                   "sd_profile": sd_prof,
+                   "sd_profile": sd_prof, "sd_profile_switches_on": sd_prof_on,
                    "sd_search": sd_search, "sd_search_switches_on":
                        sd_search_on, "ptxas_pipelined": ptxas,
                    "kernels_line": line,

@@ -31,13 +31,14 @@ from autodiffusion_tpu_torch.ops.conv_im2col import (
     conv3x3, conv3x3_fused, conv3x3_fused_kernel, conv3x3_im2col,
     conv3x3_reference, conv_plan, fused_conv_reference)
 from autodiffusion_tpu_torch.ops.flash_attention import (
-    LAUNCHES, flash_attention, flash_attention_reference, flash_bwd_dkv,
-    flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain, flash_fwd,
-    flash_fwd_packed, flash_fwd_packed_plain, flash_fwd_plain,
+    FWD_HEAD_DIMS, LAUNCHES, flash_attention, flash_attention_reference,
+    flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
+    flash_fwd, flash_fwd_packed, flash_fwd_packed_plain, flash_fwd_plain,
     multihead_attention, reset_launch_counts)
 from autodiffusion_tpu_torch.ops.fused_norm import (
-    FusedGroupNormFunction, group_norm_bwd, group_norm_bwd_plain,
-    group_norm_fwd, group_norm_fwd_plain, group_norm_reference)
+    FusedGroupNormFunction, gn_fwd_splits, group_norm_bwd,
+    group_norm_bwd_plain, group_norm_fwd, group_norm_fwd_plain,
+    group_norm_reference)
 
 GRAD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}
 SUM_TOL = 2e-4
@@ -150,13 +151,17 @@ def _limit_ratio(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,s,d", [(1024, 1024, 80), (1024, 77, 80),
-                                   (300, 200, 80), (700, 650, 512),
-                                   (64, 130, 512)])
+@pytest.mark.parametrize("t,s,d", [
+    (1024, 1024, 80), (1024, 77, 80), (300, 200, 80), (700, 650, 512),
+    (64, 130, 512)] + [
+    # every head dim of flash_fwd: the one-warpgroup block (T <= 64),
+    # ragged T and S, S under one key tile (77)
+    (t, s, d) for d in FWD_HEAD_DIMS
+    for t, s in ((64, 64), (64, 77), (1000, 1000), (1000, 77), (130, 129))])
 def test_forward_new_head_dims_match_twin(cuda_device, dtype, t, s, d):
-    """flash_fwd at D = 80 (the SD 32x32 level) and D = 512 (the VAE
-    mid-block, the flash_fwd_wide kernel); a run with one 64-key tile
-    left out breaks the limit."""
+    """flash_fwd at every head dim of its kernel, D = 80 (the SD 32x32
+    level) among them, and D = 512 (the VAE mid-block, the flash_fwd_wide
+    kernel); a run with one 64-key tile left out breaks the limit."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q = _randn(gen, cuda_device, dtype, 2, t, d)
     k, v = (_randn(gen, cuda_device, dtype, 2, s, d) for _ in range(2))
@@ -168,8 +173,9 @@ def test_forward_new_head_dims_match_twin(cuda_device, dtype, t, s, d):
     assert LAUNCHES == _launched(**{stem: 1})
     _assert_within_limit(o, o_ref, dtype, "o")
     _assert_within_limit(lse, lse_ref, torch.float32, "lse")
-    dropped = flash_fwd(q, k[:, 64:], v[:, 64:])[0]
-    assert _limit_ratio(dropped, o_ref, dtype) > 1
+    if s > 64:
+        dropped = flash_fwd(q, k[:, 64:], v[:, 64:])[0]
+        assert _limit_ratio(dropped, o_ref, dtype) > 1
 
 
 @pytest.mark.cuda
@@ -239,6 +245,34 @@ def test_packed_forward_matches_twin(cuda_device, dtype, b, heads, d, t, s):
     if d % 16 and dtype == torch.bfloat16:
         # (the float32 kernel runs on the CUDA cores and pads nothing)
         faults.append(flash_fwd_packed(q, k, v, heads, _raw_pad=True)[0])
+    for bad in faults:
+        assert _limit_ratio(bad, o_ref, dtype) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,d,t,s", [
+    (2, 8, 80, 1024, 1024), (2, 8, 80, 1024, 77), (3, 8, 80, 100, 77),
+    (2, 3, 64, 64, 200), (2, 5, 32, 257, 130), (2, 2, 128, 300, 77)])
+def test_forward_token_major_matches_twin(cuda_device, dtype, b, heads, d, t,
+                                          s):
+    """flash_fwd on the token-major [B, T, H * D] layout (the SD D = 80
+    sites, as multihead_attention hands it the projections) against the
+    heads-first twin; runs with the heads shifted by one and with one
+    64-key tile left out break the limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = _packed_inputs(gen, cuda_device, dtype, b, heads, d, t, s)
+    reset_launch_counts()
+    o, lse = flash_fwd(q, k, v, heads=heads)
+    o_ref, lse_ref = flash_fwd_packed_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(flash_fwd=1)
+    assert o.shape == q.shape and lse.shape == (b * heads, t)
+    _assert_within_limit(o, o_ref, dtype, "o")
+    _assert_within_limit(lse, lse_ref, torch.float32, "lse")
+    shifted = [z.roll(d, dims=2) for z in (k, v)]
+    faults = [flash_fwd(q, *shifted, heads=heads)[0],
+              flash_fwd(q, k[:, 64:], v[:, 64:], heads=heads)[0]]
     for bad in faults:
         assert _limit_ratio(bad, o_ref, dtype) > 1
 
@@ -316,6 +350,64 @@ def test_group_norm_kernels_match_twins(cuda_device, dtype, shape, groups,
     for name, a, b_ in zip(("dscale", "dshift", "dgamma", "dbeta"), got[1:],
                            want[1:]):
         _assert_within_limit(a, b_, torch.float32, name, SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,film,silu", [
+    ((2, 128, 512, 512), 32, False, True), ((1, 320, 64, 64), 32, True, False),
+    ((2, 64, 33, 31), 32, True, True), ((3, 40, 5, 7), 8, False, True),
+    ((2, 96, 7), 32, True, False), ((2, 64, 129, 255), 16, False, True)])
+def test_group_norm_forward_long_and_odd_runs(cuda_device, dtype, shape,
+                                              groups, film, silu):
+    """The GroupNorm forward where runs are split across blocks (the VAE's
+    512 x 512 slab, a 129 x 255 slab), held in 160 KB of shared memory
+    (SD's C 320 at 64 x 64 in float32), and where odd HW starts runs off a
+    16-byte boundary, resident or split; a run with one group normalised
+    by another group's statistics breaks the limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    b, c = shape[:2]
+    x = (_randn(gen, cuda_device, torch.float32, *shape)
+         * torch.exp(0.5 * _randn(gen, cuda_device, torch.float32, c,
+                                  *([1] * (len(shape) - 2))))
+         + 0.3).to(dtype)
+    gamma = 1 + 0.2 * _randn(gen, cuda_device, torch.float32, c)
+    beta = 0.1 * _randn(gen, cuda_device, torch.float32, c)
+    scale = shift = None
+    if film:
+        scale, shift = (0.3 * _randn(gen, cuda_device, torch.float32, b, c)
+                        for _ in range(2))
+    hw = x[0, 0].numel()
+    split = gn_fwd_splits(c // groups * hw, c // groups,
+                          x.element_size()) > 0
+    assert split == (shape[2:] in ((512, 512), (129, 255)))
+    reset_launch_counts()
+    args = (x, gamma, beta, scale, shift, groups, 1e-6, silu)
+    y, mu, rstd = group_norm_fwd(*args)
+    y_ref, mu_ref, rstd_ref = group_norm_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(group_norm_fwd=1)
+    _assert_within_limit(y, y_ref, dtype, "y")
+    _assert_within_limit(mu, mu_ref, torch.float32, "mu")
+    _assert_within_limit(rstd, rstd_ref, torch.float32, "rstd")
+    # group 0 of every sample with group 1's statistics, through the FiLM
+    # terms (chip_smoke.py's sabotaged run)
+    per = c // groups
+    kk = (rstd[:, 1] / rstd[:, 0])[:, None]
+    sc = torch.zeros(b, c, device=cuda_device)
+    sh = torch.zeros(b, c, device=cuda_device)
+    sc[:, :per] = kk - 1
+    sh[:, :per] = beta[None, :per] * (1 - kk) + (
+        (mu[:, 0] - mu[:, 1]) * rstd[:, 1])[:, None] * gamma[None, :per]
+    if film:
+        sc, sh = sc + scale, sh + shift
+        sc[:, :per] = (1 + scale[:, :per]) * kk - 1
+        sh[:, :per] = (1 + scale[:, :per]) * (
+            beta[None, :per] * (1 - kk) + ((mu[:, 0] - mu[:, 1])
+                                           * rstd[:, 1])[:, None]
+            * gamma[None, :per]) + shift[:, :per]
+    bad = group_norm_fwd(x, gamma, beta, sc, sh, groups, 1e-6, silu)[0]
+    assert _limit_ratio(bad, y_ref, dtype) > 1
 
 
 @pytest.mark.cuda

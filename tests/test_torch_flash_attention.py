@@ -203,7 +203,7 @@ def test_sd_sites_are_the_known_ones(monkeypatch):
             packed.add((q.shape[1], k.shape[1], heads, q.shape[2] // heads))
             return torch.empty_like(q), None
 
-        def rec_fwd(q, k, v):
+        def rec_fwd(q, k, v, heads=1):
             if q.shape[-1] == 512:
                 wide.add((q.shape[0], q.shape[1], k.shape[1]))
             return torch.empty_like(q), None
@@ -223,11 +223,16 @@ def test_sd_sites_are_the_known_ones(monkeypatch):
     assert sites("decode") == (set(), {(1, 4096, 4096)})
 
 
-@pytest.mark.parametrize("d,t,s", [(80, 100, 100), (80, 128, 77),
-                                   (512, 128, 128), (512, 70, 90)])
+@pytest.mark.parametrize("d,t,s", [
+    (80, 100, 100), (80, 128, 77), (512, 128, 128), (512, 70, 90),
+    # where the CUDA kernel changes its blocking: T = S = 64 (one 64-row
+    # block, one key tile), ragged T and S (130 / 129, 77 keys)
+    (64, 64, 64), (80, 64, 64), (80, 130, 129), (80, 200, 77),
+    (128, 64, 64), (128, 130, 77)])
 def test_forward_twin_matches_pallas_at_sd_head_dims(d, t, s):
     """flash_fwd's twin at D = 80 (SD 32x32) and D = 512 (the VAE
-    mid-block) against the JAX kernel, float32: 2e-5."""
+    mid-block), and at the CUDA kernel's block edges at D = 64, 80 and
+    128, against the JAX kernel, o and lse, float32: 2e-5."""
     q, k, v, _ = _inputs(t, s, d, "float32", 6)
     want = np.asarray(_jax(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     _, lse_j = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -238,6 +243,39 @@ def test_forward_twin_matches_pallas_at_sd_head_dims(d, t, s):
                                atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :t],
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("t,s", [(64, 64), (100, 77), (130, 129)])
+def test_multihead_attention_d80_takes_the_token_major_route(monkeypatch, t,
+                                                             s):
+    """At D = 80 multihead_attention hands flash_fwd the token-major
+    projections as they are ([B, T, H * D], heads = H: no head
+    transposes), and on the CPU its result is the heads-first twin's."""
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    heads, d = 8, 80
+    rng = np.random.RandomState(t + s)
+    q = torch.from_numpy(rng.randn(2, t, heads * d).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(2, s, heads * d).astype(np.float32))
+            for _ in range(2))
+    seen = []
+    real = fa.flash_fwd
+
+    def record(q_, k_, v_, heads=1):
+        seen.append((tuple(q_.shape), tuple(k_.shape), heads,
+                     q_.data_ptr() == q.data_ptr()))
+        return real(q_, k_, v_, heads=heads)
+
+    monkeypatch.setattr(fa, "flash_fwd", record)
+    got = multihead_attention(q, k, v, heads)
+    assert seen == [((2, t, heads * d), (2, s, heads * d), heads, True)]
+    heads_first = [z.reshape(2, -1, heads, d).transpose(1, 2)
+                   .reshape(2 * heads, -1, d) for z in (q, k, v)]
+    o, _ = flash_fwd_plain(*heads_first)
+    want = o.reshape(2, heads, t, d).transpose(1, 2).reshape(2, t, -1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-6,
+                               rtol=2e-6)
+    o2, lse2 = real(q, k, v, heads=heads)
+    assert torch.equal(o2, got) and lse2.shape == (2 * heads, t)
 
 
 def test_multihead_attention_twins_agree_across_routes():

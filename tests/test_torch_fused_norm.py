@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from autodiffusion_tpu.models.nn import GroupNorm32 as JaxGroupNorm32
+from autodiffusion_tpu.ops.fused_norm import _fwd_impl as jax_fwd_impl
 from autodiffusion_tpu.ops.fused_norm import \
     fused_group_norm as jax_fused_group_norm
 from autodiffusion_tpu_torch.models import nn as port_nn
@@ -83,6 +84,32 @@ def test_forward_matches_jax_kernel_fp32(shape, film, act):
     ref = group_norm_reference(_to_port(x), _t(gamma), _t(beta),
                                scale=_t(scale), shift=_t(shift), act=act)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape,groups,act", [
+    # odd HW: runs of 5 x 35 and 3 x 63 elements start off a 16-byte
+    # boundary (the CUDA kernel's scalar heads and tails)
+    ((3, 35, 40), 8, "silu"), ((2, 63, 96), 32, "none"),
+    # long runs, many channels a group: 64 x 512 and 32 x 1089 elements
+    ((2, 512, 256), 4, "silu"), ((1, 1089, 64), 2, "none")])
+def test_forward_twin_matches_jax_kernel_with_stats(shape, groups, act):
+    """group_norm_fwd_plain (the forward kernel's twin) against the JAX
+    forward kernel in interpret mode, y and the per-group mu, rstd it
+    saves, float32: 2e-5."""
+    x, gamma, beta, scale, shift, _ = _inputs(shape, 7)
+    b, _, c = shape
+    want_y, want_mu, want_rstd = jax_fwd_impl(
+        _jnp(x), _jnp(gamma).reshape(1, c), _jnp(beta).reshape(1, c),
+        _jnp(scale), _jnp(shift), groups, 1e-5, act, True)
+    y, mu, rstd = group_norm_fwd_plain(_to_port(x), _t(gamma), _t(beta),
+                                       _t(scale), _t(shift), groups, 1e-5,
+                                       act == "silu")
+    np.testing.assert_allclose(_from_port(y), np.asarray(want_y), atol=TOL,
+                               rtol=TOL)
+    for got, want in ((mu, want_mu), (rstd, want_rstd)):
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(want).reshape(b, groups),
+                                   atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES[:3])

@@ -12,7 +12,7 @@ stem there with the package's nvcc flags and prints ptxas's registers and
 spills for it. A worker process then checks the variant against the
 kernel's plain twin at the ring-edge shapes of tests/test_torch_cuda.py,
 within chip_smoke.py's bf16 limit, and workers time the tree's kernel and
-the variant at the Stable Diffusion sites (chip_smoke.cuda_ms, one-call
+the variant at the Stable Diffusion (and ADM) sites (chip_smoke.cuda_ms, one-call
 CUDA-event medians) in the order tree, variant, variant, tree. Each
 library runs in its own process: two libraries holding the same kernels
 in one process fail their launches.
@@ -36,6 +36,62 @@ sys.path.insert(0, ROOT)
 # name -> (source stem, {file: [(old, new), ...]}); each old text must
 # occur exactly once in the tree's file
 VARIANTS = {
+    # D = 80 as ten no-swizzle 16-byte chunks (the packed kernel's layout:
+    # one TMA box a chunk, one m64n80 P V product) instead of one
+    # 128-byte-swizzled 64-feature box and two chunks
+    "fwd_d80_chunks": ("flash_fwd", {"flash_fwd.cu": [(
+        """  static constexpr int SW = D / 64;
+  static constexpr int CH = (D % 64) / 8;""",
+        """  static constexpr int SW = D == 80 ? 0 : D / 64;
+  static constexpr int CH = (D - 64 * SW) / 8;""")]}),
+    # D = 80 with 128-key tiles (as D <= 64), two blocks an SM (if ptxas
+    # fits the S and O accumulators in 128 registers) or one
+    "fwd_d80_bn128": ("flash_fwd", {"flash_fwd.cu": [(
+        "static constexpr int kBN = (WG == 2 && D <= 64) ? 128 : 64;",
+        "static constexpr int kBN = (WG == 2 && D <= 80) ? 128 : 64;")]}),
+    # a ring of up to four stages (one a key tile, as many as the blocks
+    # an SM allow; the mbarriers in the 1 KB alignment gap where it holds
+    # them, so that D = 64 takes three), instead of the tree's two
+    "fwd_deep_ring": ("flash_fwd", {"flash_fwd.cu": [
+        ("""  static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kTileBytes + 32;
+  // kMinBlocks blocks share an SM's 228 KB (the system keeps 1 KB a block)
+  static_assert(kMinBlocks * (kSmem + 1024) <= 233472, "the blocks an SM holds");""",
+         """  static constexpr int alloc(int stages) { return 1024 + kQBytes + stages * 2 * kTileBytes; }
+  static constexpr bool fits(int stages) { return kMinBlocks * (alloc(stages) + 1024) <= 233472; }
+  static constexpr int ring_stages(int s_len) {
+    const int tiles = (s_len + kBN - 1) / kBN;
+    int stages = tiles < 1 ? 1 : tiles > 4 ? 4 : tiles;
+    while (stages > 1 && !fits(stages)) --stages;
+    return stages;
+  }"""),
+        ("""int t_tiles,
+                         float scale, float scale_log2) {""",
+         """int t_tiles,
+                         int stages, float scale, float scale_log2) {"""),
+        ("constexpr int kBM = C::kBM, kBN = C::kBN, stages = C::kStages;",
+         "constexpr int kBM = C::kBM, kBN = C::kBN;"),
+        ("""  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);""",
+         """  const uint32_t gap = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  unsigned char* smem = smem_raw + gap;
+  unsigned char* meta = gap >= 64 ? smem_raw : smem + QB + stages * 2 * TB;"""),
+        ("uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + QB + stages * 2 * TB);",
+         "uint64_t* qbar = reinterpret_cast<uint64_t*>(meta);"),
+        ("unsigned* done = reinterpret_cast<unsigned*>(full + stages);",
+         "unsigned* done = reinterpret_cast<unsigned*>(full + 4);"),
+        ("""  constexpr int SW = Cols<D>::SW, CH = Cols<D>::CH;
+  // [B][L][H D] bf16""",
+         """  constexpr int SW = Cols<D>::SW, CH = Cols<D>::CH;
+  const int stages = C::ring_stages(s_len);
+  // [B][L][H D] bf16"""),
+        ("C::kSmem, st>>>(", "C::alloc(stages), st>>>("),
+        ("""t_tiles, scale,
+      scale * 1.4426950408889634f);""",
+         """t_tiles, stages,
+      scale, scale * 1.4426950408889634f);""")]}),
+    "fwd_d80_bn128_one_block": ("flash_fwd", {"flash_fwd.cu": [
+        ("static constexpr int kBN = (WG == 2 && D <= 64) ? 128 : 64;",
+         "static constexpr int kBN = (WG == 2 && D <= 80) ? 128 : 64;"),
+        ("WG == 2 ? (D >= 128 ? 1 : 2)", "WG == 2 ? (D >= 80 ? 1 : 2)")]}),
     # the two consumer warpgroups of a block take turns on the tensor
     # cores (FlashAttention-3's ping-pong): warpgroup w issues P V of tile
     # j - 1 and S = Q K^T of tile j on named barrier 1 + w, which the
@@ -171,15 +227,21 @@ __device__ __forceinline__ uint64_t global_ns() {""")],
 }
 
 # (B, heads, D, T, S) checked; the SD sites timed (the UNet's batch 16,
-# the decoder's 8)
-CHECK = {"flash_fwd_packed": [(2, 8, 40, 300, 300), (2, 8, 16, 1000, 1000),
+# the decoder's 8), and for flash_fwd two ADM sites ([N, T, 64] as N
+# samples of one head)
+CHECK = {"flash_fwd": [(2, 8, 80, 300, 77), (2, 8, 80, 1000, 1000),
+                       (3, 8, 80, 64, 130), (16, 8, 80, 1024, 1024),
+                       (16, 8, 80, 1024, 77)],
+         "flash_fwd_packed": [(2, 8, 40, 300, 300), (2, 8, 16, 1000, 1000),
                               (2, 3, 16, 257, 77), (2, 4, 32, 333, 1000),
                               (2, 8, 40, 1000, 77), (3, 5, 64, 333, 1000),
                               (2, 5, 64, 1000, 77), (16, 8, 40, 4096, 4096),
                               (16, 8, 40, 4096, 77)],
          "flash_fwd_wide": [(2, 1, 512, 700, 650), (2, 1, 512, 64, 130),
                             (1, 1, 512, 4096, 4096), (8, 1, 512, 4096, 4096)]}
-TIME = {"flash_fwd_packed": [(16, 8, 40, 4096, 4096), (16, 8, 40, 4096, 77)],
+TIME = {"flash_fwd": [(192, 1, 64, 1024, 1024), (288, 1, 64, 256, 256),
+                      (16, 8, 80, 1024, 1024), (16, 8, 80, 1024, 77)],
+        "flash_fwd_packed": [(16, 8, 40, 4096, 4096), (16, 8, 40, 4096, 77)],
         "flash_fwd_wide": [(8, 1, 512, 4096, 4096)]}
 
 
@@ -252,8 +314,9 @@ def worker(lib, stem, mode):
         b, t, _ = q.shape
         o = torch.empty_like(q)
         lse = torch.empty(b * heads, t, device="cuda")
-        dims = (b, heads, t, k.shape[1], d, 1, 0) \
-            if stem == "flash_fwd_packed" else (b, t, k.shape[1], d, 1)
+        dims = {"flash_fwd_packed": (b, heads, t, k.shape[1], d, 1, 0),
+                "flash_fwd": (b, heads, t, k.shape[1], d, 1)}.get(
+                    stem, (b, t, k.shape[1], d, 1))
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), *dims, 1 / math.sqrt(d), stream)
         if rc:
@@ -267,7 +330,7 @@ def worker(lib, stem, mode):
         key = f"{b}x{heads}x{d} T{t} S{s}"
         if mode == "check":
             o, lse = call(q, k, v, heads, d)
-            if stem == "flash_fwd_packed":
+            if stem != "flash_fwd_wide":
                 wo, wl = flash_fwd_packed_plain(q, k, v, heads)
             else:
                 wo, wl = flash_fwd_plain(q, k, v)
