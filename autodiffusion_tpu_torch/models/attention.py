@@ -11,7 +11,7 @@ tokens). Module and parameter names are CompVis's own
 
 Attention goes through :func:`~autodiffusion_tpu_torch.ops.flash_attention.
 multihead_attention` on the token-major [B, T, H * D] projections: the
-packed kernel at D <= 64, the flash forward at D = 80, plain PyTorch at
+packed kernel at D = 40, the flash forward at D = 80, plain PyTorch at
 D = 160 (as the JAX package leaves D > 128 outside its kernels). A module
 computes in the dtype of its input, its float32 parameters cast at use;
 LayerNorm runs in float32 (eps 1e-5), the SpatialTransformer's GroupNorm

@@ -48,7 +48,7 @@ SOURCES = {
     "flash_bwd_dkv": ("adt_flash_bwd_dkv",
                       [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "group_norm_fwd": ("adt_group_norm_fwd",
-                       [_c_void_p] * 9 + [_c_int] * 7 + [_c_float,
+                       [_c_void_p] * 8 + [_c_int] * 6 + [_c_float,
                                                          _c_void_p]),
     "group_norm_bwd": ("adt_group_norm_bwd",
                        [_c_void_p] * 15 + [_c_int] * 6 + [_c_void_p]),

@@ -4,14 +4,15 @@
 // Replaces the TPU kernel
 // autodiffusion_tpu/ops/flash_attention.py::_attn_kernel_packed (dispatched
 // by _flash_forward_packed): the same o, lse contract as _attn_kernel for
-// head dims D <= 64. On the TPU, packing G = 128 / D heads into the 128
-// lanes of the matrix unit filled the lanes a D = 40 head leaves idle. On
-// Hopper the 16-deep wgmma step wastes only D = 40's padding to 48, so what
-// carries over is the layout: the kernel reads q [B, T, H * D] and k, v
-// [B, S, H * D] token-major, as the attention projections (to_q, to_k,
-// to_v) produce them, and writes o [B, T, H * D] for to_out, so the four
-// head transposes around an unpacked kernel disappear. lse is [B * H, T]
-// float32.
+// head dims D <= 64, here D = 40 (the head dims that are multiples of 16
+// take flash_fwd.cu on the same layout). On the TPU, packing G = 128 / D
+// heads into the 128 lanes of the matrix unit filled the lanes a D = 40
+// head leaves idle. On Hopper the 16-deep wgmma step wastes only D = 40's
+// padding to 48, so what carries over is the layout: the kernel reads q
+// [B, T, H * D] and k, v [B, S, H * D] token-major, as the attention
+// projections (to_q, to_k, to_v) produce them, and writes o [B, T, H * D]
+// for to_out, so the four head transposes around an unpacked kernel
+// disappear. lse is [B * H, T] float32.
 //
 // Bound on this card: at the Stable Diffusion 64x64 level (D = 40, 8 heads,
 // T = S = 4096, batch 16) the matrix products' bound is 0.347 ms, but the
@@ -264,31 +265,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // q, o [B, T, heads * head_dim]; k, v [B, S, heads * head_dim]; lse [B *
 // heads, T]. raw_pad (kernel checks only) copies the padding chunk of a
 // head dim that is not a multiple of 16 from memory (the next head's
-// features) instead of leaving it zero. -1 for a head dim without an
-// instantiation.
+// features) instead of leaving it zero. -1 for a head dim other than 40.
 extern "C" int adt_flash_fwd_packed(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int b, int heads, int t_len, int s_len,
                                     int head_dim, int is_bf16, int raw_pad, float scale,
                                     void* stream) {
   if (b == 0 || heads == 0 || t_len == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    switch (head_dim) {
-      case 16: return adt::packed::launch<16, 16>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, st);
-      case 32: return adt::packed::launch<32, 32>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, st);
-      case 40: return adt::packed::launch<40, 48>(q, k, v, o, lse, b, heads, t_len, s_len, raw_pad, scale, st);
-      case 64: return adt::packed::launch<64, 64>(q, k, v, o, lse, b, heads, t_len, s_len, 0, scale, st);
-      default: return -1;
-    }
-  }
+  if (head_dim != 40) return -1;
+  if (is_bf16)
+    return adt::packed::launch<40, 48>(q, k, v, o, lse, b, heads, t_len, s_len, raw_pad, scale, st);
   const int n = b * heads;
   const int ld = heads * head_dim;
-  switch (head_dim) {
-    case 16: ADT_LAUNCH_FWD_F32(16, heads, ld); break;
-    case 32: ADT_LAUNCH_FWD_F32(32, heads, ld); break;
-    case 40: ADT_LAUNCH_FWD_F32(40, heads, ld); break;
-    case 64: ADT_LAUNCH_FWD_F32(64, heads, ld); break;
-    default: return -1;
-  }
+  ADT_LAUNCH_FWD_F32(40, heads, ld);
   return static_cast<int>(cudaGetLastError());
 }

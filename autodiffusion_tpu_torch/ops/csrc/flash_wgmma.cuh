@@ -1,5 +1,5 @@
 // Pieces shared by the three pipelined flash forwards for Hopper (sm_90a),
-// flash_fwd.cu (D <= 128), flash_fwd_packed.cu (D <= 64 on the token-major
+// flash_fwd.cu (D <= 128), flash_fwd_packed.cu (D = 40 on the token-major
 // layout) and flash_fwd_wide.cu (D = 512): the online softmax of one key
 // tile held in a wgmma accumulator, and the rounding of its probabilities
 // to the bf16 register A operand of the P V product.

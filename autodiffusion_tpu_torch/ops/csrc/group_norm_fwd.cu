@@ -14,15 +14,16 @@
 // 16-byte vectors, then a scalar tail).
 //
 // Bound on this card: bytes, one read of x and one write of y. Two designs,
-// by the run's size (the wrapper picks, ops/fused_norm.py::gn_fwd_splits):
+// by the run's size (launch() picks):
 //   * resident: one block a run holds it in shared memory, so x is read
 //     once: the statistics pass loads it with 16-byte loads, sums x and x^2
 //     and keeps it; the normalise pass reads shared memory and writes y
 //     with 16-byte stores. Every run that fits (up to 226 KB) is such a
 //     run: every ADM-64, SD UNet and VAE 64 x 64 site in bf16.
 //   * split: a longer run (the VAE decoder's 512 x 512 slabs: 2 MB in bf16)
-//     is cut into `splits` slices, a block each. The first
-//     kernel writes each slice's partial sums to a [B * G, splits] buffer;
+//     is cut into slices of about kSliceElems elements, a block each. The
+//     first kernel writes each slice's partial sums to a [B * G, splits]
+//     buffer, allocated on the stream for the call (scratch_pool);
 //     the second reduces a run's partials in a fixed order (the same in
 //     every block: deterministic, no float atomics), then normalises its
 //     slice, reading x again from device memory (three passes: the run
@@ -32,6 +33,8 @@
 
 #include <stdint.h>
 
+#include <mutex>
+
 namespace adt {
 namespace gn {
 
@@ -39,6 +42,8 @@ constexpr int kMaxThreads = 512;
 // the most dynamic shared memory a resident block may take: 227 KB less
 // the kernel's static shared memory (under 1 KB)
 constexpr int kMaxDynamic = 232448 - 1024;
+// elements of a slice of a run too long to be resident (a block each)
+constexpr int kSliceElems = 16384;
 
 // 16 bytes of T as floats, and back
 template <typename T>
@@ -266,35 +271,76 @@ __global__ void __launch_bounds__(kMaxThreads)
   normalise(x + (size_t)run * n, y + (size_t)run * n, lo, hi, hw, mu, smem, act_silu);
 }
 
+// The memory pool of the split path's partial sums on the current device:
+// one of this library's own that keeps what it has reserved. (The
+// device's default pool hands its memory back to the system at every
+// synchronisation, and taking it again cost a split call more than its
+// kernels: PERF.md section 6.)
+cudaError_t scratch_pool(cudaMemPool_t* pool) {
+  constexpr int kMaxDevices = 64;
+  static cudaMemPool_t pools[kMaxDevices] = {};
+  static std::mutex guard;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(guard);
+  if (!pools[dev]) {
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = dev;
+    cudaMemPool_t made;
+    err = cudaMemPoolCreate(&made, &props);
+    if (err != cudaSuccess) return err;
+    uint64_t keep = UINT64_MAX;
+    err = cudaMemPoolSetAttribute(made, cudaMemPoolAttrReleaseThreshold, &keep);
+    if (err != cudaSuccess) {
+      cudaMemPoolDestroy(made);
+      return err;
+    }
+    pools[dev] = made;
+  }
+  *pool = pools[dev];
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch(const void* xv, const float* gamma, const float* beta, const float* scale,
-           const float* shift, void* yv, float* mu, float* rstd, float2* part, int splits,
-           int b, int c, int hw, int groups, int act_silu, float eps, cudaStream_t st) {
+           const float* shift, void* yv, float* mu, float* rstd, int b, int c, int hw,
+           int groups, int act_silu, float eps, cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
   const int runs = b * groups, cpg = c / groups, n = cpg * hw;
-  const int threads = n >= 8192 ? kMaxThreads : 256;
   const int terms = cpg * (int)sizeof(float4);
-  if (splits == 0) {
-    // the run, 16 bytes for its offset within a vector, the channel terms
-    const long long smem = terms + (long long)n * sizeof(T) + 16;
-    if (smem > kMaxDynamic) return -1;
+  // the run, 16 bytes for its offset within a vector, the channel terms
+  const long long smem = terms + (long long)n * sizeof(T) + 16;
+  if (smem <= kMaxDynamic) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         group_norm_fwd_resident_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxDynamic);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    group_norm_fwd_resident_kernel<T><<<runs, threads, (int)smem, st>>>(
+    group_norm_fwd_resident_kernel<T><<<runs, n >= 8192 ? kMaxThreads : 256, (int)smem, st>>>(
         x, gamma, beta, scale, shift, y, mu, rstd, c, hw, groups, eps, act_silu);
     return static_cast<int>(cudaGetLastError());
   }
-  if (!part || splits < 0) return -1;
+  const int splits = (n + kSliceElems - 1) / kSliceElems;
   const int slice = (n + splits - 1) / splits;
+  cudaMemPool_t pool;
+  cudaError_t err = scratch_pool(&pool);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float2* part = nullptr;
+  err = cudaMallocFromPoolAsync(reinterpret_cast<void**>(&part),
+                                (size_t)runs * splits * sizeof(float2), pool, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   group_norm_fwd_partial_kernel<T><<<runs * splits, kMaxThreads, 0, st>>>(x, part, n, splits,
                                                                          slice);
   group_norm_fwd_apply_kernel<T><<<runs * splits, kMaxThreads, terms, st>>>(
       x, gamma, beta, scale, shift, part, y, mu, rstd, c, hw, groups, splits, slice, eps,
       act_silu);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  const cudaError_t freed = cudaFreeAsync(part, st);
+  return static_cast<int>(err != cudaSuccess ? err : freed);
 }
 
 }  // namespace gn
@@ -302,23 +348,18 @@ int launch(const void* xv, const float* gamma, const float* beta, const float* s
 
 // x, y [B, C, HW] (float32 or bfloat16); gamma, beta [C] float32; scale,
 // shift [B, C] float32 or null (no FiLM term); mu, rstd [B, G] float32;
-// x and y 16-byte aligned. splits: 0 holds each (sample, group) run in
-// shared memory; else each run is cut into `splits` slices, and part is
-// B * G * splits float2 of scratch for their partial sums. -1 for a
-// configuration it has no kernel for (a resident run too long).
+// x and y 16-byte aligned.
 extern "C" int adt_group_norm_fwd(const void* x, const float* gamma, const float* beta,
                                   const float* scale, const float* shift, void* y, float* mu,
-                                  float* rstd, void* part, int splits, int b, int c, int hw,
-                                  int groups, int act_silu, int is_bf16, float eps,
-                                  void* stream) {
+                                  float* rstd, int b, int c, int hw, int groups, int act_silu,
+                                  int is_bf16, float eps, void* stream) {
   if (b == 0 || c == 0) return 0;
   if (groups <= 0 || c % groups) return -1;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float2* p = static_cast<float2*>(part);
   if (is_bf16)
-    return adt::gn::launch<__nv_bfloat16>(x, gamma, beta, scale, shift, y, mu, rstd, p, splits, b,
-                                          c, hw, groups, act_silu, eps, st);
-  return adt::gn::launch<float>(x, gamma, beta, scale, shift, y, mu, rstd, p, splits, b, c, hw,
-                                groups, act_silu, eps, st);
+    return adt::gn::launch<__nv_bfloat16>(x, gamma, beta, scale, shift, y, mu, rstd, b, c, hw,
+                                          groups, act_silu, eps, st);
+  return adt::gn::launch<float>(x, gamma, beta, scale, shift, y, mu, rstd, b, c, hw, groups,
+                                act_silu, eps, st);
 }

@@ -282,25 +282,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d += A B for one m64n80k16 step: A bf16 in registers (the m16n8k16
-// A fragment of each warp's 16 rows), B bf16 in shared memory, MN-major
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // d += A B for one m64n256k16 step: A bf16 in registers (the m16n8k16
 // A fragment of each warp's 16 rows), B bf16 in shared memory, MN-major
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
@@ -371,8 +352,8 @@ __device__ __forceinline__ void mma_first(float (&d)[N / 2], uint64_t da, uint64
 // d += A B, A from registers, B MN-major in shared memory
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 80 || N == 256,
-                "wgmma rs widths instantiated: 16, 32, 48, 64, 80, 256");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 256,
+                "wgmma rs widths instantiated: 16, 32, 48, 64, 256");
   if constexpr (N == 16)
     wgmma_rs_n16(d, a, db);
   else if constexpr (N == 32)
@@ -381,8 +362,6 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
     wgmma_rs_n48(d, a, db);
   else if constexpr (N == 64)
     wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 80)
-    wgmma_rs_n80(d, a, db);
   else
     wgmma_rs_n256(d, a, db);
 }

@@ -11,7 +11,7 @@ forward (``_attn_kernel``), its head-packed small-head-dim variant
                     token-major [B, T, H * D] layout
   flash_fwd_wide    the same at D = 512 (the VAE mid-block's single head),
                     each logit computed once for all 512 output columns
-  flash_fwd_packed  the same for D in {16, 32, 40, 64} on the token-major
+  flash_fwd_packed  the same for D = 40 (padded to 48) on the token-major
                     [B, T, H * D] layout of the attention projections
   flash_bwd_dq      dq from (q, k, v, dO, lse, delta)
   flash_bwd_dkv     dk, dv from the same
@@ -60,8 +60,9 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 # head dims of the forward: flash_fwd, and flash_fwd_wide at WIDE_HEAD_DIM
 FWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 WIDE_HEAD_DIM = 512
-# head dims of flash_fwd_packed (D = 40: the Stable Diffusion 64x64 level)
-PACKED_HEAD_DIMS = (16, 32, 40, 64)
+# head dims of flash_fwd_packed (the Stable Diffusion 64x64 level; the
+# dims that are multiples of 16 take flash_fwd on the same layout)
+PACKED_HEAD_DIMS = (40,)
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
@@ -263,20 +264,24 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(D)) v per head, forward only, for token-major
     q [B, T, H * D] and k, v [B, S, H * D] -> [B, T, H * D]: the attention
     of the Stable Diffusion models (CrossAttention, VAEAttnBlock). Each head
-    dim goes to its kernel on the layout as it is, self- and cross-attention
-    alike and whatever the token count: D in PACKED_HEAD_DIMS to
-    ``flash_fwd_packed``; D in FWD_HEAD_DIMS (the SD 32x32 level's D = 80)
-    to ``flash_fwd``; one head of D = 512 (the VAE mid-block) to
-    ``flash_fwd_wide``. Other head dims (the SD 16x16 and 8x8 levels'
-    D = 160) are plain PyTorch on [B * H, T, D], as the JAX package
-    computes them outside its kernels. CPU tensors take the twins."""
+    dim goes to its kernel, self- and cross-attention alike and whatever
+    the token count: D = 40 (the SD 64x64 level) to ``flash_fwd_packed``
+    and D in FWD_HEAD_DIMS (the SD 32x32 level's D = 80) to ``flash_fwd``,
+    both on the layout as it is; D = 512 (the VAE mid-block's one head,
+    or several) to ``flash_fwd_wide`` on [B * H, T, D]. Other head dims (the SD 16x16 and
+    8x8 levels' D = 160) are plain PyTorch on [B * H, T, D], as the JAX
+    package computes them outside its kernels. CPU tensors take the
+    twins."""
     d = _check_packed(q, k, v, heads)
     if d in PACKED_HEAD_DIMS:
         return flash_fwd_packed(q, k, v, heads)[0]
-    if d in FWD_HEAD_DIMS or (d == WIDE_HEAD_DIM and heads == 1):
+    if d in FWD_HEAD_DIMS:
         return flash_fwd(q, k, v, heads=heads)[0]
-    o = flash_attention_reference(*(_heads_first(z, heads)
-                                    for z in (q, k, v)))
+    qh, kh, vh = (_heads_first(z, heads) for z in (q, k, v))
+    if d == WIDE_HEAD_DIM:
+        o = flash_fwd(qh, kh, vh)[0]
+    else:
+        o = flash_attention_reference(qh, kh, vh)
     return _tokens_first(o, q.shape[0])
 
 

@@ -161,24 +161,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-# The forward kernel holds a (sample, group) run in shared memory wherever
-# it fits (one block a run, x read once: every ADM-64, SD UNet and VAE 64 x
-# 64 site in bf16): the run, 16 bytes of alignment and 16 bytes a channel
-# within GN_SMEM_BYTES, csrc/group_norm_fwd.cu's kMaxDynamic. A longer run
-# (the VAE's 512 x 512 slabs) is split into slices of about GN_SLICE_ELEMS
-# elements, a block each, and read twice.
-GN_SMEM_BYTES = 232448 - 1024
-GN_SLICE_ELEMS = 16384
-
-
-def gn_fwd_splits(n: int, cpg: int, itemsize: int) -> int:
-    """Slices the forward kernel cuts a run of n elements of ``itemsize``
-    bytes over ``cpg`` channels into: 0 where it fits in shared memory."""
-    if n * itemsize + 16 * cpg + 16 <= GN_SMEM_BYTES:
-        return 0
-    return -(-n // GN_SLICE_ELEMS)
-
-
 def group_norm_fwd(x, gamma, beta, scale, shift, groups: int, eps: float,
                    silu: bool):
     """Forward kernel: (y [B, C, ...] in x's dtype, mu, rstd [B, G])."""
@@ -196,14 +178,11 @@ def group_norm_fwd(x, gamma, beta, scale, shift, groups: int, eps: float,
     y = torch.empty_like(x)
     mu = torch.empty((b, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mu)
-    splits = gn_fwd_splits(c // groups * hw, c // groups, x.element_size())
-    part = torch.empty((b * groups * splits, 2), dtype=torch.float32,
-                       device=x.device) if splits else None
     with torch.cuda.device(x.device):
         launch("group_norm_fwd", x.data_ptr(), gamma.data_ptr(),
                beta.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(),
-               mu.data_ptr(), rstd.data_ptr(), _ptr(part), splits, b, c, hw,
-               groups, int(silu), int(x.dtype == torch.bfloat16), float(eps))
+               mu.data_ptr(), rstd.data_ptr(), b, c, hw, groups, int(silu),
+               int(x.dtype == torch.bfloat16), float(eps))
     return y, mu, rstd
 
 

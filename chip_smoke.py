@@ -340,8 +340,7 @@ def phase_kernels():
     import torch.nn.functional as F
     from autodiffusion_tpu_torch.ops.flash_attention import (
         FlashAttentionFunction, flash_bwd_dkv, flash_bwd_dkv_plain,
-        flash_bwd_dq, flash_bwd_dq_plain, flash_fwd, flash_fwd_packed,
-        flash_fwd_plain)
+        flash_bwd_dq, flash_bwd_dq_plain, flash_fwd, flash_fwd_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, failures = [], []
@@ -418,10 +417,6 @@ def phase_kernels():
                     sdpa_bwd_ms),
             }
             del og, qg, kg, vg
-            # the packed kernel on the same [N, T, 64] tensors as one head
-            # of N samples: the floor flash_fwd is held to at every site
-            packed_ms = cuda_ms(lambda: flash_fwd_packed(q, k, v, 1)) \
-                if dt == torch.bfloat16 else None
             for name, es in errs.items():
                 err = max(e for e, _ in es)
                 worst = max(w for _, w in es)
@@ -434,8 +429,6 @@ def phase_kernels():
                            dropped_tile_over_limit=dropped.get(name),
                            ok=ok, ms=ms, plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-                if name == "flash_fwd" and packed_ms is not None:
-                    row["packed_heads1_ms"] = packed_ms
                 rows.append(row)
                 log(f"kernel {name:14s} T={t:5d} H={h:2d} {dname:8s} "
                     f"max_abs_err={err:.3e} max err/limit={worst:.3f} "
@@ -443,9 +436,7 @@ def phase_kernels():
                     f"{dropped.get(name, float('nan')):.1f}) "
                     f"{'ok' if ok else 'FAIL'}  ms={ms:.4f} "
                     f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({b_by})"
-                    + (f" packed_heads1_ms={packed_ms:.4f}"
-                       if "packed_heads1_ms" in row else ""))
+                    f"bound_ms={b_ms:.4f} ({b_by})")
                 if not ok:
                     failures.append((name, t, h, dname, err))
     if failures:

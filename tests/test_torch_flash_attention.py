@@ -278,9 +278,47 @@ def test_multihead_attention_d80_takes_the_token_major_route(monkeypatch, t,
     assert torch.equal(o2, got) and lse2.shape == (2 * heads, t)
 
 
+@pytest.mark.parametrize("heads,d,want", [
+    (8, 40, ("flash_fwd_packed", 2, 8)), (8, 80, ("flash_fwd", 2, 8)),
+    (4, 64, ("flash_fwd", 2, 4)), (2, 32, ("flash_fwd", 2, 2)),
+    (3, 16, ("flash_fwd", 2, 3)), (1, 512, ("flash_fwd", 2, 1)),
+    (2, 512, ("flash_fwd", 4, 1)), (2, 160, None)])
+def test_multihead_attention_picks_the_wrapper_by_head_dim(monkeypatch, heads,
+                                                           d, want):
+    """Which wrapper multihead_attention hands each head dim, and in which
+    layout ((wrapper, leading dim, heads)): D = 40 the packed kernel and
+    D in FWD_HEAD_DIMS flash_fwd, both on the token-major [B, T, H * D]
+    projections; D = 512 flash_fwd (its wide kernel) on [B * H, T, 512],
+    with one head or several; D = 160 neither. The result is the
+    reference math's."""
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    seen = []
+    real = {n: getattr(fa, n) for n in ("flash_fwd", "flash_fwd_packed")}
+
+    def recorder(name):
+        def call(q_, k_, v_, heads=1):
+            seen.append((name, q_.shape[0], heads))
+            return real[name](q_, k_, v_, heads=heads)
+        return call
+
+    for name in real:
+        monkeypatch.setattr(fa, name, recorder(name))
+    rng = np.random.RandomState(d + heads)
+    q = torch.from_numpy(rng.randn(2, 20, heads * d).astype(np.float32))
+    c = torch.from_numpy(rng.randn(2, 9, heads * d).astype(np.float32))
+    got = multihead_attention(q, c, c, heads)
+    assert seen == ([want] if want else [])
+    ref = flash_attention_reference(
+        *(z.reshape(2, -1, heads, d).transpose(1, 2) for z in (q, c, c)))
+    np.testing.assert_allclose(
+        got.numpy(), ref.transpose(1, 2).reshape(2, 20, -1).numpy(),
+        atol=2e-6, rtol=2e-6)
+
+
 def test_multihead_attention_twins_agree_across_routes():
-    """On the CPU every route (packed D <= 64, flash_fwd D = 80, plain
-    D = 160) is the same function: each against the reference math."""
+    """On the CPU every route (packed D = 40, flash_fwd D = 80 and 512,
+    plain D = 160) is the same function: each against the reference
+    math."""
     rng = np.random.RandomState(7)
     reset_launch_counts()
     for heads, d in ((8, 40), (2, 80), (2, 160), (1, 512), (3, 12)):

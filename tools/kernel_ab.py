@@ -33,17 +33,48 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+
+
+def _wgmma_rs(n):
+    """wgmma.cuh's register-A m64nNk16 form (d += A B, B MN-major in shared
+    memory) at width n, for a variant that needs a width the tree's kernels
+    do not instantiate."""
+    acc = n // 2
+    regs = ", ".join(f"%{i}" for i in range(acc))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(acc))
+    return f"""__device__ __forceinline__ void wgmma_rs_n{n}(float (&d)[{acc}], const uint32_t (&a)[4], uint64_t db) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{acc + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {{"
+      "{regs}"
+      "}}, {{%{acc}, %{acc + 1}, %{acc + 2}, %{acc + 3}}}, %{acc + 4}, p, 1, 1, 1;\\n}}\\n"
+      : {outs}
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}}
+
+"""
+
+
 # name -> (source stem, {file: [(old, new), ...]}); each old text must
 # occur exactly once in the tree's file
 VARIANTS = {
     # D = 80 as ten no-swizzle 16-byte chunks (the packed kernel's layout:
     # one TMA box a chunk, one m64n80 P V product) instead of one
     # 128-byte-swizzled 64-feature box and two chunks
-    "fwd_d80_chunks": ("flash_fwd", {"flash_fwd.cu": [(
-        """  static constexpr int SW = D / 64;
+    "fwd_d80_chunks": ("flash_fwd", {
+        "flash_fwd.cu": [(
+            """  static constexpr int SW = D / 64;
   static constexpr int CH = (D % 64) / 8;""",
-        """  static constexpr int SW = D == 80 ? 0 : D / 64;
-  static constexpr int CH = (D - 64 * SW) / 8;""")]}),
+            """  static constexpr int SW = D == 80 ? 0 : D / 64;
+  static constexpr int CH = (D - 64 * SW) / 8;""")],
+        "wgmma.cuh": [
+            ("// d += A B for one m64n256k16 step: A bf16 in registers",
+             _wgmma_rs(80)
+             + "// d += A B for one m64n256k16 step: A bf16 in registers"),
+            ("N == 64 || N == 256,", "N == 64 || N == 80 || N == 256,"),
+            ("    wgmma_rs_n64(d, a, db);\n",
+             "    wgmma_rs_n64(d, a, db);\n  else if constexpr (N == 80)\n"
+             "    wgmma_rs_n80(d, a, db);\n")]}),
     # D = 80 with 128-key tiles (as D <= 64), two blocks an SM (if ptxas
     # fits the S and O accumulators in 128 registers) or one
     "fwd_d80_bn128": ("flash_fwd", {"flash_fwd.cu": [(
@@ -232,10 +263,9 @@ __device__ __forceinline__ uint64_t global_ns() {""")],
 CHECK = {"flash_fwd": [(2, 8, 80, 300, 77), (2, 8, 80, 1000, 1000),
                        (3, 8, 80, 64, 130), (16, 8, 80, 1024, 1024),
                        (16, 8, 80, 1024, 77)],
-         "flash_fwd_packed": [(2, 8, 40, 300, 300), (2, 8, 16, 1000, 1000),
-                              (2, 3, 16, 257, 77), (2, 4, 32, 333, 1000),
-                              (2, 8, 40, 1000, 77), (3, 5, 64, 333, 1000),
-                              (2, 5, 64, 1000, 77), (16, 8, 40, 4096, 4096),
+         "flash_fwd_packed": [(2, 8, 40, 300, 300), (2, 8, 40, 1000, 1000),
+                              (3, 5, 40, 257, 77), (2, 4, 40, 333, 1000),
+                              (2, 8, 40, 1000, 77), (16, 8, 40, 4096, 4096),
                               (16, 8, 40, 4096, 77)],
          "flash_fwd_wide": [(2, 1, 512, 700, 650), (2, 1, 512, 64, 130),
                             (1, 1, 512, 4096, 4096), (8, 1, 512, 4096, 4096)]}
