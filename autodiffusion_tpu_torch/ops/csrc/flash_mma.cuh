@@ -1,10 +1,10 @@
-// Tensor-core pieces of the bfloat16 flash-attention backward kernels
-// (sm_80+ mma.sync, built for sm_90a), and the fragment helpers (pack,
-// quad_max, quad_sum) the wgmma forwards share (flash_wgmma.cuh).
+// Tensor-core pieces of the bfloat16 flash-attention dQ kernel (sm_80+
+// mma.sync, built for sm_90a), and the fragment helpers (pack, quad_max,
+// quad_sum) the wgmma kernels share (flash_wgmma.cuh, flash_bwd_dkv.cu).
 //
 // Work split: a block of four warps owns 64 rows of the resident operand
-// (query rows in the dQ kernel, key rows in the dK/dV kernel),
-// 16 per warp, held in registers as mma A fragments for the whole kernel.
+// (the query rows), 16 per warp, held in registers as mma A fragments for
+// the whole kernel.
 // The streamed operand passes through shared memory in tiles of 64 (or 32)
 // rows, stored bfloat16 with each row padded by 8 elements so that the
 // ldmatrix reads of eight rows fall in distinct banks. Every product is

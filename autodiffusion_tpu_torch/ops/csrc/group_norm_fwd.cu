@@ -29,9 +29,7 @@
 //     slice, reading x again from device memory (three passes: the run
 //     does not fit on chip).
 // Only the order of the float32 sums differs from the TPU kernel's.
-#include "elementwise.cuh"
-
-#include <stdint.h>
+#include "group_norm.cuh"
 
 #include <mutex>
 
@@ -44,38 +42,6 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxDynamic = 232448 - 1024;
 // elements of a slice of a run too long to be resident (a block each)
 constexpr int kSliceElems = 16384;
-
-// 16 bytes of T as floats, and back
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);
-  __device__ __forceinline__ static void load(const T* p, float (&f)[N]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int i = 0; i < N; ++i) f[i] = to_f32(e[i]);
-  }
-  __device__ __forceinline__ static void store(T* p, const float (&f)[N]) {
-    uint4 u;
-    T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-    for (int i = 0; i < N; ++i) e[i] = from_f32<T>(f[i]);
-    *reinterpret_cast<uint4*>(p) = u;
-  }
-};
-
-// The split of elements [lo, hi) of an array at p into a scalar head up to
-// the first 16-byte boundary, whole 16-byte vectors, and a scalar tail.
-template <typename T>
-struct Split {
-  int head_end, vec_end;  // [lo, head_end) head, [head_end, vec_end) vectors
-  __device__ __forceinline__ Split(const T* p, int lo, int hi) {
-    constexpr int N = Vec<T>::N;
-    const int mis = (int)((reinterpret_cast<uintptr_t>(p + lo) / sizeof(T)) % N);
-    head_end = min(hi, lo + (N - mis) % N);
-    vec_end = head_end + (hi - head_end) / N * N;
-  }
-};
 
 // Per channel of the group, in shared memory: (mul, add, film, shift) with
 // u = ((x - mu) * mul + add) * film + shift.

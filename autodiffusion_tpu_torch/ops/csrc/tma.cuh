@@ -1,8 +1,8 @@
 // Hopper (sm_90a) asynchronous copies and the barriers around them, shared
-// by the implicit-GEMM convolution (conv3x3.cuh) and the pipelined flash
-// forwards (flash_fwd_packed.cu, flash_fwd_wide.cu): mbarriers, TMA tensor
-// copies and contiguous bulk copies into shared memory, named barriers, and
-// the host side's tensor maps.
+// by the implicit-GEMM convolution (conv3x3.cuh), the pipelined flash
+// forwards (flash_fwd*.cu) and the dK/dV backward (flash_bwd_dkv.cu):
+// mbarriers, TMA tensor copies and contiguous bulk copies into shared
+// memory, named barriers, and the host side's tensor maps.
 #pragma once
 
 #include <cuda.h>
@@ -23,6 +23,9 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 // Make the initialised barriers visible to the async proxy (TMA).
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),

@@ -19,7 +19,9 @@ Numerics (as the TPU kernels, fused_norm.py:77-151): statistics in float32
 with var = max(E[x^2] - E[x]^2, 0) (not Welford: the kernels and the JAX
 reference sum x and x^2), then z = (x - mu) (rstd gamma) + beta, FiLM and
 SiLU in float32 and one cast to x's dtype. The backward recomputes z from
-the saved mu, rstd; dgamma and dbeta sum over the batch.
+the saved mu, rstd; dgamma and dbeta sum over the batch. It computes only
+the gradients asked for (``grad_affine``, ``grad_film``), so that the
+guided samplers' frozen classifier gets dx alone.
 """
 
 from __future__ import annotations
@@ -79,10 +81,13 @@ def group_norm_fwd_plain(x, gamma, beta, scale, shift, groups: int,
 
 
 def group_norm_bwd_plain(x, dy, gamma, beta, scale, shift, mu, rstd,
-                         groups: int, silu: bool):
+                         groups: int, silu: bool, *, grad_affine: bool = True,
+                         grad_film: bool = True):
     """Plain twin of the backward kernel: (dx in x's dtype, dscale, dshift
     [B, C], dgamma, dbeta [C], all float32 but dx), as
-    autodiffusion_tpu/ops/fused_norm.py:119-151."""
+    autodiffusion_tpu/ops/fused_norm.py:119-151. dgamma, dbeta are None
+    unless ``grad_affine``, dscale, dshift None unless ``grad_film``, as
+    the kernel leaves them unwritten."""
     b, c = x.shape[:2]
     per = c // groups
     xc = x.float().reshape(b, c, -1)
@@ -99,11 +104,14 @@ def group_norm_bwd_plain(x, dy, gamma, beta, scale, shift, mu, rstd,
         du = g * (sig * (1.0 + u * (1.0 - sig)))
     else:
         du = g
-    dshift = du.sum(dim=-1)
-    dscale = (du * z).sum(dim=-1)
+    dscale = dshift = dgamma = dbeta = None
+    if grad_film:
+        dshift = du.sum(dim=-1)
+        dscale = (du * z).sum(dim=-1)
     dz = du * film
-    dgamma = (dz * xhat).sum(dim=(0, 2))
-    dbeta = dz.sum(dim=(0, 2))
+    if grad_affine:
+        dgamma = (dz * xhat).sum(dim=(0, 2))
+        dbeta = dz.sum(dim=(0, 2))
     dxhat = dz * gam
     cnt = per * xc.shape[-1]
     m1 = dxhat.sum(dim=-1).reshape(b, groups, per).sum(-1) / cnt
@@ -161,6 +169,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous with a 16-byte aligned start (the kernels move 16 bytes
+    at a time)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def group_norm_fwd(x, gamma, beta, scale, shift, groups: int, eps: float,
                    silu: bool):
     """Forward kernel: (y [B, C, ...] in x's dtype, mu, rstd [B, G])."""
@@ -169,9 +184,7 @@ def group_norm_fwd(x, gamma, beta, scale, shift, groups: int, eps: float,
         return group_norm_fwd_plain(x, gamma, beta, scale, shift, groups,
                                     eps, silu)
     b, c = x.shape[:2]
-    x = x.contiguous()
-    if x.data_ptr() % 16:   # the kernel moves 16 bytes at a time
-        x = x.clone()
+    x = _aligned(x)
     hw = prod(x.shape[2:])
     gamma, beta = _f32(gamma, (c,)), _f32(beta, (c,))
     scale, shift = _f32(scale, (b, c)), _f32(shift, (b, c))
@@ -187,31 +200,39 @@ def group_norm_fwd(x, gamma, beta, scale, shift, groups: int, eps: float,
 
 
 def group_norm_bwd(x, dy, gamma, beta, scale, shift, mu, rstd, groups: int,
-                   silu: bool):
+                   silu: bool, *, grad_affine: bool = True,
+                   grad_film: bool = True):
     """Backward kernel: (dx in x's dtype, dscale, dshift [B, C], dgamma,
-    dbeta [C]), all float32 but dx."""
+    dbeta [C]), all float32 but dx. Only the gradients asked for are
+    computed: dgamma, dbeta are None unless ``grad_affine`` (then the
+    batch sum is not launched either), dscale, dshift None unless
+    ``grad_film``."""
     _check(x, gamma, groups)
     if not _on_cuda(x, dy, gamma, beta, scale, shift, mu, rstd):
         return group_norm_bwd_plain(x, dy, gamma, beta, scale, shift, mu,
-                                    rstd, groups, silu)
+                                    rstd, groups, silu,
+                                    grad_affine=grad_affine,
+                                    grad_film=grad_film)
     b, c = x.shape[:2]
-    x = x.contiguous()
-    dy = dy.to(x.dtype).contiguous()
+    x = _aligned(x)
+    dy = _aligned(dy.to(x.dtype))
     gamma, beta = _f32(gamma, (c,)), _f32(beta, (c,))
     scale, shift = _f32(scale, (b, c)), _f32(shift, (b, c))
     mu, rstd = _f32(mu, (b, groups)), _f32(rstd, (b, groups))
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=x.device)
-    dscale, dshift, part_g, part_b = (torch.empty((b, c), **f32)
-                                      for _ in range(4))
-    dgamma, dbeta = torch.empty(c, **f32), torch.empty(c, **f32)
+    dscale = dshift = part_g = part_b = dgamma = dbeta = None
+    if grad_film:
+        dscale, dshift = torch.empty((b, c), **f32), torch.empty((b, c), **f32)
+    if grad_affine:
+        part_g, part_b = torch.empty((b, c), **f32), torch.empty((b, c), **f32)
+        dgamma, dbeta = torch.empty(c, **f32), torch.empty(c, **f32)
     with torch.cuda.device(x.device):
         launch("group_norm_bwd", x.data_ptr(), dy.data_ptr(),
                gamma.data_ptr(), beta.data_ptr(), _ptr(scale), _ptr(shift),
-               mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-               dscale.data_ptr(), dshift.data_ptr(), part_g.data_ptr(),
-               part_b.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, c,
-               x[0, 0].numel(), groups, int(silu),
+               mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(dscale),
+               _ptr(dshift), _ptr(part_g), _ptr(part_b), _ptr(dgamma),
+               _ptr(dbeta), b, c, x[0, 0].numel(), groups, int(silu),
                int(x.dtype == torch.bfloat16))
     return dx, dscale, dshift, dgamma, dbeta
 
@@ -219,7 +240,10 @@ def group_norm_bwd(x, dy, gamma, beta, scale, shift, mu, rstd, groups: int,
 class FusedGroupNormFunction(torch.autograd.Function):
     """Autograd around the two kernels: the forward saves x and the
     per-(sample, group) mu, rstd; the backward is one launch of the
-    backward kernel (the TPU package's custom VJP, fused_norm.py:177-226).
+    backward kernel (the TPU package's custom VJP, fused_norm.py:177-226)
+    for the gradients autograd asks for (``ctx.needs_input_grad``): a
+    frozen gamma and beta, or FiLM terms that need no gradient (the guided
+    samplers' frozen classifier), are neither computed nor returned.
     Gradients come back in the dtypes of the inputs."""
 
     @staticmethod
@@ -233,13 +257,17 @@ class FusedGroupNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma, beta, scale, shift, mu, rstd = ctx.saved_tensors
+        need = ctx.needs_input_grad
         dx, dscale, dshift, dgamma, dbeta = group_norm_bwd(
-            x, dy, gamma, beta, scale, shift, mu, rstd, ctx.groups, ctx.silu)
-        return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
-                None if scale is None else dscale.to(scale.dtype)
-                .reshape(scale.shape),
-                None if shift is None else dshift.to(shift.dtype)
-                .reshape(shift.shape),
+            x, dy, gamma, beta, scale, shift, mu, rstd, ctx.groups, ctx.silu,
+            grad_affine=need[1] or need[2], grad_film=need[3] or need[4])
+        return (dx if need[0] else None,
+                dgamma.to(gamma.dtype) if need[1] else None,
+                dbeta.to(beta.dtype) if need[2] else None,
+                dscale.to(scale.dtype).reshape(scale.shape) if need[3]
+                else None,
+                dshift.to(shift.dtype).reshape(shift.shape) if need[4]
+                else None,
                 None, None, None)
 
 

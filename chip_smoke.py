@@ -9,22 +9,28 @@ Phases, each of which raises on failure:
    and the build of every CUDA kernel from ``autodiffusion_tpu_torch/ops/
    csrc`` (nvcc, sm_90a, one process per source, in parallel), with each
    kernel's registers and spills as ptxas reports them (the pipelined
-   wgmma forwards must not spill) and their exponentials in the machine
-   code (cuobjdump);
+   wgmma kernels and the GroupNorm backward must not spill) and their
+   exponentials and wgmma instructions in the machine code (cuobjdump;
+   the dK/dV kernel must issue wgmma);
 2. kernels: the flash-attention forward, dQ and dK/dV kernels against
    their plain PyTorch twins at the ADM-64 attention shapes (batch 32,
    head dim 64, bf16 and fp32, plus a ragged length), alone and chained
    through ``FlashAttentionFunction`` as the sampler runs them, within
-   limits that a kernel with one tile dropped is shown to break; each
-   timed with CUDA events beside its twin, its bound on the card and
-   ``F.scaled_dot_product_attention``, the forward also beside the packed
-   kernel run on the same tensors as one head;
+   limits that a kernel with one tile dropped (and the dK/dV kernel fed
+   every query tile's lse and delta from the tile before) is shown to
+   break; each timed with CUDA events beside its twin, its bound on the
+   card and ``F.scaled_dot_product_attention``, the backward kernels and
+   SDPA's backward also by their device time (torch.profiler), summed
+   per guided step over the classifier's 13 sites;
 3. the fused GroupNorm forward and backward, the im2col conv and the fused
    norm-act-conv against their twins at every ADM-64 site the three
    switches (``ADT_FUSED_NORM=1 ADT_IM2COL_CONV=1 ADT_FUSED_CONV=all``)
    route to them (batch 32, bf16 and fp32; the sites are read from the
-   models themselves, run on the meta device), the GroupNorm backward also
-   chained through its ``autograd.Function``; a sabotaged run of each
+   models themselves, run on the meta device), the GroupNorm backward in
+   two forms, dx alone (as guidance calls it, the classifier frozen) and
+   every gradient, each also chained through its ``autograd.Function``
+   (one launch a call) and timed by its device time too; a sabotaged run
+   of each
    (a conv, in its launch plan's tiling, with one 128-channel tile, one
    halo row or, where K is split, one split left out; a GroupNorm with one
    group's statistics taken from the wrong group) must break the limit;
@@ -38,15 +44,18 @@ Phases, each of which raises on failure:
    switches off, once with all three on;
 5. profile: one guided DDIM-4 run at batch 32 in bf16 under
    ``torch.profiler``: device time by kernel, the flash kernels' share
-   (the forward's own line) and the device's idle share
+   (the forward's and the dK/dV kernel's own lines) and the device's idle
+   share
    (``chiprun_out/chip_smoke_profile.txt``);
 6. A/B: the same guided DDIM-4 run with the switches off, each alone, the
    fused norm with the fused conv, and all three on, one round (three
    rounds of each are in PERF.md): wall time per step, device-busy time
-   per step (profiler), idle share, the GroupNorm forward's kernels and
-   weight- and input-gradient conv time of every run (the guided models
-   frozen, as the search freezes them: any weight-gradient kernel fails
-   the phase)
+   per step (profiler), idle share, the GroupNorm forward's and
+   backward's kernels, the dK/dV kernel and weight- and input-gradient
+   conv time of every run (the guided models frozen, as the search
+   freezes them: any weight-gradient kernel fails the phase, and so does
+   a GroupNorm backward count other than one kernel a call, 17 a step
+   with all three on, or any batch-sum kernel)
    (``chiprun_out/chip_smoke_profile_fused.txt``: the kernels of a run
    with all three on);
 7. search: ``adt-torch search`` through its Python entry at full ADM-64
@@ -290,20 +299,27 @@ def compare(got, want, dtype: str, f32_tol: float = 2e-5):
 
 
 # the pipelined wgmma kernels whose registers ptxas must fit without a
-# spill (csrc/flash_wgmma.cuh)
+# spill (csrc/flash_wgmma.cuh, csrc/flash_bwd_dkv.cu), and the GroupNorm
+# backward's kernels
 PIPELINED = ("flash_fwd_tma_kernel", "flash_fwd_packed_kernel",
-             "flash_fwd_wide_kernel")
+             "flash_fwd_wide_kernel", "flash_bwd_dkv_tma_kernel")
+NO_SPILL = PIPELINED + ("group_norm_bwd_kernel",)
 
 
 def phase_ptxas():
-    """{kernel: registers, spill bytes and MUFU.EX2 count} of the
-    pipelined flash forwards, as ptxas reported them and as cuobjdump
-    reads their machine code; a spill fails."""
+    """{kernel: registers, spill bytes, MUFU.EX2 and HGMMA counts} of the
+    pipelined flash kernels and the GroupNorm backward, as ptxas reported
+    them and as cuobjdump reads their machine code; a spill, or a dK/dV
+    kernel without wgmma (HGMMA), fails."""
     from autodiffusion_tpu_torch.ops import _build
 
-    rows = {name: v for (_, name), v in _build.ptxas_kernels().items()
-            if any(p in name for p in PIPELINED)}
-    missing = [p for p in PIPELINED if not any(p in n for n in rows)]
+    every = _build.ptxas_kernels()
+    spilled_any = sorted(f"{stem}: {name}" for (stem, name), (_, st, ld)
+                         in every.items() if st or ld)
+    log(f"ptxas: {len(every)} kernels, spilled: {spilled_any or 'none'}")
+    rows = {name: v for (_, name), v in every.items()
+            if any(p in name for p in NO_SPILL)}
+    missing = [p for p in NO_SPILL if not any(p in n for n in rows)]
     if missing:
         raise AssertionError(f"no ptxas report for {missing}")
     for name, (regs, st, ld) in sorted(rows.items()):
@@ -315,18 +331,52 @@ def phase_ptxas():
     out = {n: dict(registers=r, spill_stores=st, spill_loads=ld)
            for n, (r, st, ld) in rows.items()}
     # the softmax's exponentials in the machine code: one MUFU.EX2 a logit
-    # (and two a tile for the rescale), no accurate expf routine
+    # (and two a tile for the rescale), no accurate expf routine; the
+    # products as wgmma (HGMMA)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for stem in ("flash_fwd", "flash_fwd_packed", "flash_fwd_wide"):
+    for stem in ("flash_fwd", "flash_fwd_packed", "flash_fwd_wide",
+                 "flash_bwd_dkv"):
         sass = subprocess.run([cuobjdump, "-sass", _build.library(stem)._name],
                               capture_output=True, text=True).stdout
         for fn in sass.split("Function : ")[1:]:
             name = fn.split("\n")[0].strip()
             if name in out:
                 out[name]["mufu_ex2"] = fn.count("MUFU.EX2")
+                out[name]["hgmma"] = fn.count("HGMMA")
                 log(f"SASS {name}: {fn.count('MUFU.EX2')} MUFU.EX2, "
                     f"{fn.count('HGMMA')} HGMMA")
+    dkv = [n for n in out if "flash_bwd_dkv_tma_kernel" in n]
+    if not dkv or not all(out[n].get("hgmma") for n in dkv):
+        raise AssertionError(f"the dK/dV kernel issues no wgmma: "
+                             f"{ {n: out[n] for n in dkv} }")
+    out["spilled_any"] = spilled_any
     return out
+
+
+def device_ms(fn, tag: str = "", reps: int = 10, tries: int = 4) -> float:
+    """Mean device milliseconds a call of ``fn`` spends in the kernels
+    whose name holds ``tag`` (every kernel where ``tag`` is empty), from
+    torch.profiler over ``reps`` calls after a warm-up: the kernels' own
+    time, without the host path around them. A profile that records no
+    such kernel (a profiler run now and then records none of them) is
+    taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and tag in e.key)
+        if total > 0:
+            return total / 1e3 / reps
+    raise AssertionError(f"the profiler saw no kernel named {tag!r}")
 
 
 def phase_kernels():
@@ -373,7 +423,7 @@ def phase_kernels():
                                       compare(ck, dk_ref, dname),
                                       compare(cv, dv_ref, dname)]}
             del o_chain, leaves, cq, ck, cv
-            dropped = {}
+            dropped, ring = {}, None
             if t > TILE:
                 ks, vs = k[:, TILE:], v[:, TILE:]
                 bad_dk, bad_dv = flash_bwd_dkv(
@@ -391,7 +441,19 @@ def phase_kernels():
                         failures.append((name, t, h, dname,
                                          "one tile dropped passes the "
                                          f"limit ({dropped[name]:.3g})"))
-                del faults, bad_dk, bad_dv
+                # the ring's fault: every stage's lse and delta slice taken
+                # from the tile before (the inputs rolled by one 64-query
+                # tile), with its own q and dO tiles
+                ring_dk, ring_dv = flash_bwd_dkv(
+                    q, k, v, do, torch.roll(lse_ref, TILE, 1),
+                    torch.roll(delta, TILE, 1))
+                ring = min(compare(ring_dk, dk_ref, dname)[1],
+                           compare(ring_dv, dv_ref, dname)[1])
+                if ring <= 1:
+                    failures.append(("flash_bwd_dkv", t, h, dname,
+                                     "lse / delta from the wrong tile "
+                                     f"passes the limit ({ring:.3g})"))
+                del faults, bad_dk, bad_dv, ring_dk, ring_dv
             q4, k4, v4, do4 = (z.view(BATCH, h, t, HEAD_DIM)
                                for z in (q, k, v, do))
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -401,6 +463,17 @@ def phase_kernels():
             og = F.scaled_dot_product_attention(qg, kg, vg)
             sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
                 og, (qg, kg, vg), do4, retain_graph=True))
+            # device time of the backward kernels and of SDPA's backward
+            # (all of its kernels), bf16: at the T = 64 sites the one-call
+            # time is the wrapper's host path
+            dev = {}
+            if dt == torch.bfloat16:
+                dev = {"flash_bwd_dq": device_ms(lambda: flash_bwd_dq(
+                           q, k, v, do, lse, delta), "flash_bwd_dq"),
+                       "flash_bwd_dkv": device_ms(lambda: flash_bwd_dkv(
+                           q, k, v, do, lse, delta), "flash_bwd_dkv"),
+                       "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
+                           og, (qg, kg, vg), do4, retain_graph=True))}
             timing = {
                 "flash_fwd": (cuda_ms(lambda: flash_fwd(q, k, v)),
                               cuda_ms(lambda: flash_fwd_plain(q, k, v)),
@@ -428,15 +501,28 @@ def phase_kernels():
                            err_over_limit=worst, limit=LIMIT_TEXT[dname],
                            dropped_tile_over_limit=dropped.get(name),
                            ok=ok, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                           device_ms=dev.get(name))
+                if name == "flash_bwd_dkv":
+                    row.update(ring_sabotage_over_limit=ring,
+                               library_device_ms=dev.get("sdpa_bwd"))
                 rows.append(row)
+                extra = ""
+                if dev.get(name):
+                    extra = f" device_ms={dev[name]:.4f}"
+                if name == "flash_bwd_dkv":
+                    extra += (f" (lse / delta from the wrong tile: "
+                              f"{float('nan') if ring is None else ring:.1f})")
+                    if dev:
+                        extra += f" sdpa_bwd_device_ms={dev['sdpa_bwd']:.4f}"
                 log(f"kernel {name:14s} T={t:5d} H={h:2d} {dname:8s} "
                     f"max_abs_err={err:.3e} max err/limit={worst:.3f} "
                     f"(limit {LIMIT_TEXT[dname]}, one tile dropped: "
                     f"{dropped.get(name, float('nan')):.1f}) "
                     f"{'ok' if ok else 'FAIL'}  ms={ms:.4f} "
                     f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({b_by})")
+                    f"bound_ms={b_ms:.4f} ({b_by}; "
+                    f"{100 * b_ms / ms:.1f}% of it){extra}")
                 if not ok:
                     failures.append((name, t, h, dname, err))
     if failures:
@@ -448,19 +534,31 @@ def phase_kernels():
 def attention_per_step(rows):
     """(kernels, SDPA) device ms of one guided DDIM step's attention at
     batch 32 in bf16, summed over its sites from the per-shape times: the
-    forward at every site, the backward at the classifier's."""
+    forward at every site, the backward at the classifier's; and the
+    backward kernels' own share ({kernel: (one-call ms, profiled device
+    ms)} summed over the classifier's 13 sites)."""
     by = {(r["name"], r["T"], r["heads"]): r for r in rows
           if r["dtype"] == "bfloat16"}
     kern = lib = 0.0
+    bwd = {"flash_bwd_dq": [0.0, 0.0], "flash_bwd_dkv": [0.0, 0.0],
+           "sdpa_bwd": [0.0, 0.0]}
     for (t, h), (n_unet, n_cls) in SITES.items():
         fwd = by[("flash_fwd", t, h)]
         dq, dkv = by[("flash_bwd_dq", t, h)], by[("flash_bwd_dkv", t, h)]
         kern += (n_unet + n_cls) * fwd["ms"] + n_cls * (dq["ms"] + dkv["ms"])
         # one SDPA backward computes dq, dk and dv
         lib += (n_unet + n_cls) * fwd["library_ms"] + n_cls * dq["library_ms"]
+        for name, r in (("flash_bwd_dq", dq), ("flash_bwd_dkv", dkv)):
+            bwd[name][0] += n_cls * r["ms"]
+            bwd[name][1] += n_cls * r["device_ms"]
+        bwd["sdpa_bwd"][0] += n_cls * dkv["library_ms"]
+        bwd["sdpa_bwd"][1] += n_cls * dkv["library_device_ms"]
     log(f"attention per guided DDIM step (batch 32, bf16, 35 forward + 13 "
         f"backward sites): kernels {kern:.4f} ms, SDPA {lib:.4f} ms")
-    return kern, lib
+    for name, (ms, dev) in bwd.items():
+        log(f"  {name} per guided DDIM step (13 classifier sites): one-call "
+            f"{ms:.4f} ms, device {dev:.4f} ms")
+    return kern, lib, {k: tuple(v) for k, v in bwd.items()}
 
 
 def adm64_sites():
@@ -530,13 +628,15 @@ def adm64_sites():
     return sites
 
 
-def new_kernel_bound(kernel, key, dtype: str, batch: int = BATCH):
+def new_kernel_bound(kernel, key, dtype: str, batch: int = BATCH,
+                     form: str = "all"):
     """(ms, "bytes" | "operations"): the least time for the kernel's work
     at one site, each input read once and each output written once.
     Convs count 2 B HW C_out 9 C_in operations at the dtype's peak (the
     float32 kernel runs on the CUDA cores); GroupNorm counts its float32
     arithmetic (about 12 operations an element forward, 20 backward) at
-    the float32 peak."""
+    the float32 peak. The backward's ``form`` "dx" writes dx alone, "all"
+    also dscale, dshift [B, C] and dgamma, dbeta [C]."""
     es = 2 if dtype == "bfloat16" else 4
     if kernel.startswith("group_norm"):
         c, hw, _, film = key[:4]
@@ -547,7 +647,9 @@ def new_kernel_bound(kernel, key, dtype: str, batch: int = BATCH):
             flops, nbytes = 12 * n, 2 * n * es + small
         else:
             flops = 20 * n
-            nbytes = 3 * n * es + small + 2 * batch * c * 4 + 2 * c * 4
+            nbytes = 3 * n * es + small
+            if form == "all":
+                nbytes += 2 * batch * c * 4 + 2 * c * 4
         peak = PEAK_FLOPS["float32"]
     else:
         c_in, c_out, h, w = key[:4]
@@ -627,6 +729,7 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
     from autodiffusion_tpu_torch.ops.conv_im2col import (
         BM, CHUNK, conv3x3_fused_kernel, conv3x3_im2col, conv3x3_reference,
         conv_plan, fused_conv_reference)
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from autodiffusion_tpu_torch.ops.fused_norm import (
         FusedGroupNormFunction, group_norm_bwd, group_norm_bwd_plain,
         group_norm_fwd, group_norm_fwd_plain)
@@ -676,42 +779,80 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
                      LIMIT_TEXT[dname], batch)
                 if key not in sites["group_norm_bwd"]:
                     continue
-                # the backward, alone on the twin's mu, rstd and chained
-                # through the autograd.Function as guidance runs it
+                # the backward in two forms: dx alone, as guidance calls it
+                # (the classifier frozen), and every gradient; each alone
+                # on the twin's mu, rstd and chained through the
+                # autograd.Function (the dx form with gamma, beta and the
+                # FiLM terms frozen: one launch, no batch sum)
                 dy = randn(batch, c, hw).to(dt)
                 bargs = (x, dy, gamma, beta, sc, sh, mu_ref, rstd_ref,
                          GROUPS, silu)
-                got = group_norm_bwd(*bargs)
-                want = group_norm_bwd_plain(*bargs)
-                leaves = [t.detach().clone().requires_grad_(True)
-                          for t in (x, gamma, beta)]
-                out = FusedGroupNormFunction.apply(*leaves, sc, sh, GROUPS,
-                                                   1e-5, silu)
-                chain = torch.autograd.grad(out, leaves, dy)
                 mu_bad, rstd_bad = mu_ref.clone(), rstd_ref.clone()
                 mu_bad[:, 0], rstd_bad[:, 0] = mu_ref[:, 1], rstd_ref[:, 1]
-                bad_dx = group_norm_bwd(x, dy, gamma, beta, sc, sh, mu_bad,
-                                        rstd_bad, GROUPS, silu)[0]
-                torch.cuda.synchronize()
-                errs = [compare(got[0], want[0], dname),
-                        compare(chain[0], want[0], dname)]
-                errs += [compare(a, b, "float32", SUM_TOL)
-                         for a, b in zip(got[1:] + chain[1:],
-                                         want[1:] + want[3:])]
-                sabotage = compare(bad_dx, want[0], dname)[1]
-                xg, gg, bg = (t.detach().clone().requires_grad_(True)
-                              for t in (x, gl, bl))
-                yl = F.group_norm(xg, GROUPS, gg, bg, 1e-5)
-                timing = (cuda_ms(lambda: group_norm_bwd(*bargs)),
-                          cuda_ms(lambda: group_norm_bwd_plain(*bargs)),
-                          cuda_ms(lambda: torch.autograd.grad(
-                              yl, (xg, gg, bg), dy, retain_graph=True)))
-                _row(rows, failures, "group_norm_bwd",
-                     f"C={c} HW={hw} {act}", sites["group_norm_bwd"][key],
-                     dname, errs, sabotage, timing,
-                     new_kernel_bound("group_norm_bwd", key, dname),
-                     f"{LIMIT_TEXT[dname]}; sums {LIMIT_TEXT['float32 sums']}")
-                del out, chain, leaves, yl, xg, gg, bg
+                for form in ("dx", "all"):
+                    flags = dict(grad_affine=form == "all",
+                                 grad_film=form == "all")
+                    got = group_norm_bwd(*bargs, **flags)
+                    want = group_norm_bwd_plain(*bargs, **flags)
+                    leaves = [x.detach().clone().requires_grad_(True)] + [
+                        t.detach().clone().requires_grad_(form == "all")
+                        for t in (gamma, beta)]
+                    reset_launch_counts()
+                    out = FusedGroupNormFunction.apply(*leaves, sc, sh,
+                                                       GROUPS, 1e-5, silu)
+                    chain = torch.autograd.grad(
+                        out, leaves if form == "all" else leaves[:1], dy)
+                    if LAUNCHES["group_norm_bwd"] != 1:
+                        failures.append(("group_norm_bwd", key, dname, form,
+                                         "autograd launched the backward "
+                                         f"{LAUNCHES['group_norm_bwd']} "
+                                         "times"))
+                    bad_dx = group_norm_bwd(x, dy, gamma, beta, sc, sh,
+                                            mu_bad, rstd_bad, GROUPS, silu,
+                                            **flags)[0]
+                    torch.cuda.synchronize()
+                    errs = [compare(got[0], want[0], dname),
+                            compare(chain[0], want[0], dname)]
+                    if form == "all":
+                        errs += [compare(a, b, "float32", SUM_TOL)
+                                 for a, b in zip(got[1:] + chain[1:],
+                                                 want[1:] + want[3:])]
+                    elif any(a is not None for a in got[1:]):
+                        failures.append(("group_norm_bwd", key, dname, form,
+                                         "gradients nobody asked for"))
+                    sabotage = compare(bad_dx, want[0], dname)[1]
+                    xg = x.detach().clone().requires_grad_(True)
+                    gg, bg = (t.detach().clone().requires_grad_(form == "all")
+                              for t in (gl, bl))
+                    yl = F.group_norm(xg, GROUPS, gg, bg, 1e-5)
+                    lib_in = (xg, gg, bg) if form == "all" else (xg,)
+
+                    def kern(flags=flags):
+                        return group_norm_bwd(*bargs, **flags)
+
+                    def lib(yl=yl, lib_in=lib_in):
+                        return torch.autograd.grad(yl, lib_in, dy,
+                                                   retain_graph=True)
+                    timing = (cuda_ms(kern),
+                              cuda_ms(lambda: group_norm_bwd_plain(
+                                  *bargs, **flags)),
+                              cuda_ms(lib))
+                    _row(rows, failures, "group_norm_bwd",
+                         f"C={c} HW={hw} {act} {form}",
+                         sites["group_norm_bwd"][key], dname, errs, sabotage,
+                         timing, new_kernel_bound("group_norm_bwd", key,
+                                                  dname, batch, form),
+                         f"{LIMIT_TEXT[dname]}; sums "
+                         f"{LIMIT_TEXT['float32 sums']}", batch)
+                    rows[-1]["form"] = form
+                    if dt == torch.bfloat16:
+                        rows[-1].update(device_ms=device_ms(
+                            kern, "group_norm_bwd"),
+                            library_device_ms=device_ms(lib))
+                        log(f"  device: kernel {rows[-1]['device_ms']:.4f} "
+                            f"ms, F.group_norm backward "
+                            f"{rows[-1]['library_device_ms']:.4f} ms")
+                    del out, chain, leaves, yl, xg, gg, bg
 
         for kernel in ("conv3x3", "conv3x3_fused"):
             for key, count in sites[kernel].items():
@@ -811,8 +952,9 @@ def new_kernels_per_step(rows, unit="guided DDIM step (batch 32"):
     switches on, summed over the sites."""
     out = {}
     for name in NEW_KERNELS:
+        # the GroupNorm backward as the guided step calls it: dx alone
         sel = [r for r in rows if r["name"] == name
-               and r["dtype"] == "bfloat16"]
+               and r["dtype"] == "bfloat16" and r.get("form") != "all"]
         if not sel:
             continue
         out[name] = tuple(sum(r["count"] * r[k] for r in sel)
@@ -827,10 +969,11 @@ def new_kernels_per_step(rows, unit="guided DDIM step (batch 32"):
 
 def head_rows(rows):
     """Per kernel, the bf16 row of the site with the most work (largest
-    bound): the row the ``kernels`` line reports."""
+    bound; the GroupNorm backward in the dx form the guided step runs):
+    the row the ``kernels`` line reports."""
     head = {}
     for r in rows:
-        if r["dtype"] != "bfloat16":
+        if r["dtype"] != "bfloat16" or r.get("form") == "all":
             continue
         if r["name"] not in head or r["bound_ms"] > head[r["name"]]["bound_ms"]:
             head[r["name"]] = r
@@ -899,6 +1042,8 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
     run, _ = guided_run(unet_sd, cls_sd)
     runs = {name: [] for name, _ in AB_CONFIGS}
     for rnd in range(rounds):
@@ -913,29 +1058,56 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
                 wall = (time.time() - t0) * 1e3 / 4
                 if not torch.isfinite(out).all():
                     raise AssertionError(f"A/B {name}: non-finite samples")
+                reset_launch_counts()
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     run()
                     torch.cuda.synchronize()
+                gn_bwd_launches = LAUNCHES["group_norm_bwd"] / 4
                 busy, kernels = device_busy(prof, 4)
             # weight- and input-gradient convolutions (cuDNN's wgrad and
-            # dgrad kernels): no wgrad where the models are frozen
-            # and the fused GroupNorm forward's kernels
-            wgrad, dgrad, gn_fwd = (
+            # dgrad kernels): no wgrad where the models are frozen; the
+            # fused GroupNorm forward's and backward's kernels, the
+            # backward's batch sum (none where the models are frozen) and
+            # the dK/dV kernel
+            tags = ("wgrad", "dgrad", "group_norm_fwd_", "group_norm_bwd_",
+                    "group_norm_batch_sum", "flash_bwd_dkv")
+            wgrad, dgrad, gn_fwd, gn_bwd, batch_sum, dkv = (
                 sum(e.self_device_time_total for e in kernels
-                    if tag in e.key.lower()) / 1e3 / 4
-                for tag in ("wgrad", "dgrad", "group_norm_fwd_"))
+                    if tag in e.key.lower()) / 1e3 / 4 for tag in tags)
+            gn_bwd_calls, batch_sums = (
+                sum(e.count for e in kernels if tag in e.key) / 4
+                for tag in ("group_norm_bwd_kernel", "group_norm_batch_sum"))
             runs[name].append(dict(wall_ms=wall, busy_ms=busy,
                                    idle=1 - busy / wall, wgrad_ms=wgrad,
-                                   dgrad_ms=dgrad, gn_fwd_ms=gn_fwd))
+                                   dgrad_ms=dgrad, gn_fwd_ms=gn_fwd,
+                                   gn_bwd_ms=gn_bwd,
+                                   gn_bwd_kernels=gn_bwd_calls,
+                                   batch_sum_kernels=batch_sums,
+                                   dkv_ms=dkv))
             log(f"A/B round {rnd} {name:22s} wall {wall:.2f} ms/step, "
                 f"busy {busy:.2f} ms/step, idle {100 * (1 - busy / wall):.1f}%"
                 f", wgrad {wgrad:.3f} ms/step, dgrad {dgrad:.3f} ms/step, "
-                f"GroupNorm forward {gn_fwd:.3f} ms/step")
+                f"GroupNorm forward {gn_fwd:.3f} ms/step, backward "
+                f"{gn_bwd:.3f} ms/step ({gn_bwd_calls:g} kernels, "
+                f"{batch_sums:g} batch sums), dK/dV {dkv:.3f} ms/step")
             if wgrad:
                 raise AssertionError(f"A/B {name}: {wgrad:.3f} ms/step of "
                                      "weight-gradient kernels under frozen "
                                      "models")
+            # one kernel a call of the GroupNorm backward, no batch sum (the
+            # classifier frozen: dx alone); with all three switches on, the
+            # 17 calls of PER_STEP_FUSED (the fused norm alone also takes
+            # the GroupNorms the fused conv folds)
+            want = gn_bwd_launches if name != "all" \
+                else PER_STEP_FUSED["group_norm_bwd"]
+            if gn_bwd_calls != gn_bwd_launches or gn_bwd_calls != want \
+                    or batch_sums:
+                raise AssertionError(
+                    f"A/B {name}: {gn_bwd_calls:g} GroupNorm backward "
+                    f"kernels and {batch_sums:g} batch sums a step for "
+                    f"{gn_bwd_launches:g} calls (want {want:g} kernels, one "
+                    "a call, and no batch sum)")
             if rnd == 0 and name == "all":
                 os.makedirs(OUT, exist_ok=True)
                 with open(os.path.join(OUT, "chip_smoke_profile_fused.txt"),
@@ -1000,14 +1172,17 @@ def phase_profile(unet_sd, cls_sd):
         f"{n_kernels:.0f} device kernels, peak memory {peak_gb:.2f} GB")
     for line in lines[:8]:
         log("profile: " + line)
-    fwd = [e for e in kernels if "flash_fwd_tma_kernel" in e.key]
-    if not fwd:
-        raise AssertionError("profile: no flash_fwd_tma kernel in the step")
-    for line in profile_lines(fwd, 4):
-        log("profile (flash_fwd): " + line)
-    fwd_ms = sum(e.self_device_time_total for e in fwd) / 1e3 / 4
+    own = {}
+    for label, tag in (("flash_fwd", "flash_fwd_tma_kernel"),
+                       ("flash_bwd_dkv", "flash_bwd_dkv_tma_kernel")):
+        sel = [e for e in kernels if tag in e.key]
+        if not sel:
+            raise AssertionError(f"profile: no {tag} in the step")
+        for line in profile_lines(sel, 4):
+            log(f"profile ({label}): " + line)
+        own[label] = sum(e.self_device_time_total for e in sel) / 1e3 / 4
     return dict(step_ms=step_ms, busy_ms=busy_ms, flash_ms=flash_ms,
-                flash_fwd_ms=fwd_ms,
+                flash_fwd_ms=own["flash_fwd"], dkv_ms=own["flash_bwd_dkv"],
                 kernels_per_step=n_kernels, peak_gb=peak_gb, top=lines)
 
 
@@ -1679,7 +1854,7 @@ def main() -> int:
     ptxas = phase_ptxas()
 
     rows = phase_kernels()
-    attn_ms, attn_sdpa_ms = attention_per_step(rows)
+    attn_ms, attn_sdpa_ms, attn_bwd = attention_per_step(rows)
     sites = adm64_sites()
     new_rows = phase_new_kernels(sites)
     new_ms = new_kernels_per_step(new_rows)
@@ -1779,6 +1954,7 @@ def main() -> int:
                    "parity_switches_on_max_abs_err": parity_on_err,
                    "attention_ms_per_step": attn_ms,
                    "sdpa_attention_ms_per_step": attn_sdpa_ms,
+                   "backward_ms_per_step": attn_bwd,
                    "profile": prof, "ab": ab, "search": search,
                    "search_switches_on": search_on,
                    "sd_sites": {part: {k: {str(s): n for s, n in v.items()}

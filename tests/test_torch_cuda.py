@@ -31,7 +31,7 @@ from autodiffusion_tpu_torch.ops.conv_im2col import (
     conv3x3, conv3x3_fused, conv3x3_fused_kernel, conv3x3_im2col,
     conv3x3_reference, conv_plan, fused_conv_reference)
 from autodiffusion_tpu_torch.ops.flash_attention import (
-    FWD_HEAD_DIMS, LAUNCHES, flash_attention, flash_attention_reference,
+    FWD_HEAD_DIMS, LAUNCHES, SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_reference,
     flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
     flash_fwd, flash_fwd_packed, flash_fwd_packed_plain, flash_fwd_plain,
     multihead_attention, reset_launch_counts)
@@ -131,6 +131,29 @@ def test_autograd_through_kernels_matches_twin(cuda_device, dtype):
         torch.testing.assert_close(a.float(), b.float(), atol=GRAD_TOL[dtype],
                                    rtol=GRAD_TOL[dtype],
                                    msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("t,s", [
+    # the dK/dV kernel's ring and blocks: T off the query tile (77, 130,
+    # 1000), S off the 128-key block (50, 129, 300), T under one tile
+    # (20), S under one block with many tiles through the ring (1000, 64)
+    (77, 50), (130, 129), (1000, 300), (20, 129), (1000, 64)])
+def test_dkv_ring_edges_match_twin(cuda_device, dtype, d, t, s):
+    gen = torch.Generator(device=cuda_device).manual_seed(d + t + s)
+    q, do = (_randn(gen, cuda_device, dtype, 5, t, d) for _ in range(2))
+    k, v = (_randn(gen, cuda_device, dtype, 5, s, d) for _ in range(2))
+    o_ref, lse_ref = flash_fwd_plain(q, k, v)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    reset_launch_counts()
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta)
+    dk_ref, dv_ref = flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(flash_bwd_dkv=1)
+    _assert_within_limit(dk, dk_ref, dtype, "dk")
+    _assert_within_limit(dv, dv_ref, dtype, "dv")
 
 
 @pytest.mark.cuda
@@ -447,6 +470,93 @@ def test_group_norm_autograd_matches_twin(cuda_device, dtype):
             tol = GRAD_TOL[torch.float32] if name == "dx" else SUM_TOL
             torch.testing.assert_close(a, b_, atol=tol, rtol=tol,
                                        msg=lambda m: f"{name}: {m}")
+
+
+def _group_norm_inputs(gen, dev, dtype, shape, film):
+    b, c = shape[:2]
+    x = (_randn(gen, dev, torch.float32, *shape)
+         * torch.exp(0.5 * _randn(gen, dev, torch.float32, c,
+                                  *([1] * (len(shape) - 2))))
+         + 0.3).to(dtype)
+    dy = _randn(gen, dev, dtype, *shape)
+    gamma = 1 + 0.2 * _randn(gen, dev, torch.float32, c)
+    beta = 0.1 * _randn(gen, dev, torch.float32, c)
+    scale = shift = None
+    if film:
+        scale, shift = (0.3 * _randn(gen, dev, torch.float32, b, c)
+                        for _ in range(2))
+    return x, dy, gamma, beta, scale, shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,film,silu", [
+    # the classifier's largest site (4 x 4096 elements a run, resident);
+    # 4 x 16384 elements a run (256 KB of x and dy in bf16: streamed);
+    # 7 x 7, three channels a group (runs off a 16-byte boundary); one
+    # channel a group; 16 channels a group at 8 x 8 (more channels than
+    # warps)
+    ((32, 128, 64, 64), 32, True, True), ((2, 64, 128, 128), 16, False, True),
+    ((3, 96, 7, 7), 32, True, True), ((2, 32, 9, 9), 32, True, False),
+    ((4, 512, 8, 8), 32, True, True)])
+@pytest.mark.parametrize("grads", ["dx", "all"])
+def test_group_norm_backward_runs_and_forms(cuda_device, dtype, shape, groups,
+                                            film, silu, grads):
+    """The GroupNorm backward kernel, resident and streamed, in the dx-only
+    form the guided samplers call and with every gradient: one launch,
+    None for what was not asked, the rest within the limits of its twin;
+    a run with one group's statistics taken from the next group breaks
+    the dx limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x, dy, gamma, beta, scale, shift = _group_norm_inputs(
+        gen, cuda_device, dtype, shape, film)
+    _, mu, rstd = group_norm_fwd_plain(x, gamma, beta, scale, shift, groups,
+                                       1e-5, silu)
+    flags = dict(grad_affine=grads == "all", grad_film=grads == "all")
+    args = (x, dy, gamma, beta, scale, shift, mu, rstd, groups, silu)
+    reset_launch_counts()
+    got = group_norm_bwd(*args, **flags)
+    assert LAUNCHES == _launched(group_norm_bwd=1)
+    want = group_norm_bwd_plain(*args, **flags)
+    mu_bad, rstd_bad = mu.clone(), rstd.clone()
+    mu_bad[:, 0], rstd_bad[:, 0] = mu[:, 1], rstd[:, 1]
+    bad = group_norm_bwd(x, dy, gamma, beta, scale, shift, mu_bad, rstd_bad,
+                         groups, silu, **flags)[0]
+    torch.cuda.synchronize()
+    _assert_within_limit(got[0], want[0], dtype, "dx")
+    assert _limit_ratio(bad, want[0], dtype) > 1
+    for name, a, b_ in zip(("dscale", "dshift", "dgamma", "dbeta"), got[1:],
+                           want[1:]):
+        if grads == "dx":
+            assert a is None and b_ is None, name
+        else:
+            _assert_within_limit(a, b_, torch.float32, name, SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_dx_only_autograd_one_launch(cuda_device, dtype):
+    """FusedGroupNormFunction as the guided samplers' frozen classifier
+    runs it (x needs a gradient; gamma, beta and the FiLM terms do not):
+    the backward is exactly one group_norm_bwd launch (no batch sum),
+    returns None for every frozen input and the twin's dx."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x, dy, gamma, beta, scale, shift = _group_norm_inputs(
+        gen, cuda_device, dtype, (8, 128, 32, 32), True)
+    xl = x.clone().requires_grad_(True)
+    reset_launch_counts()
+    out = FusedGroupNormFunction.apply(xl, gamma, beta, scale, shift, 32,
+                                       1e-5, True)
+    with torch.no_grad():
+        grads = out.grad_fn.apply(dy)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(group_norm_fwd=1, group_norm_bwd=1)
+    assert all(a is None for a in grads[1:])
+    _, mu, rstd = group_norm_fwd_plain(x, gamma, beta, scale, shift, 32,
+                                       1e-5, True)
+    want = group_norm_bwd_plain(x, dy, gamma, beta, scale, shift, mu, rstd,
+                                32, True, grad_affine=False, grad_film=False)
+    _assert_within_limit(grads[0], want[0], dtype, "dx")
 
 
 # (B, C_in, C_out, H, W) and the plan a bf16 call takes: the implicit GEMM

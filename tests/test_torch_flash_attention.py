@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from autodiffusion_tpu.ops import flash_attention as jax_flash
-from autodiffusion_tpu.ops.flash_attention import (_flash_forward,
+from autodiffusion_tpu.ops.flash_attention import (_flash_bwd,
+                                                  _flash_forward,
                                                   _flash_forward_packed)
 from autodiffusion_tpu_torch.models import create_sd_models
 from autodiffusion_tpu_torch.ops.flash_attention import (
@@ -111,6 +112,36 @@ def test_kernel_twins_through_autograd_match_pallas(dtype):
         np.testing.assert_allclose(a.float().numpy(),
                                    np.asarray(b, np.float32).reshape(a.shape),
                                    atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,t,s", [
+    # the classifier's D = 64 at the CUDA kernel's ring edges: T off the
+    # 64-query tile, S off the 128-key block, S under one block, T under
+    # one tile
+    ("float32", 77, 50), ("float32", 130, 129), ("float32", 100, 300),
+    ("float32", 40, 129), ("bfloat16", 130, 129), ("bfloat16", 77, 300)])
+def test_dkv_twin_matches_pallas_dkv_kernel(dtype, t, s):
+    """flash_bwd_dkv on CPU tensors (the dK/dV kernel's twin) against the
+    Pallas dK/dV kernel in interpret mode (``_flash_bwd``), each side fed
+    its own forward's lse and o: 3e-5 (fp32), 6e-2 (bf16)."""
+    q, k, v, g = _inputs(t, s, 64, dtype, t + s)
+    jq, jk, jv, jg = (_to_jax(a, dtype) for a in (q, k, v, g))
+    o_j, lse_j = _flash_forward(jq, jk, jv, 64, 64, True)
+    _, dk_j, dv_j = _flash_bwd(64, 64, True, False, False,
+                               (jq, jk, jv, o_j, lse_j), jg)
+    tq, tk, tv, tg = (_to_torch(a, dtype).reshape(4, -1, 64)
+                      for a in (q, k, v, g))
+    o, lse = flash_fwd(tq, tk, tv)
+    delta = (tg.float() * o.float()).sum(-1)
+    reset_launch_counts()
+    dk, dv = flash_bwd_dkv(tq, tk, tv, tg, lse, delta)
+    assert set(LAUNCHES.values()) == {0}
+    tol = 3e-5 if dtype == "float32" else 6e-2
+    for name, got, want in (("dk", dk, dk_j), ("dv", dv, dv_j)):
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want, np.float32).reshape(4, s, 64),
+            atol=tol, rtol=tol, err_msg=name)
 
 
 def test_twin_softmax_stability_large_logits():

@@ -141,6 +141,58 @@ def test_gradients_match_jax_kernel_fp32(shape, film):
                                    rtol=TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("shape", [(2, 64, 64), (3, 49, 96)])
+@pytest.mark.parametrize("act", ["silu", "none"])
+def test_frozen_parameters_give_dx_alone(shape, act):
+    """The guided samplers' case: x needs a gradient, gamma, beta and the
+    FiLM terms do not (a frozen classifier). FusedGroupNormFunction's
+    backward then returns the JAX kernel's dx (its custom VJP taken with
+    respect to x alone, Pallas in interpret mode), float32 2e-5, and None
+    for every other input."""
+    x, gamma, beta, scale, shift, g = _inputs(shape, 8)
+
+    def f(x_):
+        return jax_fused_group_norm(x_, _jnp(gamma), _jnp(beta),
+                                    scale=_jnp(scale), shift=_jnp(shift),
+                                    act=act, interpret=True)
+
+    _, vjp = jax.vjp(f, _jnp(x))
+    (want,) = vjp(_jnp(g))
+    px = _to_port(x).requires_grad_(True)
+    out = fused_group_norm(px, _t(gamma), _t(beta), scale=_t(scale),
+                           shift=_t(shift), act=act)
+    with torch.no_grad():
+        grads = out.grad_fn.apply(_to_port(g))
+    assert len(grads) == 8 and all(a is None for a in grads[1:])
+    np.testing.assert_allclose(_from_port(grads[0]), np.asarray(want),
+                               atol=TOL, rtol=TOL)
+    (dx,) = torch.autograd.grad(out, px, _to_port(g))
+    assert torch.equal(dx, grads[0])
+
+
+@pytest.mark.parametrize("grad_affine,grad_film", [(True, True), (True, False),
+                                                   (False, True),
+                                                   (False, False)])
+def test_bwd_twin_gives_only_the_gradients_asked_for(grad_affine, grad_film):
+    """group_norm_bwd's flags on CPU tensors (the twin): None for what was
+    not asked, and what was asked equal to the full call's."""
+    x, gamma, beta, scale, shift, g = _inputs((2, 9, 64), 9)
+    args = (_to_port(x), _to_port(g), _t(gamma), _t(beta), _t(scale),
+            _t(shift))
+    _, mu, rstd = group_norm_fwd_plain(args[0], *args[2:], 32, 1e-5, True)
+    full = group_norm_bwd(*args, mu, rstd, 32, True)
+    got = group_norm_bwd(*args, mu, rstd, 32, True, grad_affine=grad_affine,
+                         grad_film=grad_film)
+    want = group_norm_bwd_plain(*args, mu, rstd, 32, True,
+                                grad_affine=grad_affine, grad_film=grad_film)
+    asked = (True, grad_film, grad_film, grad_affine, grad_affine)
+    for a, b, f, on in zip(got, want, full, asked):
+        if on:
+            assert torch.equal(a, b) and torch.equal(a, f)
+        else:
+            assert a is None and b is None
+
+
 def test_gradients_match_autograd_of_reference():
     """The backward kernel's twin against autograd of the forward twin."""
     x, gamma, beta, scale, shift, g = _inputs((2, 36, 64), 2)

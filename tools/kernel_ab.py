@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of a variant of a pipelined flash forward against the tree's kernel,
-on one NVIDIA GPU.
+"""A/B of a variant of a pipelined flash kernel (a forward, or the dK/dV
+backward) or of the GroupNorm backward against the tree's kernel, on one
+NVIDIA GPU.
 
     python3 tools/kernel_ab.py VARIANT
 
@@ -13,7 +14,10 @@ spills for it. A worker process then checks the variant against the
 kernel's plain twin at the ring-edge shapes of tests/test_torch_cuda.py,
 within chip_smoke.py's bf16 limit, and workers time the tree's kernel and
 the variant at the Stable Diffusion (and ADM) sites (chip_smoke.cuda_ms, one-call
-CUDA-event medians) in the order tree, variant, variant, tree. Each
+CUDA-event medians; the dK/dV kernel and the GroupNorm backward at the ADM-64
+classifier's sites, beside SDPA's whole backward and F.group_norm's backward,
+with their device times from torch.profiler) in the order tree, variant,
+variant, tree. Each
 library runs in its own process: two libraries holding the same kernels
 in one process fail their launches.
 
@@ -180,13 +184,107 @@ VARIANTS = {
     # the two consumers (setmaxnreg.dec 40 / .inc 232 at 384 threads);
     # the consumers release K and V stages on mbarriers of their own and
     # exchange their partial logits behind a 256-thread named barrier
-    "wide_producer": ("flash_fwd_wide", {
-        "tma.cuh": [(
-            "__device__ __forceinline__ uint64_t global_ns() {",
-            """__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(smem_u32(bar)) : "memory");
+    # the dK/dV kernel issuing the next query tile's S^T and dP^T behind
+    # the tile's dK product (and handing the stage back a tile later)
+    # instead of draining its products at the end of every tile
+    "dkv_issue_ahead": ("flash_bwd_dkv", {"flash_bwd_dkv.cu": [
+        ("""  mbar_wait(kvbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    const unsigned char* sq = stage_q(s);
+    const unsigned char* so = stage_o(s);
+    const float* ls = sl + s * 2 * BQ;
+    mbar_wait(full + s, (j / stages) & 1);
+    abt(sacc, sk, sq);  // S^T
+    abt(pacc, sv, so);  // dP^T
+    wg::wait_one();     // S^T done
+    wg::fence_operands(sacc);""",
+         """  auto issue = [&](int j) {
+    const int s = j % stages;
+    mbar_wait(full + s, (j / stages) & 1);
+    abt(sacc, sk, stage_q(s));
+    abt(pacc, sv, stage_o(s));
+  };
+  mbar_wait(kvbar, 0);
+  if (n_tiles > 0) issue(0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    const unsigned char* sq = stage_q(s);
+    const unsigned char* so = stage_o(s);
+    const float* ls = sl + s * 2 * BQ;
+    wg::wait_one();
+    wg::fence_operands(sacc);
+    wg::fence_operands(dka);
+    if (j > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (j - 1) % stages);
+    }"""),
+        ("""    px(dka, dsa, sq);  // dK += dS^T Q
+    wg::wait_all();
+    wg::fence_operands(dva);
+    wg::fence_operands(dka);
+    // the stage's tiles and slices are read
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }""",
+         """    px(dka, dsa, sq);  // dK += dS^T Q
+    if (j + 1 < n_tiles) issue(j + 1);
+  }
+  wg::wait_all();
+  wg::fence_operands(dva);
+  wg::fence_operands(dka);""")]}),
+    # the dK/dV kernel's ring at two and at four stages (the tree: three)
+    "dkv_two_stages": ("flash_bwd_dkv", {"flash_bwd_dkv.cu": [(
+        "  static constexpr int kStages = 3;", "  static constexpr int kStages = 2;")]}),
+    "dkv_four_stages": ("flash_bwd_dkv", {"flash_bwd_dkv.cu": [(
+        "  static constexpr int kStages = 3;", "  static constexpr int kStages = 4;")]}),
+    # the GroupNorm backward's sums pass unrolled four times (more 16-byte
+    # loads of x and g in flight a lane) instead of twice
+    "gnb_unroll4": ("group_norm_bwd", {"group_norm_bwd.cu": [(
+        """#pragma unroll 2
+  for (int i = sp.head_end + lane * N; i < sp.vec_end; i += 32 * N) {
+    const uint4 xu""",
+        """#pragma unroll 4
+  for (int i = sp.head_end + lane * N; i < sp.vec_end; i += 32 * N) {
+    const uint4 xu""")]}),
+    # the GroupNorm backward staging a resident run's x into shared memory
+    # with 16-byte cp.async copies, all of it before the sums, instead of
+    # keeping what the sums' pass reads through registers
+    "gnb_cp_async": ("group_norm_bwd", {"group_norm_bwd.cu": [
+        ("// Shared memory ahead of the run: the channel terms",
+         """__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
-__device__ __forceinline__ uint64_t global_ns() {""")],
+template <typename T>
+__device__ __forceinline__ void copy_run(T* dst, const T* src, int n) {
+  constexpr int N = Vec<T>::N;
+  const Split<T> sp(src, 0, n);
+  for (int i = threadIdx.x; i < sp.head_end; i += blockDim.x) dst[i] = src[i];
+  for (int i = sp.vec_end + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  for (int i = sp.head_end + threadIdx.x * N; i < sp.vec_end; i += blockDim.x * N)
+    cp_async16(dst + i, src + i);
+}
+
+// Shared memory ahead of the run: the channel terms"""),
+        ("""    du = reinterpret_cast<float*>(base + run_bytes(n, sizeof(T))) + mis;
+  }""",
+         """    du = reinterpret_cast<float*>(base + run_bytes(n, sizeof(T))) + mis;
+    copy_run(sx, xs, n);
+    xs = sx;
+  }"""),
+        ("""  }
+  __syncthreads();
+
+  // the pieces' sums""",
+         """  }
+  if constexpr (kResident) asm volatile("cp.async.wait_all;\\n" ::: "memory");
+  __syncthreads();
+
+  // the pieces' sums""")]}),
+    "wide_producer": ("flash_fwd_wide", {
         "flash_fwd_wide.cu": [
             ("+ kXBytes + (1 + 2 * kStages) * 8;",
              "+ kXBytes + (1 + 4 * kStages) * 8;\n"
@@ -269,7 +367,12 @@ CHECK = {"flash_fwd": [(2, 8, 80, 300, 77), (2, 8, 80, 1000, 1000),
                               (16, 8, 40, 4096, 77)],
          "flash_fwd_wide": [(2, 1, 512, 700, 650), (2, 1, 512, 64, 130),
                             (1, 1, 512, 4096, 4096), (8, 1, 512, 4096, 4096)]}
-TIME = {"flash_fwd": [(192, 1, 64, 1024, 1024), (288, 1, 64, 256, 256),
+# the dK/dV kernel: (N, D, T, S) of [N, T, D] q, dO and [N, S, D] k, v
+CHECK["flash_bwd_dkv"] = [(10, 64, 1000, 300), (10, 64, 77, 50),
+                          (10, 64, 130, 129), (10, 64, 1000, 64)]
+TIME = {"flash_bwd_dkv": [(128, 64, 1024, 1024), (192, 64, 1024, 1024),
+                          (192, 64, 256, 256), (256, 64, 64, 64)],
+        "flash_fwd": [(192, 1, 64, 1024, 1024), (288, 1, 64, 256, 256),
                       (16, 8, 80, 1024, 1024), (16, 8, 80, 1024, 77)],
         "flash_fwd_packed": [(16, 8, 40, 4096, 4096), (16, 8, 40, 4096, 77)],
         "flash_fwd_wide": [(8, 1, 512, 4096, 4096)]}
@@ -354,6 +457,10 @@ def worker(lib, stem, mode):
         return o, lse
 
     out = {}
+    if stem in ("flash_bwd_dkv", "group_norm_bwd"):
+        work = dkv_worker if stem == "flash_bwd_dkv" else gnb_worker
+        print(json.dumps(work(fn, stream, gen, mode)), flush=True)
+        return
     for b, heads, d, t, s in (CHECK if mode == "check" else TIME)[stem]:
         q, k, v = (torch.randn(b, n, heads * d, generator=gen,
                                device="cuda").bfloat16() for n in (t, s, s))
@@ -379,6 +486,113 @@ def worker(lib, stem, mode):
     print(json.dumps(out), flush=True)
 
 
+def dkv_worker(fn, stream, gen, mode):
+    """The dK/dV kernel's check against its twin, or its timing beside
+    SDPA's whole backward (dq, dk and dv) on the same [B, H, T, D]."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from autodiffusion_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_plain, flash_fwd_plain)
+
+    out = {}
+    for n, d, t, s in (CHECK if mode == "check" else TIME)["flash_bwd_dkv"]:
+        q, do = (torch.randn(n, t, d, generator=gen, device="cuda")
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(n, s, d, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        o, lse = flash_fwd_plain(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+        def call():
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), n, t, s, d, 1, 1 / math.sqrt(d), stream)
+            if rc:
+                raise RuntimeError(f"launch failed: {rc}")
+
+        key = f"{n}x{d} T{t} S{s}"
+        if mode == "check":
+            call()
+            wk, wv = flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+            share = max(cs.compare(dk, wk, "bfloat16")[1],
+                        cs.compare(dv, wv, "bfloat16")[1])
+            out[key] = dict(share_of_limit=share, lse_err=0.0)
+            if share > 1:
+                raise AssertionError(f"{key}: disagrees with the twin")
+        else:
+            b = n // 8 if n % 8 == 0 else n
+            qh, kh, vh, gh = (z.reshape(b, -1, z.shape[1], d).detach()
+                              .requires_grad_(z is not do)
+                              for z in (q, k, v, do))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            out[key] = dict(ms=cs.cuda_ms(call),
+                            device_ms=cs.device_ms(call, "flash_bwd_dkv"),
+                            sdpa_ms=cs.cuda_ms(lambda: torch.autograd.grad(
+                                oh, (qh, kh, vh), gh, retain_graph=True)))
+    return out
+
+
+def gnb_worker(fn, stream, gen, mode):
+    """The GroupNorm backward in the dx-only form the guided step calls, at
+    the ADM-64 classifier's sites (batch 32, bf16): its check against the
+    twin, or its timing beside F.group_norm's backward with respect to x."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from autodiffusion_tpu_torch.ops.fused_norm import (
+        group_norm_bwd_plain, group_norm_fwd_plain)
+
+    out = {}
+    for c, hw, act, film in cs.adm64_sites()["group_norm_bwd"]:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        x = (randn(32, c, hw) * torch.exp(0.5 * randn(c, 1))
+             + randn(c, 1)).bfloat16()
+        dy = randn(32, c, hw).bfloat16()
+        gamma, beta = 1 + 0.2 * randn(c), 0.1 * randn(c)
+        sc = sh = None
+        if film:
+            sc, sh = 0.3 * randn(32, c), 0.3 * randn(32, c)
+        silu = act == "silu"
+        _, mu, rstd = group_norm_fwd_plain(x, gamma, beta, sc, sh, 32, 1e-5,
+                                           silu)
+        dx = torch.empty_like(x)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        def call():
+            rc = fn(x.data_ptr(), dy.data_ptr(), gamma.data_ptr(),
+                    beta.data_ptr(), ptr(sc), ptr(sh), mu.data_ptr(),
+                    rstd.data_ptr(), dx.data_ptr(), None, None, None, None,
+                    None, None, 32, c, hw, 32, int(silu), 1, stream)
+            if rc:
+                raise RuntimeError(f"launch failed: {rc}")
+
+        key = f"C={c} HW={hw} {act}"
+        if mode == "check":
+            call()
+            want = group_norm_bwd_plain(x, dy, gamma, beta, sc, sh, mu, rstd,
+                                        32, silu, grad_affine=False,
+                                        grad_film=False)[0]
+            share = cs.compare(dx, want, "bfloat16")[1]
+            out[key] = dict(share_of_limit=share, lse_err=0.0)
+            if share > 1:
+                raise AssertionError(f"{key}: disagrees with the twin")
+        else:
+            xg = x.detach().clone().requires_grad_(True)
+            yl = F.group_norm(xg, 32, gamma.bfloat16(), beta.bfloat16(), 1e-5)
+            out[key] = dict(ms=cs.cuda_ms(call),
+                            device_ms=cs.device_ms(call, "group_norm_bwd"),
+                            sdpa_ms=cs.cuda_ms(lambda: torch.autograd.grad(
+                                yl, (xg,), dy, retain_graph=True)))
+    return out
+
+
 def run(args):
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--worker", *args], capture_output=True, text=True,
@@ -399,9 +613,14 @@ def main(name):
               f"lse {row['lse_err']:.2e}", flush=True)
     for lib, label in (("tree", "tree"), (so, name), (so, name),
                        ("tree", "tree")):
+        library = {"flash_bwd_dkv": "SDPA backward",
+                   "group_norm_bwd": "F.group_norm backward"}.get(stem,
+                                                                  "SDPA")
         for key, row in run([lib, stem, "time"]).items():
-            print(f"time {label} {key}: {row['ms']:.4f} ms, SDPA "
-                  f"{row['sdpa_ms']:.4f} ms", flush=True)
+            device = (f" (device {row['device_ms']:.4f} ms)"
+                      if "device_ms" in row else "")
+            print(f"time {label} {key}: {row['ms']:.4f} ms{device}, "
+                  f"{library} {row['sdpa_ms']:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":
