@@ -55,17 +55,10 @@ using fa::bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A head's D features in shared memory, as flash_fwd.cu lays them: SW
-// blocks of 64 (128-byte rows, 128-byte swizzle, 8-row atoms of 1024
-// bytes), then CH chunks of 8 (16-byte rows, no swizzle), each block or
-// chunk [rows][bytes].
-template <int D>
-struct Cols {
-  static_assert(D % 16 == 0 && D <= 128, "head dims 16, 32, 64, 128");
-  static constexpr int SW = D / 64;
-  static constexpr int CH = (D % 64) / 8;
-  static constexpr int bytes(int rows) { return SW * rows * 128 + CH * rows * 16; }
-};
+// a head's D features in shared memory, and the tensor maps (flash_wgmma.cuh)
+using fa::Cols;
+using fa::make_maps;
+using fa::Maps;
 
 template <int D, int WG>
 struct Cfg {
@@ -84,12 +77,6 @@ struct Cfg {
       1024 + 2 * kKVBytes + kStages * 2 * kTileBytes + kStages * 2 * kBQ * 4 + (1 + 2 * kStages) * 8;
   static_assert(kKVBytes % 1024 == 0 && kTileBytes % 1024 == 0, "1 KB tiles");
   static_assert(kSmem <= fa::kSmemMax, "a block's shared memory");
-};
-
-// The tensor maps of one [N][L][D] bf16 tensor: 64-feature swizzled boxes
-// and 8-feature chunk boxes of a tile's rows of one head.
-struct Maps {
-  CUtensorMap sw, ch;
 };
 
 template <int D, int WG>
@@ -134,18 +121,10 @@ __global__ void __launch_bounds__(Cfg<D, WG>::kThreads, 1)
 
   if (warp == C::kConsumers / 32) {
     // the producer warp: K and V once, then the ring
-    // the copies of `rows` rows from `row` on of one tensor into a tile
-    auto copy = [&](unsigned char* dst, const Maps& m, int rows, int row, uint64_t* bar) {
-#pragma unroll
-      for (int cb = 0; cb < SW; ++cb) tma_load_3d(dst + cb * rows * 128, &m.sw, 64 * cb, row, bh, bar);
-#pragma unroll
-      for (int c = 0; c < CH; ++c)
-        tma_load_3d(dst + SW * rows * 128 + c * rows * 16, &m.ch, 64 * SW + 8 * c, row, bh, bar);
-    };
     if (lane == 0) {
       mbar_expect_tx(kvbar, 2 * KB);
-      copy(sk, k_map, BK, k0, kvbar);
-      copy(sv, v_map, BK, k0, kvbar);
+      fa::load_rows<D>(sk, k_map, BK, k0, bh, kvbar);
+      fa::load_rows<D>(sv, v_map, BK, k0, bh, kvbar);
     }
     const float* lb = lse + (size_t)bh * t_len;
     const float* db = delta + (size_t)bh * t_len;
@@ -163,8 +142,8 @@ __global__ void __launch_bounds__(Cfg<D, WG>::kThreads, 1)
         // this arrival and the tiles' bytes; the other lanes' stores are
         // released by their own arrivals
         mbar_expect_tx(full + s, 2 * TB);
-        copy(stage_q(s), q_map, BQ, j * BQ, full + s);
-        copy(stage_o(s), o_map, BQ, j * BQ, full + s);
+        fa::load_rows<D>(stage_q(s), q_map, BQ, j * BQ, bh, full + s);
+        fa::load_rows<D>(stage_o(s), o_map, BQ, j * BQ, bh, full + s);
       } else {
         mbar_arrive(full + s);
       }
@@ -298,18 +277,6 @@ __global__ void __launch_bounds__(Cfg<D, WG>::kThreads, 1)
           mma::pack(dva[4 * jj + 2 * h], dva[4 * jj + 2 * h + 1]);
     }
   }
-}
-
-// The swizzled and chunk maps of an [N][L][D] bf16 tensor with boxes of
-// `rows` rows (false if cuTensorMapEncodeTiled refuses one).
-template <int D>
-bool make_maps(Maps* m, const void* base, int n, int len, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)len, (cuuint64_t)n};
-  const cuuint64_t str[2] = {(cuuint64_t)D * 2, (cuuint64_t)D * 2 * len};
-  const cuuint32_t swbox[3] = {64, (cuuint32_t)rows, 1}, chbox[3] = {8, (cuuint32_t)rows, 1};
-  *m = Maps{};
-  return (!Cols<D>::SW || make_map(&m->sw, base, 3, dims, str, swbox, CU_TENSOR_MAP_SWIZZLE_128B)) &&
-         (!Cols<D>::CH || make_map(&m->ch, base, 3, dims, str, chbox));
 }
 
 template <int D, int WG>

@@ -48,16 +48,8 @@ namespace fwd {
 
 using fa::bf16;
 
-// A head's D features in shared memory: SW blocks of 64 (128-byte rows,
-// 128-byte swizzle, 8-row atoms of 1024 bytes), then CH chunks of 8
-// (16-byte rows, no swizzle), each block or chunk [rows][bytes].
-template <int D>
-struct Cols {
-  static_assert(D % 16 == 0 && D <= 128, "head dims 16, 32, 64, 80, 128");
-  static constexpr int SW = D / 64;
-  static constexpr int CH = (D % 64) / 8;
-  static constexpr int bytes(int rows) { return SW * rows * 128 + CH * rows * 16; }
-};
+// a head's D features in shared memory (flash_wgmma.cuh)
+using fa::Cols;
 
 template <int D, int WG>
 struct Cfg {

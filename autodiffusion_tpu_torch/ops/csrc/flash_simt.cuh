@@ -1,6 +1,5 @@
 // CUDA-core pieces of the float32 flash-attention kernels (forward, dQ,
-// dK/dV). The bfloat16 kernels use the tensor cores instead (flash_wgmma.cuh,
-// flash_mma.cuh);
+// dK/dV). The bfloat16 kernels use the tensor cores instead (flash_wgmma.cuh);
 // a float32 product on the tensor cores would round its operands to TF32.
 //
 // Layout: q, o, do are [N, T, D] and k, v are [N, S, D], contiguous, with

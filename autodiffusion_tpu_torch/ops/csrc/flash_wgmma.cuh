@@ -1,8 +1,11 @@
-// Pieces shared by the three pipelined flash forwards for Hopper (sm_90a),
-// flash_fwd.cu (D <= 128), flash_fwd_packed.cu (D = 40 on the token-major
-// layout) and flash_fwd_wide.cu (D = 512): the online softmax of one key
-// tile held in a wgmma accumulator, and the rounding of its probabilities
-// to the bf16 register A operand of the P V product.
+// Pieces shared by the pipelined flash kernels for Hopper (sm_90a): the
+// three forwards, flash_fwd.cu (D <= 128), flash_fwd_packed.cu (D = 40 on
+// the token-major layout) and flash_fwd_wide.cu (D = 512), and the two
+// backwards, flash_bwd_dq.cu and flash_bwd_dkv.cu: the online softmax of
+// one key tile held in a wgmma accumulator, the rounding of probabilities
+// (or dS) to the bf16 register A operand of the next product, and the
+// shared-memory layout of a head's features with the tensor maps that fill
+// it.
 //
 // The kernels run two warpgroups that issue only wgmma and the softmax,
 // and keep their K and V tiles in flight with TMA copies into a ring of
@@ -131,6 +134,48 @@ __device__ __forceinline__ void store_o(bf16* base, const float (&o)[NO], int nc
         *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
             mma::pack(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]);
   }
+}
+
+// A head's D features in shared memory: SW blocks of 64 (128-byte rows,
+// 128-byte swizzle, 8-row atoms of 1024 bytes), then CH chunks of 8
+// (16-byte rows, no swizzle), each block or chunk [rows][bytes].
+template <int D>
+struct Cols {
+  static_assert(D % 16 == 0 && D <= 128, "head dims 16, 32, 64, 80, 128");
+  static constexpr int SW = D / 64;
+  static constexpr int CH = (D % 64) / 8;
+  static constexpr int bytes(int rows) { return SW * rows * 128 + CH * rows * 16; }
+};
+
+// The tensor maps of one heads-first [N][L][D] bf16 tensor: 64-feature
+// swizzled boxes and 8-feature chunk boxes of a tile's rows of one head.
+struct Maps {
+  CUtensorMap sw, ch;
+};
+
+// The maps of an [N][L][D] bf16 tensor with boxes of `rows` rows (false if
+// cuTensorMapEncodeTiled refuses one).
+template <int D>
+bool make_maps(Maps* m, const void* base, int n, int len, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)len, (cuuint64_t)n};
+  const cuuint64_t str[2] = {(cuuint64_t)D * 2, (cuuint64_t)D * 2 * len};
+  const cuuint32_t swbox[3] = {64, (cuuint32_t)rows, 1}, chbox[3] = {8, (cuuint32_t)rows, 1};
+  *m = Maps{};
+  return (!Cols<D>::SW || make_map(&m->sw, base, 3, dims, str, swbox, CU_TENSOR_MAP_SWIZZLE_128B)) &&
+         (!Cols<D>::CH || make_map(&m->ch, base, 3, dims, str, chbox));
+}
+
+// The TMA copies of `rows` rows from `row` on of head `bh` of an [N][L][D]
+// tensor into a tile in the Cols<D> layout, completing on `bar`.
+template <int D>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const Maps& m, int rows, int row,
+                                          int bh, uint64_t* bar) {
+  constexpr int SW = Cols<D>::SW, CH = Cols<D>::CH;
+#pragma unroll
+  for (int cb = 0; cb < SW; ++cb) tma_load_3d(dst + cb * rows * 128, &m.sw, 64 * cb, row, bh, bar);
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    tma_load_3d(dst + SW * rows * 128 + c * rows * 16, &m.ch, 64 * SW + 8 * c, row, bh, bar);
 }
 
 }  // namespace fa

@@ -28,8 +28,8 @@ its plain PyTorch twin, which repeats the kernel's arithmetic.
 :func:`multihead_attention` is the forward-only entry of the Stable
 Diffusion models, routing each head dim to its kernel. Each source holds
 two kernels for its function: bfloat16 inputs run on the tensor cores
-(the three forwards and the dK/dV backward at D = 64 and 128 as wgmma
-kernels fed by TMA copies; dQ, and dK/dV at D = 16 and 32, on mma.sync),
+(every bfloat16 kernel, the three forwards and both backwards at every
+head dim, issues wgmma on tiles that TMA copies into shared memory),
 float32 inputs on the CUDA cores, where the products keep their float32
 operands (the tensor cores would round them to TF32).
 

@@ -11,17 +11,21 @@ Phases, each of which raises on failure:
    kernel's registers and spills as ptxas reports them (the pipelined
    wgmma kernels and the GroupNorm backward must not spill) and their
    exponentials and wgmma instructions in the machine code (cuobjdump;
-   the dK/dV kernel must issue wgmma);
+   both backward kernels must issue wgmma, the dQ kernel no mma.sync, one
+   MUFU.EX2 a logit and no accurate expf routine);
 2. kernels: the flash-attention forward, dQ and dK/dV kernels against
    their plain PyTorch twins at the ADM-64 attention shapes (batch 32,
    head dim 64, bf16 and fp32, plus a ragged length), alone and chained
    through ``FlashAttentionFunction`` as the sampler runs them, within
-   limits that a kernel with one tile dropped (and the dK/dV kernel fed
-   every query tile's lse and delta from the tile before) is shown to
-   break; each timed with CUDA events beside its twin, its bound on the
-   card and ``F.scaled_dot_product_attention``, the backward kernels and
-   SDPA's backward also by their device time (torch.profiler), summed
-   per guided step over the classifier's 13 sites;
+   limits that a kernel with one tile dropped (and the backward kernels
+   fed lse and delta rolled by 64 rows: the dK/dV kernel every query
+   tile's from the tile before, the dQ kernel each warpgroup's rows'
+   from the other's) is shown to break; each timed with CUDA events
+   beside its twin, its bound on the card and
+   ``F.scaled_dot_product_attention``, the backward kernels, SDPA's
+   backward and the backward's delta = rowsum(dO O) in PyTorch also by
+   their device time (torch.profiler), summed per guided step over the
+   classifier's 13 sites;
 3. the fused GroupNorm forward and backward, the im2col conv and the fused
    norm-act-conv against their twins at every ADM-64 site the three
    switches (``ADT_FUSED_NORM=1 ADT_IM2COL_CONV=1 ADT_FUSED_CONV=all``)
@@ -44,9 +48,8 @@ Phases, each of which raises on failure:
    switches off, once with all three on;
 5. profile: one guided DDIM-4 run at batch 32 in bf16 under
    ``torch.profiler``: device time by kernel, the flash kernels' share
-   (the forward's and the dK/dV kernel's own lines) and the device's idle
-   share
-   (``chiprun_out/chip_smoke_profile.txt``);
+   (the forward's, the dQ kernel's and the dK/dV kernel's own lines) and
+   the device's idle share (``chiprun_out/chip_smoke_profile.txt``);
 6. A/B: the same guided DDIM-4 run with the switches off, each alone, the
    fused norm with the fused conv, and all three on, one round (three
    rounds of each are in PERF.md): wall time per step, device-busy time
@@ -299,18 +302,22 @@ def compare(got, want, dtype: str, f32_tol: float = 2e-5):
 
 
 # the pipelined wgmma kernels whose registers ptxas must fit without a
-# spill (csrc/flash_wgmma.cuh, csrc/flash_bwd_dkv.cu), and the GroupNorm
-# backward's kernels
+# spill (csrc/flash_wgmma.cuh, csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu),
+# and the GroupNorm backward's kernels
 PIPELINED = ("flash_fwd_tma_kernel", "flash_fwd_packed_kernel",
-             "flash_fwd_wide_kernel", "flash_bwd_dkv_tma_kernel")
+             "flash_fwd_wide_kernel", "flash_bwd_dq_tma_kernel",
+             "flash_bwd_dkv_tma_kernel")
 NO_SPILL = PIPELINED + ("group_norm_bwd_kernel",)
 
 
 def phase_ptxas():
-    """{kernel: registers, spill bytes, MUFU.EX2 and HGMMA counts} of the
-    pipelined flash kernels and the GroupNorm backward, as ptxas reported
-    them and as cuobjdump reads their machine code; a spill, or a dK/dV
-    kernel without wgmma (HGMMA), fails."""
+    """{kernel: registers, spill bytes, MUFU.EX2, FFMA.RM, HGMMA and HMMA
+    counts} of the pipelined flash kernels and the GroupNorm backward, as
+    ptxas reported them and as cuobjdump reads their machine code; a
+    spill, a backward kernel without wgmma (HGMMA), or a dQ kernel with
+    mma.sync (HMMA), with a MUFU.EX2 count that is not a multiple of the
+    32 logits a thread forms a key tile, or with the accurate expf
+    routine (its range reduction rounds with FFMA.RM) fails."""
     from autodiffusion_tpu_torch.ops import _build
 
     every = _build.ptxas_kernels()
@@ -331,24 +338,36 @@ def phase_ptxas():
     out = {n: dict(registers=r, spill_stores=st, spill_loads=ld)
            for n, (r, st, ld) in rows.items()}
     # the softmax's exponentials in the machine code: one MUFU.EX2 a logit
-    # (and two a tile for the rescale), no accurate expf routine; the
-    # products as wgmma (HGMMA)
+    # (and two a tile for the rescale), no accurate expf routine (FFMA.RM);
+    # the products as wgmma (HGMMA), not mma.sync (HMMA)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     for stem in ("flash_fwd", "flash_fwd_packed", "flash_fwd_wide",
-                 "flash_bwd_dkv"):
+                 "flash_bwd_dq", "flash_bwd_dkv"):
         sass = subprocess.run([cuobjdump, "-sass", _build.library(stem)._name],
                               capture_output=True, text=True).stdout
         for fn in sass.split("Function : ")[1:]:
             name = fn.split("\n")[0].strip()
             if name in out:
-                out[name]["mufu_ex2"] = fn.count("MUFU.EX2")
-                out[name]["hgmma"] = fn.count("HGMMA")
-                log(f"SASS {name}: {fn.count('MUFU.EX2')} MUFU.EX2, "
-                    f"{fn.count('HGMMA')} HGMMA")
-    dkv = [n for n in out if "flash_bwd_dkv_tma_kernel" in n]
-    if not dkv or not all(out[n].get("hgmma") for n in dkv):
-        raise AssertionError(f"the dK/dV kernel issues no wgmma: "
-                             f"{ {n: out[n] for n in dkv} }")
+                counts = {key: fn.count(op) for key, op in (
+                    ("mufu_ex2", "MUFU.EX2"), ("ffma_rm", "FFMA.RM"),
+                    ("hgmma", "HGMMA"), ("hmma", "HMMA"))}
+                out[name].update(counts)
+                log(f"SASS {name}: {counts['mufu_ex2']} MUFU.EX2, "
+                    f"{counts['ffma_rm']} FFMA.RM, {counts['hgmma']} HGMMA, "
+                    f"{counts['hmma']} HMMA")
+    for tag in ("flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel"):
+        names = [n for n in out if tag in n]
+        if not names or not all(out[n].get("hgmma") for n in names):
+            raise AssertionError(f"{tag} issues no wgmma: "
+                                 f"{ {n: out[n] for n in names} }")
+    dq = {n: out[n] for n in out if "flash_bwd_dq_tma_kernel" in n}
+    bad = {n: c for n, c in dq.items()
+           if c["hmma"] or c["ffma_rm"] or not c["mufu_ex2"]
+           or c["mufu_ex2"] % 32}
+    if bad:
+        raise AssertionError(f"the dQ kernel's machine code: mma.sync, the "
+                             f"accurate expf or not one MUFU.EX2 a logit: "
+                             f"{bad}")
     out["spilled_any"] = spilled_any
     return out
 
@@ -423,7 +442,7 @@ def phase_kernels():
                                       compare(ck, dk_ref, dname),
                                       compare(cv, dv_ref, dname)]}
             del o_chain, leaves, cq, ck, cv
-            dropped, ring = {}, None
+            dropped, ring, rolled_dq = {}, None, None
             if t > TILE:
                 ks, vs = k[:, TILE:], v[:, TILE:]
                 bad_dk, bad_dv = flash_bwd_dkv(
@@ -441,18 +460,25 @@ def phase_kernels():
                         failures.append((name, t, h, dname,
                                          "one tile dropped passes the "
                                          f"limit ({dropped[name]:.3g})"))
-                # the ring's fault: every stage's lse and delta slice taken
-                # from the tile before (the inputs rolled by one 64-query
-                # tile), with its own q and dO tiles
-                ring_dk, ring_dv = flash_bwd_dkv(
-                    q, k, v, do, torch.roll(lse_ref, TILE, 1),
-                    torch.roll(delta, TILE, 1))
+                # lse and delta rolled by 64 rows: the dK/dV ring's fault
+                # (every stage's slice from the tile before, with its own q
+                # and dO tiles), and the dQ kernel's (each warpgroup's
+                # resident row statistics from the other's rows)
+                lse_rolled = torch.roll(lse_ref, TILE, 1)
+                delta_rolled = torch.roll(delta, TILE, 1)
+                ring_dk, ring_dv = flash_bwd_dkv(q, k, v, do, lse_rolled,
+                                                 delta_rolled)
                 ring = min(compare(ring_dk, dk_ref, dname)[1],
                            compare(ring_dv, dv_ref, dname)[1])
-                if ring <= 1:
-                    failures.append(("flash_bwd_dkv", t, h, dname,
-                                     "lse / delta from the wrong tile "
-                                     f"passes the limit ({ring:.3g})"))
+                rolled_dq = compare(flash_bwd_dq(q, k, v, do, lse_rolled,
+                                                 delta_rolled),
+                                    dq_ref, dname)[1]
+                for name, share in (("flash_bwd_dkv", ring),
+                                    ("flash_bwd_dq", rolled_dq)):
+                    if share <= 1:
+                        failures.append((name, t, h, dname,
+                                         "lse / delta from rows 64 away "
+                                         f"passes the limit ({share:.3g})"))
                 del faults, bad_dk, bad_dv, ring_dk, ring_dv
             q4, k4, v4, do4 = (z.view(BATCH, h, t, HEAD_DIM)
                                for z in (q, k, v, do))
@@ -473,7 +499,11 @@ def phase_kernels():
                        "flash_bwd_dkv": device_ms(lambda: flash_bwd_dkv(
                            q, k, v, do, lse, delta), "flash_bwd_dkv"),
                        "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
-                           og, (qg, kg, vg), do4, retain_graph=True))}
+                           og, (qg, kg, vg), do4, retain_graph=True)),
+                       # FlashAttentionFunction.backward's delta, as it
+                       # computes it
+                       "delta": device_ms(lambda: (do.float() * o.float())
+                                          .sum(-1))}
             timing = {
                 "flash_fwd": (cuda_ms(lambda: flash_fwd(q, k, v)),
                               cuda_ms(lambda: flash_fwd_plain(q, k, v)),
@@ -503,18 +533,23 @@ def phase_kernels():
                            ok=ok, ms=ms, plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                            device_ms=dev.get(name))
-                if name == "flash_bwd_dkv":
-                    row.update(ring_sabotage_over_limit=ring,
+                if name != "flash_fwd":
+                    rolled = ring if name == "flash_bwd_dkv" else rolled_dq
+                    row.update(rolled_sabotage_over_limit=rolled,
                                library_device_ms=dev.get("sdpa_bwd"))
+                if name == "flash_bwd_dq":
+                    row.update(delta_device_ms=dev.get("delta"))
                 rows.append(row)
                 extra = ""
                 if dev.get(name):
                     extra = f" device_ms={dev[name]:.4f}"
-                if name == "flash_bwd_dkv":
-                    extra += (f" (lse / delta from the wrong tile: "
-                              f"{float('nan') if ring is None else ring:.1f})")
+                if name != "flash_fwd":
+                    extra += (f" (lse / delta rolled by 64 rows: "
+                              f"{float('nan') if rolled is None else rolled:.1f})")
                     if dev:
                         extra += f" sdpa_bwd_device_ms={dev['sdpa_bwd']:.4f}"
+                if name == "flash_bwd_dq" and dev:
+                    extra += f" delta_device_ms={dev['delta']:.4f}"
                 log(f"kernel {name:14s} T={t:5d} H={h:2d} {dname:8s} "
                     f"max_abs_err={err:.3e} max err/limit={worst:.3f} "
                     f"(limit {LIMIT_TEXT[dname]}, one tile dropped: "
@@ -536,12 +571,13 @@ def attention_per_step(rows):
     batch 32 in bf16, summed over its sites from the per-shape times: the
     forward at every site, the backward at the classifier's; and the
     backward kernels' own share ({kernel: (one-call ms, profiled device
-    ms)} summed over the classifier's 13 sites)."""
+    ms)} summed over the classifier's 13 sites, with the backward's delta
+    in PyTorch beside them)."""
     by = {(r["name"], r["T"], r["heads"]): r for r in rows
           if r["dtype"] == "bfloat16"}
     kern = lib = 0.0
     bwd = {"flash_bwd_dq": [0.0, 0.0], "flash_bwd_dkv": [0.0, 0.0],
-           "sdpa_bwd": [0.0, 0.0]}
+           "sdpa_bwd": [0.0, 0.0], "delta": [0.0, 0.0]}
     for (t, h), (n_unet, n_cls) in SITES.items():
         fwd = by[("flash_fwd", t, h)]
         dq, dkv = by[("flash_bwd_dq", t, h)], by[("flash_bwd_dkv", t, h)]
@@ -553,11 +589,13 @@ def attention_per_step(rows):
             bwd[name][1] += n_cls * r["device_ms"]
         bwd["sdpa_bwd"][0] += n_cls * dkv["library_ms"]
         bwd["sdpa_bwd"][1] += n_cls * dkv["library_device_ms"]
+        bwd["delta"][1] += n_cls * dq["delta_device_ms"]
     log(f"attention per guided DDIM step (batch 32, bf16, 35 forward + 13 "
         f"backward sites): kernels {kern:.4f} ms, SDPA {lib:.4f} ms")
     for name, (ms, dev) in bwd.items():
-        log(f"  {name} per guided DDIM step (13 classifier sites): one-call "
-            f"{ms:.4f} ms, device {dev:.4f} ms")
+        one_call = "" if name == "delta" else f"one-call {ms:.4f} ms, "
+        log(f"  {name} per guided DDIM step (13 classifier sites): "
+            f"{one_call}device {dev:.4f} ms")
     return kern, lib, {k: tuple(v) for k, v in bwd.items()}
 
 
@@ -1174,6 +1212,7 @@ def phase_profile(unet_sd, cls_sd):
         log("profile: " + line)
     own = {}
     for label, tag in (("flash_fwd", "flash_fwd_tma_kernel"),
+                       ("flash_bwd_dq", "flash_bwd_dq_tma_kernel"),
                        ("flash_bwd_dkv", "flash_bwd_dkv_tma_kernel")):
         sel = [e for e in kernels if tag in e.key]
         if not sel:
@@ -1182,7 +1221,8 @@ def phase_profile(unet_sd, cls_sd):
             log(f"profile ({label}): " + line)
         own[label] = sum(e.self_device_time_total for e in sel) / 1e3 / 4
     return dict(step_ms=step_ms, busy_ms=busy_ms, flash_ms=flash_ms,
-                flash_fwd_ms=own["flash_fwd"], dkv_ms=own["flash_bwd_dkv"],
+                flash_fwd_ms=own["flash_fwd"], dq_ms=own["flash_bwd_dq"],
+                dkv_ms=own["flash_bwd_dkv"],
                 kernels_per_step=n_kernels, peak_gb=peak_gb, top=lines)
 
 

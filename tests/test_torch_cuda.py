@@ -157,6 +157,29 @@ def test_dkv_ring_edges_match_twin(cuda_device, dtype, d, t, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("t,s", [
+    # the dQ kernel's tiles: T off the 128-row block and the 64-row
+    # warpgroup (77, 130, 200), S off the 64-key tile (50, 129, 300), T
+    # under one warpgroup (40), S under one tile with several query blocks
+    # (300, 50)
+    (77, 129), (130, 50), (200, 300), (40, 129), (300, 50)])
+def test_dq_tile_edges_match_twin(cuda_device, dtype, d, t, s):
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 2 * t + s)
+    q, do = (_randn(gen, cuda_device, dtype, 5, t, d) for _ in range(2))
+    k, v = (_randn(gen, cuda_device, dtype, 5, s, d) for _ in range(2))
+    o_ref, lse_ref = flash_fwd_plain(q, k, v)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    reset_launch_counts()
+    dq = flash_bwd_dq(q, k, v, do, lse_ref, delta)
+    dq_ref = flash_bwd_dq_plain(q, k, v, do, lse_ref, delta)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(flash_bwd_dq=1)
+    _assert_within_limit(dq, dq_ref, dtype, "dq")
+
+
+@pytest.mark.cuda
 def test_unsupported_head_dim_raises(cuda_device):
     q = torch.zeros(1, 8, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):

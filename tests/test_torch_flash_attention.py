@@ -144,6 +144,37 @@ def test_dkv_twin_matches_pallas_dkv_kernel(dtype, t, s):
             atol=tol, rtol=tol, err_msg=name)
 
 
+@pytest.mark.parametrize("dtype,t,s", [
+    # the dQ kernel's tile edges: T off the 128-row block and the 64-row
+    # warpgroup (77, 130, 200), S off the 64-key tile (50, 129, 300), T
+    # under one warpgroup (40), S under one tile with several query blocks
+    # (300, 50)
+    ("float32", 77, 129), ("float32", 200, 300), ("float32", 40, 50),
+    ("float32", 300, 50), ("bfloat16", 130, 129), ("bfloat16", 40, 300),
+    ("bfloat16", 300, 50)])
+def test_dq_twin_matches_pallas_dq_kernel(dtype, t, s):
+    """flash_bwd_dq on CPU tensors (the dQ kernel's twin) against the
+    Pallas dQ kernel in interpret mode (``_flash_bwd``), each side fed its
+    own forward's lse and o: 3e-5 (fp32), 6e-2 (bf16)."""
+    q, k, v, g = _inputs(t, s, 64, dtype, 2 * t + s)
+    jq, jk, jv, jg = (_to_jax(a, dtype) for a in (q, k, v, g))
+    o_j, lse_j = _flash_forward(jq, jk, jv, 64, 64, True)
+    dq_j, _, _ = _flash_bwd(64, 64, True, False, False,
+                            (jq, jk, jv, o_j, lse_j), jg)
+    tq, tk, tv, tg = (_to_torch(a, dtype).reshape(4, -1, 64)
+                      for a in (q, k, v, g))
+    o, lse = flash_fwd(tq, tk, tv)
+    delta = (tg.float() * o.float()).sum(-1)
+    reset_launch_counts()
+    dq = flash_bwd_dq(tq, tk, tv, tg, lse, delta)
+    assert set(LAUNCHES.values()) == {0}
+    assert dq.dtype == getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 6e-2
+    np.testing.assert_allclose(
+        dq.float().numpy(), np.asarray(dq_j, np.float32).reshape(4, t, 64),
+        atol=tol, rtol=tol)
+
+
 def test_twin_softmax_stability_large_logits():
     q = torch.full((1, 64, 32), 30.0)
     out = flash_attention_reference(q, q.clone(), torch.ones(1, 64, 32))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of a variant of a pipelined flash kernel (a forward, or the dK/dV
-backward) or of the GroupNorm backward against the tree's kernel, on one
-NVIDIA GPU.
+"""A/B of a variant of a pipelined flash kernel (a forward, the dQ or the
+dK/dV backward) or of the GroupNorm backward against the tree's kernel, on
+one NVIDIA GPU.
 
     python3 tools/kernel_ab.py VARIANT
 
@@ -13,13 +13,13 @@ stem there with the package's nvcc flags and prints ptxas's registers and
 spills for it. A worker process then checks the variant against the
 kernel's plain twin at the ring-edge shapes of tests/test_torch_cuda.py,
 within chip_smoke.py's bf16 limit, and workers time the tree's kernel and
-the variant at the Stable Diffusion (and ADM) sites (chip_smoke.cuda_ms, one-call
-CUDA-event medians; the dK/dV kernel and the GroupNorm backward at the ADM-64
-classifier's sites, beside SDPA's whole backward and F.group_norm's backward,
-with their device times from torch.profiler) in the order tree, variant,
-variant, tree. Each
-library runs in its own process: two libraries holding the same kernels
-in one process fail their launches.
+the variant at the Stable Diffusion (and ADM) sites (chip_smoke.cuda_ms,
+one-call CUDA-event medians; the dQ and dK/dV kernels and the GroupNorm
+backward at the ADM-64 classifier's sites, beside SDPA's whole backward
+and F.group_norm's backward, with their device times from torch.profiler)
+in the order tree, variant, variant, tree. Each library runs in its own
+process: two libraries holding the same kernels in one process fail their
+launches.
 
 The variants kept here are designs that were measured and not adopted;
 ``PERF.md`` §6 holds their numbers.
@@ -59,6 +59,67 @@ def _wgmma_rs(n):
 """
 
 
+# the edits of flash_bwd_dq.cu that give its ring a producer warp (the
+# first edit sets the blocks an SM: three stages leave room for three
+# one-warpgroup blocks)
+_DQ_PRODUCER = [
+    ("""  static constexpr int kThreads = 128 * WG;
+  static constexpr int kWarps = 4 * WG;
+  static constexpr int kBM = 64 * WG;  // query rows a block
+  static constexpr int kBN = 64;       // keys a tile
+  static constexpr int kMinBlocks = WG == 2 ? (D >= 128 ? 1 : 2) : (D >= 128 ? 2 : 4);
+  static constexpr int kStages = 2;""",
+     """  static constexpr int kThreads = 128 * WG + 32;  // + the producer warp
+  static constexpr int kWarps = 4 * WG;
+  static constexpr int kBM = 64 * WG;  // query rows a block
+  static constexpr int kBN = 64;       // keys a tile
+  static constexpr int kMinBlocks = WG == 2 ? (D >= 128 ? 1 : 2) : (D >= 128 ? 1 : 3);
+  static constexpr int kStages = 3;"""),
+    ("(1 + kStages) * 8 + 4 * kStages;", "(1 + 2 * kStages) * 8;"),
+    ("unsigned* done = reinterpret_cast<unsigned*>(full + stages);  // warps done with a stage",
+     "uint64_t* empty = full + stages;"),
+    ("""      mbar_init(full + s, 1);
+      done[s] = 0;
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, 2 * QB);
+    fa::load_rows<D>(sq, q_map, BM, r0, bh, qbar);
+    fa::load_rows<D>(so, o_map, BM, r0, bh, qbar);
+    for (int j = 0; j < stages && j < n_tiles; ++j) issue(j);
+  }""",
+     """      mbar_init(full + s, 1);
+      mbar_init(empty + s, C::kWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * WG) {
+    // the producer warp: Q and dO once, then the ring
+    if (threadIdx.x == 128 * WG) {
+      mbar_expect_tx(qbar, 2 * QB);
+      fa::load_rows<D>(sq, q_map, BM, r0, bh, qbar);
+      fa::load_rows<D>(so, o_map, BM, r0, bh, qbar);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j >= stages) mbar_wait(empty + j % stages, (j / stages - 1) & 1);
+        issue(j);
+      }
+    }
+    return;
+  }"""),
+    ("""    if ((threadIdx.x & 31) == 0) {
+      // the stage's count reaches kWarps u after its u-th tile
+      __threadfence_block();
+      if (atomicAdd(done + s, 1u) == C::kWarps * (j / stages) + C::kWarps - 1 &&
+          j + stages < n_tiles)
+        issue(j + stages);
+    }""",
+     """    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + s);"""),
+]
+
 # name -> (source stem, {file: [(old, new), ...]}); each old text must
 # occur exactly once in the tree's file
 VARIANTS = {
@@ -66,7 +127,7 @@ VARIANTS = {
     # one TMA box a chunk, one m64n80 P V product) instead of one
     # 128-byte-swizzled 64-feature box and two chunks
     "fwd_d80_chunks": ("flash_fwd", {
-        "flash_fwd.cu": [(
+        "flash_wgmma.cuh": [(
             """  static constexpr int SW = D / 64;
   static constexpr int CH = (D % 64) / 8;""",
             """  static constexpr int SW = D == 80 ? 0 : D / 64;
@@ -238,6 +299,75 @@ VARIANTS = {
         "  static constexpr int kStages = 3;", "  static constexpr int kStages = 2;")]}),
     "dkv_four_stages": ("flash_bwd_dkv", {"flash_bwd_dkv.cu": [(
         "  static constexpr int kStages = 3;", "  static constexpr int kStages = 4;")]}),
+    # the dQ kernel's ring fed by a producer warp beside the two
+    # warpgroups, three stages with `full` and `empty` mbarriers (as
+    # flash_bwd_dkv.cu), instead of two stages refilled by the last warp
+    # done with one
+    "dq_producer": ("flash_bwd_dq", {"flash_bwd_dq.cu": _DQ_PRODUCER}),
+    # ... and with one block an SM (about 113 registers a thread for two
+    # blocks of 288 threads)
+    "dq_producer_one_block": ("flash_bwd_dq", {"flash_bwd_dq.cu": _DQ_PRODUCER[:1] + [(
+        "(D >= 128 ? 1 : 2) : (D >= 128 ? 1 : 3)", "1 : (D >= 128 ? 1 : 3)")]
+        + _DQ_PRODUCER[1:]}),
+    # the dQ kernel's two-warpgroup block at one block an SM (255 registers
+    # a thread) instead of two (128)
+    "dq_one_block": ("flash_bwd_dq", {"flash_bwd_dq.cu": [(
+        "kMinBlocks = WG == 2 ? (D >= 128 ? 1 : 2)", "kMinBlocks = WG == 2 ? 1")]}),
+    # the dQ kernel issuing the next tile's S and dP behind the tile's dq
+    # product (and handing the stage back a tile later, so three stages)
+    # instead of draining its products at the end of every tile
+    "dq_issue_ahead": ("flash_bwd_dq", {"flash_bwd_dq.cu": [
+        ("(D >= 128 ? 2 : 4);\n  static constexpr int kStages = 2;",
+         "(D >= 128 ? 1 : 3);\n  static constexpr int kStages = 3;"),
+        ("""  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    mbar_wait(full + s, (j / stages) & 1);
+    abt(sacc, sq, stage_k(s));  // S
+    abt(pacc, so, stage_v(s));  // dP
+    wg::wait_one();             // S done
+    wg::fence_operands(sacc);""",
+         """  auto release = [&](int j) {
+    const int s = j % stages;
+    if ((threadIdx.x & 31) == 0) {
+      __threadfence_block();
+      if (atomicAdd(done + s, 1u) == C::kWarps * (j / stages) + C::kWarps - 1 &&
+          j + stages < n_tiles)
+        issue(j + stages);
+    }
+  };
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % stages;
+    mbar_wait(full + s, (j / stages) & 1);
+    abt(sacc, sq, stage_k(s));  // S
+    abt(pacc, so, stage_v(s));  // dP
+    wg::wait_one();             // S done, and tile j - 1's dq product
+    wg::fence_operands(sacc);
+    wg::fence_operands(dqa);
+    if (j > 0) release(j - 1);"""),
+        ("""    dsk(dsa, stage_k(s));
+    wg::wait_all();
+    wg::fence_operands(dqa);
+    wg::fence_operands(dsa);
+    if ((threadIdx.x & 31) == 0) {
+      // the stage's count reaches kWarps u after its u-th tile
+      __threadfence_block();
+      if (atomicAdd(done + s, 1u) == C::kWarps * (j / stages) + C::kWarps - 1 &&
+          j + stages < n_tiles)
+        issue(j + stages);
+    }
+  }""",
+         """    dsk(dsa, stage_k(s));
+  }
+  wg::wait_all();
+  wg::fence_operands(dqa);""")]}),
+    # the dQ kernel's two-warpgroup block on 128-key tiles (m64n128 logit
+    # products, as flash_fwd.cu up to D = 64), one block an SM
+    "dq_bn128": ("flash_bwd_dq", {"flash_bwd_dq.cu": [
+        ("static constexpr int kBN = 64;       // keys a tile",
+         "static constexpr int kBN = WG == 2 && D <= 64 ? 128 : 64;"),
+        ("kMinBlocks = WG == 2 ? (D >= 128 ? 1 : 2)", "kMinBlocks = WG == 2 ? 1")]}),
     # the GroupNorm backward's sums pass unrolled four times (more 16-byte
     # loads of x and g in flight a lane) instead of twice
     "gnb_unroll4": ("group_norm_bwd", {"group_norm_bwd.cu": [(
@@ -367,15 +497,21 @@ CHECK = {"flash_fwd": [(2, 8, 80, 300, 77), (2, 8, 80, 1000, 1000),
                               (16, 8, 40, 4096, 77)],
          "flash_fwd_wide": [(2, 1, 512, 700, 650), (2, 1, 512, 64, 130),
                             (1, 1, 512, 4096, 4096), (8, 1, 512, 4096, 4096)]}
-# the dK/dV kernel: (N, D, T, S) of [N, T, D] q, dO and [N, S, D] k, v
+# the backward kernels: (N, D, T, S) of [N, T, D] q, dO and [N, S, D] k, v
 CHECK["flash_bwd_dkv"] = [(10, 64, 1000, 300), (10, 64, 77, 50),
                           (10, 64, 130, 129), (10, 64, 1000, 64)]
+CHECK["flash_bwd_dq"] = [(10, 64, 1000, 300), (10, 64, 77, 50),
+                         (10, 64, 130, 129), (10, 64, 40, 300),
+                         (10, 64, 300, 50), (10, 128, 200, 129),
+                         (10, 32, 130, 300), (10, 16, 40, 77)]
+# the classifier's backward sites at batch 32, and the UNet's (1024, 6)
 TIME = {"flash_bwd_dkv": [(128, 64, 1024, 1024), (192, 64, 1024, 1024),
                           (192, 64, 256, 256), (256, 64, 64, 64)],
         "flash_fwd": [(192, 1, 64, 1024, 1024), (288, 1, 64, 256, 256),
                       (16, 8, 80, 1024, 1024), (16, 8, 80, 1024, 77)],
         "flash_fwd_packed": [(16, 8, 40, 4096, 4096), (16, 8, 40, 4096, 77)],
         "flash_fwd_wide": [(8, 1, 512, 4096, 4096)]}
+TIME["flash_bwd_dq"] = TIME["flash_bwd_dkv"]
 
 
 def patch(name, out):
@@ -457,8 +593,9 @@ def worker(lib, stem, mode):
         return o, lse
 
     out = {}
-    if stem in ("flash_bwd_dkv", "group_norm_bwd"):
-        work = dkv_worker if stem == "flash_bwd_dkv" else gnb_worker
+    work = {"flash_bwd_dq": dq_worker, "flash_bwd_dkv": dkv_worker,
+            "group_norm_bwd": gnb_worker}.get(stem)
+    if work:
         print(json.dumps(work(fn, stream, gen, mode)), flush=True)
         return
     for b, heads, d, t, s in (CHECK if mode == "check" else TIME)[stem]:
@@ -530,6 +667,54 @@ def dkv_worker(fn, stream, gen, mode):
             oh = F.scaled_dot_product_attention(qh, kh, vh)
             out[key] = dict(ms=cs.cuda_ms(call),
                             device_ms=cs.device_ms(call, "flash_bwd_dkv"),
+                            sdpa_ms=cs.cuda_ms(lambda: torch.autograd.grad(
+                                oh, (qh, kh, vh), gh, retain_graph=True)))
+    return out
+
+
+def dq_worker(fn, stream, gen, mode):
+    """The dQ kernel's check against its twin, or its timing beside SDPA's
+    whole backward (dq, dk and dv) on the same [B, H, T, D]."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from autodiffusion_tpu_torch.ops.flash_attention import (
+        flash_bwd_dq_plain, flash_fwd_plain)
+
+    out = {}
+    for n, d, t, s in (CHECK if mode == "check" else TIME)["flash_bwd_dq"]:
+        q, do = (torch.randn(n, t, d, generator=gen, device="cuda")
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(n, s, d, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        o, lse = flash_fwd_plain(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = torch.empty_like(q)
+
+        def call():
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, t, s,
+                    d, 1, 1 / math.sqrt(d), stream)
+            if rc:
+                raise RuntimeError(f"launch failed: {rc}")
+
+        key = f"{n}x{d} T{t} S{s}"
+        if mode == "check":
+            call()
+            want = flash_bwd_dq_plain(q, k, v, do, lse, delta)
+            share = cs.compare(dq, want, "bfloat16")[1]
+            out[key] = dict(share_of_limit=share, lse_err=0.0)
+            if share > 1:
+                raise AssertionError(f"{key}: disagrees with the twin")
+        else:
+            b = n // 8 if n % 8 == 0 else n
+            qh, kh, vh, gh = (z.reshape(b, -1, z.shape[1], d).detach()
+                              .requires_grad_(z is not do)
+                              for z in (q, k, v, do))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            out[key] = dict(ms=cs.cuda_ms(call),
+                            device_ms=cs.device_ms(call, "flash_bwd_dq"),
                             sdpa_ms=cs.cuda_ms(lambda: torch.autograd.grad(
                                 oh, (qh, kh, vh), gh, retain_graph=True)))
     return out
@@ -613,7 +798,8 @@ def main(name):
               f"lse {row['lse_err']:.2e}", flush=True)
     for lib, label in (("tree", "tree"), (so, name), (so, name),
                        ("tree", "tree")):
-        library = {"flash_bwd_dkv": "SDPA backward",
+        library = {"flash_bwd_dq": "SDPA backward",
+                   "flash_bwd_dkv": "SDPA backward",
                    "group_norm_bwd": "F.group_norm backward"}.get(stem,
                                                                   "SDPA")
         for key, row in run([lib, stem, "time"]).items():
