@@ -1,20 +1,24 @@
-"""FID statistics: streamed feature moments and the Frechet distance.
+"""FID statistics: streamed feature moments, the Frechet distance and the
+Inception Score.
 
 Port of autodiffusion_tpu/fid/stats.py (evaluations/evaluator_v1.py:
-86-157). Moments accumulate in float64 on the device (the JAX package's
-lesson: reduced-precision second moments drove FIDs negative); the
-Frechet distance runs its eigendecompositions in float64.
+86-157, 223-236). Moments accumulate in float64 on the device (the JAX
+package's lesson: reduced-precision second moments drove FIDs negative);
+the Frechet distance runs in float64, by eigendecompositions or, as the
+reference, by the host's scipy sqrtm.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["FeatureStats", "FIDStats", "accumulate_stats", "finalize_stats",
-           "frechet_distance_eigh", "make_device_frechet"]
+           "frechet_distance", "frechet_distance_eigh", "make_device_frechet",
+           "inception_score"]
 
 
 class FeatureStats(NamedTuple):
@@ -81,6 +85,38 @@ def finalize_stats(stats: FeatureStats,
     return FIDStats(mu, sigma)
 
 
+def frechet_distance(s1: FIDStats, s2: FIDStats, eps: float = 1e-6) -> float:
+    """||mu1-mu2||^2 + Tr(S1 + S2 - 2 sqrt(S1 S2)) by the host's scipy
+    sqrtm in float64, with the reference's guards (evaluator_v1.py:
+    109-157): the diagonal jittered by ``eps`` when sqrtm is not finite, an
+    imaginary part dropped when the diagonal's is within 1e-3 of 0."""
+    import scipy.linalg
+
+    def _sqrtm(a):
+        out = scipy.linalg.sqrtm(a)
+        return out[0] if isinstance(out, tuple) else out  # scipy < 1.18
+
+    mu1, sigma1 = s1.mu, s1.sigma
+    mu2, sigma2 = s2.mu, s2.sigma
+    if mu1.shape != mu2.shape or sigma1.shape != sigma2.shape:
+        raise ValueError(f"statistics of different dimensions: "
+                         f"{mu1.shape} and {mu2.shape}")
+    diff = mu1 - mu2
+    covmean = _sqrtm(sigma1.dot(sigma2))
+    if not np.isfinite(covmean).all():
+        warnings.warn(f"fid calculation produces singular product; adding "
+                      f"{eps} to diagonal of cov estimates")
+        offset = np.eye(sigma1.shape[0]) * eps
+        covmean = _sqrtm((sigma1 + offset).dot(sigma2 + offset))
+    if np.iscomplexobj(covmean):
+        if not np.allclose(np.diagonal(covmean).imag, 0, atol=1e-3):
+            m = np.max(np.abs(covmean.imag))
+            raise ValueError(f"Imaginary component {m}")
+        covmean = covmean.real
+    return float(diff.dot(diff) + np.trace(sigma1) + np.trace(sigma2)
+                 - 2 * np.trace(covmean))
+
+
 def frechet_distance_eigh(s1: FIDStats, s2: FIDStats) -> float:
     """||mu1-mu2||^2 + Tr(S1 + S2 - 2 sqrt(S1 S2)) on the host in float64,
     with tr sqrt(S1 S2) from eig(sqrt(S1) S2 sqrt(S1)) (two symmetric
@@ -128,3 +164,17 @@ def make_device_frechet(ref_stats: FIDStats, device=None
         return fid.cpu().numpy()
 
     return fn
+
+
+def inception_score(softmax_probs: np.ndarray,
+                    split_size: int = 5000) -> float:
+    """exp(E KL(p(y|x) || p(y))) over splits, in float64 on the host
+    (evaluator_v1.py:223-236)."""
+    preds = np.asarray(softmax_probs, dtype=np.float64)
+    scores = []
+    for i in range(0, len(preds), split_size):
+        part = preds[i:i + split_size]
+        kl = part * (np.log(part + 1e-12)
+                     - np.log(part.mean(axis=0, keepdims=True) + 1e-12))
+        scores.append(np.exp(kl.sum(axis=1).mean()))
+    return float(np.mean(scores))

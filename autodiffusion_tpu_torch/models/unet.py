@@ -10,7 +10,10 @@ construction order, the numbering of Dynamic_UNetModel
 (dynamic_unet.py:507-655): 58 ids for ADM-64. ``keep_mask`` ([L] for the
 whole batch or [B, L] per sample, candidates folded into the batch)
 multiplies each block's residual branch, so a skipped block is exactly the
-reference's short-circuit.
+reference's short-circuit. ``structural_skip`` (a set of layer ids, for
+deploying a searched architecture) leaves those blocks' residual branches
+out altogether: the same output as a zero in the keep mask, without their
+work.
 
 Self-attention goes through ``ops.flash_attention`` at every site: the
 hand-written kernels on the card, their plain twin on the CPU. Three
@@ -24,7 +27,7 @@ its conv directly into the fused norm-act-conv.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import AbstractSet, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -122,9 +125,7 @@ class ResBlock(nn.Module):
             scale, shift = emb_out.chunk(2, dim=1)
         else:
             h = h + emb_out[:, :, None, None]
-        skip = self.skip_connection(x) if isinstance(
-            self.skip_connection, (nn.Identity, Conv3x3)) \
-            else conv2d(self.skip_connection, x)
+        skip = self._project(x)
         if fuse_out:
             aff = norm(h, scale=scale, shift=shift, return_affine=True)
             if keep is None:
@@ -132,6 +133,17 @@ class ResBlock(nn.Module):
             return skip + _apply_keep(conv(h, affine=aff), keep)
         h = conv(dropout(norm(h, scale=scale, shift=shift, act="silu")))
         return skip + _apply_keep(h, keep)
+
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.skip_connection, (nn.Identity, Conv3x3)):
+            return self.skip_connection(x)
+        return conv2d(self.skip_connection, x)
+
+    def skip_path(self, x: torch.Tensor) -> torch.Tensor:
+        """The block with its residual branch left out: the resample and
+        the channel projection only (a skipped dynamic block,
+        dynamic_unet.py:245-249)."""
+        return self._project(self.x_upd(x) if self.updown else x)
 
 
 class AttentionBlock(nn.Module):
@@ -240,8 +252,14 @@ class _Blocks(nn.ModuleList):
         super().__init__(mods)
         self.layer_ids: List[Optional[int]] = [None] * len(mods)
 
-    def run(self, h, emb, keep_mask):
+    def run(self, h, emb, keep_mask, skip: AbstractSet[int] = frozenset()):
         for mod, lid in zip(self, self.layer_ids):
+            if lid in skip:
+                # left out: a skipped attention block is the identity
+                # (dynamic_unet.py:316-318)
+                if isinstance(mod, ResBlock):
+                    h = mod.skip_path(h)
+                continue
             keep = None if lid is None else _keep_factor(keep_mask, lid)
             if isinstance(mod, ResBlock):
                 h = mod(h, emb, keep)
@@ -329,7 +347,8 @@ class UNetModel(_Trunk):
     """The ADM UNet (guided_diffusion/unet.py:396-665) with layer masking.
 
     forward(x [B, C, H, W], timesteps [B], y [B] or None, keep_mask [L] or
-    [B, L] or None) -> [B, out_channels, H, W] float32. Computes in
+    [B, L] or None, structural_skip a set of layer ids or None) ->
+    [B, out_channels, H, W] float32. Computes in
     ``dtype`` (bfloat16 under ``use_bf16``); the final conv runs in float32
     as in the JAX model."""
 
@@ -389,7 +408,9 @@ class UNetModel(_Trunk):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None,
-                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep_mask: Optional[torch.Tensor] = None,
+                structural_skip: Optional[AbstractSet[int]] = None
+                ) -> torch.Tensor:
         if (y is not None) != (self.num_classes is not None):
             raise ValueError("must specify y exactly when the model is "
                              "class-conditional")
@@ -399,14 +420,16 @@ class UNetModel(_Trunk):
         emb = self._embed(timesteps, self.dtype)
         if y is not None:
             emb = emb + self.label_emb.weight.to(self.dtype)[y]
+        skip = frozenset(structural_skip or ())
         h = x.to(self.dtype)
         hs = []
         for blk in self.input_blocks:
-            h = blk.run(h, emb, keep_mask)
+            h = blk.run(h, emb, keep_mask, skip)
             hs.append(h)
-        h = self.middle_block.run(h, emb, keep_mask)
+        h = self.middle_block.run(h, emb, keep_mask, skip)
         for blk in self.output_blocks:
-            h = blk.run(torch.cat([h, hs.pop()], dim=1), emb, keep_mask)
+            h = blk.run(torch.cat([h, hs.pop()], dim=1), emb, keep_mask,
+                        skip)
         h = self.out[0](h, act="silu")
         return conv2d(self.out[2], h.float())
 

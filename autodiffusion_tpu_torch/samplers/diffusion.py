@@ -1,4 +1,4 @@
-"""DDIM sampling over ScheduleTables (NCHW).
+"""Ancestral and DDIM sampling over ScheduleTables (NCHW).
 
 Port of autodiffusion_tpu/samplers/diffusion.py (guided_diffusion/
 gaussian_diffusion.py:232-716). The JAX package runs the K steps as one
@@ -23,7 +23,8 @@ import torch
 from ..schedules import ScheduleTables
 
 __all__ = ["ModelMeanType", "ModelVarType", "q_sample",
-           "q_posterior_mean_variance", "p_mean_variance", "ddim_sample_loop"]
+           "q_posterior_mean_variance", "p_mean_variance", "p_sample_loop",
+           "ddim_sample_loop"]
 
 
 class ModelMeanType(enum.Enum):
@@ -142,6 +143,51 @@ def _bcast_t(t: torch.Tensor, batch: int) -> torch.Tensor:
     return t.float().expand(batch) if t.dim() == 0 else t.float()
 
 
+def _x_T(shape, noise, generator, dev) -> torch.Tensor:
+    return (torch.randn(tuple(shape), generator=generator, device=dev)
+            if noise is None else noise.to(dev)).float()
+
+
+def _z(step_noise, i: int, x: torch.Tensor, generator, dev) -> torch.Tensor:
+    return (torch.randn(x.shape, generator=generator, device=dev)
+            if step_noise is None else step_noise[i].to(dev))
+
+
+@torch.no_grad()
+def p_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
+                  *, device=None, generator: Optional[torch.Generator] = None,
+                  mean_type: ModelMeanType = ModelMeanType.EPSILON,
+                  var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+                  clip_denoised: bool = True,
+                  denoised_fn: Optional[Callable] = None,
+                  cond_fn: Optional[Callable] = None,
+                  noise: Optional[torch.Tensor] = None,
+                  step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ancestral sampling (gaussian_diffusion.py:395-534). Returns x_0
+    (float32, ``shape``). Guidance shifts the mean by variance * cond_fn
+    (condition_mean, gaussian_diffusion.py:356-369); step 0 adds no noise.
+
+    ``noise`` is x_T; ``step_noise`` [K, *shape] the per-step z (step i
+    uses step_noise[i]); either is drawn from ``generator`` when absent.
+    ``tables`` must already be on ``device``."""
+    dev = torch.device(device) if device is not None else tables.betas.device
+    x = _x_T(shape, noise, generator, dev)
+    for i in range(tables.num_steps - 1, -1, -1):
+        t = _bcast_t(tables.timestep_map[..., i], shape[0])
+        model_out = model_fn(x, t, i).float()
+        mean, variance, log_variance, _ = p_mean_variance(
+            tables, model_out, x, i, mean_type=mean_type, var_type=var_type,
+            clip_denoised=clip_denoised, denoised_fn=denoised_fn)
+        if cond_fn is not None:
+            mean = mean + variance * cond_fn(x, t)
+        if i == 0:
+            x = mean
+            continue
+        x = mean + torch.exp(0.5 * log_variance) \
+            * _z(step_noise, i, x, generator, dev)
+    return x
+
+
 @torch.no_grad()
 def ddim_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
                      *, device=None, generator: Optional[torch.Generator] = None,
@@ -161,11 +207,9 @@ def ddim_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
     uses step_noise[i]); either is drawn from ``generator`` when absent.
     ``tables`` must already be on ``device``."""
     dev = torch.device(device) if device is not None else tables.betas.device
-    K = tables.num_steps
     nd = len(shape) - 1
-    x = (torch.randn(tuple(shape), generator=generator, device=dev)
-         if noise is None else noise.to(dev)).float()
-    for i in range(K - 1, -1, -1):
+    x = _x_T(shape, noise, generator, dev)
+    for i in range(tables.num_steps - 1, -1, -1):
         t = _bcast_t(tables.timestep_map[..., i], shape[0])
         model_out = model_fn(x, t, i).float()
         _, _, _, pred_x0 = p_mean_variance(
@@ -190,7 +234,5 @@ def ddim_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
         if i == 0 and not final_step_noise:
             x = mean_pred
             continue
-        z = (torch.randn(x.shape, generator=generator, device=dev)
-             if step_noise is None else step_noise[i].to(dev))
-        x = mean_pred + sigma * z
+        x = mean_pred + sigma * _z(step_noise, i, x, generator, dev)
     return x

@@ -18,7 +18,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..schedules import ScheduleTables
-from .diffusion import _at, _bcast_t
+from .diffusion import _at, _bcast_t, _x_T
 
 __all__ = ["plms_sample_loop"]
 
@@ -46,8 +46,7 @@ def plms_sample_loop(model_fn: Callable, shape: Sequence[int],
         t = _bcast_t(tables.timestep_map[..., i], shape[0])
         return model_fn(x, t, i).float()
 
-    x = (torch.randn(tuple(shape), generator=generator, device=dev)
-         if noise is None else noise.to(dev)).float()
+    x = _x_T(shape, noise, generator, dev)
     hist = []                                     # eps history, newest first
     for i in range(K - 1, -1, -1):
         e_t = eps(x, i)

@@ -4,11 +4,13 @@ from .evolution import EvolutionSearcher, progressive_skip_hook
 from .fitness import BatchedFIDFitness, to_uint8
 from .pipelines import keep_masks_for, make_adm_fitness
 from .sd_pipelines import make_sd_fitness, prompt_window, sd_decode_to_uint8
-from .space import JointSpace, TimestepSpace, parse_timestep_string
+from .space import (ContinuousTimeSpace, JointSpace, TimestepSpace,
+                    parse_joint_string, parse_timestep_string)
 
 __all__ = [
     "EvolutionSearcher", "progressive_skip_hook", "BatchedFIDFitness",
-    "to_uint8", "keep_masks_for", "make_adm_fitness", "JointSpace",
-    "TimestepSpace", "parse_timestep_string", "make_sd_fitness",
-    "prompt_window", "sd_decode_to_uint8",
+    "to_uint8", "keep_masks_for", "make_adm_fitness", "ContinuousTimeSpace",
+    "JointSpace", "TimestepSpace", "parse_joint_string",
+    "parse_timestep_string", "make_sd_fitness", "prompt_window",
+    "sd_decode_to_uint8",
 ]

@@ -1,4 +1,5 @@
-"""The ADM search pipeline: models + guided DDIM + FID fitness.
+"""The ADM search pipeline: models + guided DDIM or ancestral sampling +
+FID fitness.
 
 Port of autodiffusion_tpu/search/pipelines.py (get_cand_fid of
 search_imagenet64_classifier_guidance.py:308-376 and its joint variant).
@@ -13,7 +14,8 @@ import torch
 
 from .. import resolve_device
 from ..fid.stats import FIDStats
-from ..samplers import classifier_cond_fn, ddim_sample_loop
+from ..samplers import (classifier_cond_fn, ddim_sample_loop,
+                        p_sample_loop)
 from ..samplers.diffusion import ModelVarType
 from ..schedules import build_tables
 from .fitness import BatchedFIDFitness, to_uint8
@@ -51,9 +53,6 @@ def make_adm_fitness(*, model, image_size: int, feature_fn: Callable,
     model.requires_grad_(False)
     if classifier is not None:
         classifier.requires_grad_(False)
-    if not use_ddim:
-        raise NotImplementedError("ancestral sampling (p_sample_loop) is not "
-                                  "ported yet; use use_ddim=True")
     layer_num = model.layer_num
     var_type = (ModelVarType.LEARNED_RANGE if learn_sigma
                 else ModelVarType.FIXED_LARGE)
@@ -90,10 +89,11 @@ def make_adm_fitness(*, model, image_size: int, feature_fn: Callable,
             cond = classifier_cond_fn(classifier, y, classifier_scale)
         shape = (n, 3, image_size, image_size)
         noise = torch.randn(shape, generator=gen, device=dev)
-        x0 = ddim_sample_loop(model_fn, shape, tables, device=dev,
-                              generator=gen, eta=eta, var_type=var_type,
-                              clip_denoised=clip_denoised, cond_fn=cond,
-                              noise=noise)
+        loop = ddim_sample_loop if use_ddim else p_sample_loop
+        kw = {"eta": eta} if use_ddim else {}
+        x0 = loop(model_fn, shape, tables, device=dev, generator=gen,
+                  var_type=var_type, clip_denoised=clip_denoised,
+                  cond_fn=cond, noise=noise, **kw)
         return to_uint8(x0)
 
     return BatchedFIDFitness(

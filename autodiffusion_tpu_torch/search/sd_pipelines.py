@@ -1,31 +1,34 @@
 """The Stable Diffusion search pipeline: CLIP context bank + classifier-free
-guided PLMS or DDIM + VAE decode + FID fitness.
+guided PLMS, DDIM or DPM-Solver + VAE decode + FID fitness.
 
 Port of autodiffusion_tpu/search/sd_pipelines.py (get_cand_fid of
-sd/scripts/search_ea.py:504-566). Candidates are integer timestep subsets;
-the fitness is the FID of the guided latent samples decoded through the
-VAE. The CLIP text tower runs once per search, into a context bank the
-caller passes in; every candidate batch takes its prompts from it.
+sd/scripts/search_ea.py:504-566). Candidates are integer timestep subsets
+(PLMS, DDIM) or continuous time knots (DPM-Solver); the fitness is the FID
+of the guided latent samples decoded through the VAE. The CLIP text tower
+runs once per search, into a context bank the caller passes in; every
+candidate batch takes its prompts from it.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..fid.stats import FIDStats
 from ..models.vae import SD_SCALE_FACTOR
-from ..samplers import cfg_eps_fn, ddim_sample_loop, plms_sample_loop
+from ..samplers import (DiscreteNoiseSchedule, cfg_eps_fn, ddim_sample_loop,
+                        dpm_solver_sample_loop, plms_sample_loop)
 from ..samplers.diffusion import ModelVarType
-from ..schedules import build_sd_tables
+from ..schedules import build_sd_tables, make_beta_schedule
 from .fitness import BatchedFIDFitness
 
 __all__ = ["make_sd_fitness", "prompt_window", "sd_decode_to_uint8",
            "SD_SAMPLERS"]
 
-SD_SAMPLERS = ("plms", "ddim")
+SD_SAMPLERS = ("plms", "ddim", "dpm_solver")
 
 
 def sd_decode_to_uint8(decode_fn: Callable, z: torch.Tensor) -> torch.Tensor:
@@ -54,42 +57,50 @@ def make_sd_fitness(*, unet, vae, context_bank: torch.Tensor,
                     uncond_context: torch.Tensor, feature_fn: Callable,
                     ref_stats: FIDStats, num_samples: int, batch_size: int,
                     sampler: str = "plms", guidance_scale: float = 7.5,
-                    latent_hw: int = 64, candidate_chunk: int = 4,
-                    seed: int = 0, feature_dim: int = 2048,
-                    device=None) -> BatchedFIDFitness:
-    """Fitness of timestep candidates for the SD towers on ``device`` (cuda
-    by default). ``context_bank`` [N, 77, 768] holds the CLIP embeddings of
+                    latent_hw: int = 64, dpm_order: int = 2,
+                    candidate_chunk: int = 4, seed: int = 0,
+                    feature_dim: int = 2048, device=None) -> BatchedFIDFitness:
+    """Fitness of candidates for the SD towers on ``device`` (cuda by
+    default). ``context_bank`` [N, 77, 768] holds the CLIP embeddings of
     the evaluation prompts, ``uncond_context`` [77, 768] the empty
-    prompt's. ``sampler`` is "plms" or "ddim" (FIXED_SMALL, no clipping,
-    eta 0)."""
+    prompt's. ``sampler`` is "plms", "ddim" (FIXED_SMALL, no clipping,
+    eta 0) or "dpm_solver" (multistep at ``dpm_order``, lower_order_final,
+    predict_x0); candidates are integer timesteps for the first two and
+    K + 1 float times in (0, 1] for DPM-Solver."""
     dev = resolve_device(device)
-    if sampler == "dpm_solver":
-        raise NotImplementedError(
-            "the dpm_solver sampler is not ported yet (ROADMAP.md, queue 1 "
-            "item 10): use --sampler plms or ddim")
     if sampler not in SD_SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; one of {SD_SAMPLERS}")
     bank = context_bank.to(dev)
     uncond = uncond_context.to(dev)
     n_prompts = bank.shape[0]
+    # v1-inference.yaml's 1000-step sqrt_linear process
+    noise_sched = DiscreteNoiseSchedule.from_betas(
+        make_beta_schedule("sqrt_linear", 1000)).to(dev)
 
     def payload_fn(cand):
-        # v1-inference.yaml's 1000-step sqrt_linear process
+        if sampler == "dpm_solver":
+            times = np.asarray(sorted(cand, reverse=True), np.float32)
+            return {"times": torch.from_numpy(times)}
         return {"tables": build_sd_tables(cand)}
 
     def sample_fn(payload, gen: torch.Generator, batch_idx: int):
-        tables = payload["tables"]
-        n = tables.betas.shape[0]         # chunk * per-candidate slice
+        n = (payload["times"] if sampler == "dpm_solver"
+             else payload["tables"].betas).shape[0]   # chunk * slice
         ctx = bank[prompt_window(n, candidate_chunk, batch_idx,
                                  n_prompts).to(dev)]
         shape = (n, 4, latent_hw, latent_hw)
         noise = torch.randn(shape, generator=gen, device=dev)
         guided = cfg_eps_fn(unet, ctx, uncond, guidance_scale)
-        if sampler == "plms":
-            z = plms_sample_loop(guided, shape, tables, device=dev,
-                                 noise=noise)
+        if sampler == "dpm_solver":
+            z = dpm_solver_sample_loop(guided, shape, noise_sched,
+                                       payload["times"], device=dev,
+                                       order=dpm_order, predict_x0=True,
+                                       noise=noise)
+        elif sampler == "plms":
+            z = plms_sample_loop(guided, shape, payload["tables"],
+                                 device=dev, noise=noise)
         else:
-            z = ddim_sample_loop(guided, shape, tables, device=dev,
+            z = ddim_sample_loop(guided, shape, payload["tables"], device=dev,
                                  generator=gen, clip_denoised=False,
                                  var_type=ModelVarType.FIXED_SMALL,
                                  noise=noise)

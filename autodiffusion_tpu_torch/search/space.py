@@ -4,8 +4,8 @@ The reference encodes candidates as python-list *strings* passed through
 ``eval()`` (search_imagenet64_classifier_guidance.py:265-519). Here a
 candidate is a hashable tuple pytree and each space is an object exposing
 ``random() / mutate() / crossover() / seed()`` so the evolutionary driver is
-generic over (a) timestep-only search and (b) joint timestep+architecture
-search with a compute budget.
+generic over (a) timestep-only search, (b) joint timestep+architecture
+search with a compute budget, and (c) continuous-time search for DPM-Solver.
 
 Operator semantics mirror the reference:
   * random: shuffle-prefix of the original steps (:265-274)
@@ -29,7 +29,8 @@ import numpy as np
 
 from ..schedules import space_timesteps
 
-__all__ = ["TimestepSpace", "JointSpace", "parse_timestep_string"]
+__all__ = ["TimestepSpace", "JointSpace", "ContinuousTimeSpace",
+           "parse_timestep_string", "parse_joint_string"]
 
 
 def parse_timestep_string(s: str) -> Tuple[int, ...]:
@@ -37,6 +38,19 @@ def parse_timestep_string(s: str) -> Tuple[int, ...]:
     (safely; the reference uses eval, classifier_sample.py:140-145)."""
     v = ast.literal_eval(s)
     return tuple(sorted(int(t) for t in v))
+
+
+def parse_joint_string(s: str) -> Tuple[Tuple[int, ...], Tuple[Tuple[int, ...], ...]]:
+    """Parse a reference-format joint candidate: either a dict string
+    ``{'timesteps': [...], 'skip_layers': [[...], ...]}`` or separate lists.
+    skip_layers[i] pairs with the i-th *sorted* timestep (the reference
+    indexes skips via sorted timestep_map,
+    search_dynamic_unet...progressive.py:392-397)."""
+    v = ast.literal_eval(s)
+    ts = [int(t) for t in v["timesteps"]]
+    order = np.argsort(ts)
+    skips = [tuple(sorted(int(l) for l in v["skip_layers"][i])) for i in order]
+    return tuple(sorted(ts)), tuple(skips)
 
 
 @dataclass
@@ -245,3 +259,54 @@ class JointSpace:
         order = np.argsort(dts)
         return (tuple(sorted(dts)),
                 tuple(tuple(sorted(dsk[i])) for i in order))
+
+
+@dataclass
+class ContinuousTimeSpace:
+    """K+1 continuous times in (0, 1] for DPM-Solver, drawn from a dense
+    grid (sd/scripts/search_ea.py:371-502,888-902). Candidate = sorted tuple
+    of floats (descending order is applied at sampling time)."""
+
+    grid: Tuple[float, ...]          # dense grid, e.g. 1000 points
+    num_steps: int                   # number of knots (K+1 for order K)
+    rng: pyrandom.Random = field(default_factory=lambda: pyrandom.Random(0))
+
+    @classmethod
+    def uniform_grid(cls, num_steps: int, t_0: float = 1e-3, t_T: float = 1.0,
+                     grid_size: int = 1000, **kw) -> "ContinuousTimeSpace":
+        grid = tuple(np.linspace(t_T, t_0, grid_size).tolist())
+        return cls(grid=grid, num_steps=num_steps, **kw)
+
+    def random(self) -> Tuple[float, ...]:
+        idx = self.rng.sample(range(len(self.grid)), self.num_steps)
+        return tuple(sorted(self.grid[i] for i in idx))
+
+    def seed(self, use_ddim: bool = True) -> Tuple[float, ...]:
+        idx = np.linspace(0, len(self.grid) - 1, self.num_steps).round().astype(int)
+        return tuple(sorted(self.grid[i] for i in idx))
+
+    def mutate(self, cand, m_prob: float):
+        cand = list(cand)
+        unused = [g for g in self.grid if g not in cand]
+        self.rng.shuffle(unused)
+        for i in range(len(cand)):
+            if unused and self.rng.random() < m_prob:
+                cand[i] = unused.pop()
+        return tuple(sorted(cand))
+
+    def crossover(self, c1, c2):
+        child = [a if self.rng.random() < 0.5 else b for a, b in zip(c1, c2)]
+        # a positional mix of two sorted parents duplicates any knot the
+        # parents share; a duplicate knot makes h = lambda_t - lambda_s
+        # exactly 0 in the DPM-Solver update (0/0 NaN at order 3, a
+        # wasted NFE at order 2) — repair with unused grid knots, like
+        # the discrete TimestepSpace does
+        if len(set(child)) < len(child):
+            unused = [g for g in self.grid if g not in child]
+            self.rng.shuffle(unused)
+            seen = set()
+            for i, g in enumerate(child):
+                if g in seen:
+                    child[i] = unused.pop()
+                seen.add(child[i])
+        return tuple(sorted(child))

@@ -42,10 +42,11 @@ Phases, each of which raises on failure:
    ``F.group_norm`` (forward, or its autograd backward), the convs with
    their plan and share of the bound, and summed per guided step, SD UNet
    call and decode;
-4. parity: two guided DDIM steps of the full-width ADM-64 UNet and
-   classifier (float32, seeded random weights) on the GPU against the same
-   run on the CPU, where every kernel is its plain twin: once with the
-   switches off, once with all three on;
+4. parity: two guided DDIM steps and two guided ancestral steps (the same
+   x_T and per-step noise) of the full-width ADM-64 UNet and classifier
+   (float32, seeded random weights) on the GPU against the same runs on
+   the CPU, where every kernel is its plain twin: once with the switches
+   off, once with all three on;
 5. profile: one guided DDIM-4 run at batch 32 in bf16 under
    ``torch.profiler``: device time by kernel, the flash kernels' share
    (the forward's, the dQ kernel's and the dK/dV kernel's own lines) and
@@ -71,7 +72,16 @@ Phases, each of which raises on failure:
    Every FID must be finite and >= 0, and each run's launch counters,
    set to 0 just before it, must show every kernel of its path ran as
    many times as its guided steps need;
-8. SD kernels: at every attention site of the Stable Diffusion v1 UNet
+8. sample: ``adt-torch sample`` with the same checkpoints (classifier
+   guidance, a searched 4-step --use_timestep, 32 samples at batch 16),
+   ancestral and then DDIM with a 4-entry --skip_layers: the .npz's
+   format, the flash forward's, dQ's and dK/dV's launches per guided step
+   (35 / 13 / 13, and no other kernel), images/s;
+9. FID commands: ``adt-torch ref-stats`` of 64 seeded images on the GPU,
+   then ``adt-torch evaluate`` of the ancestral samples against them (FID,
+   IS, precision and recall with --ref_batch) on the GPU and on the CPU,
+   TF32 off: every metric in range, the two FIDs within 1e-3 relative;
+10. SD kernels: at every attention site of the Stable Diffusion v1 UNet
    and VAE decoder (read from the models on the meta device), the packed
    small-head-dim forward (D = 40, T = 4096, S = 4096 and 77, plus a
    ragged T), the flash forward at D = 80 (T = 1024, S = 1024 and 77) and
@@ -84,22 +94,24 @@ Phases, each of which raises on failure:
    route to them; all timed beside their twins, bounds (with the share of
    the bound each reaches) and library calls, the D = 40 rows also beside
    the softmax's exponential floor (T S n / 3.9e12 s^-1);
-9. SD parity: CLIP on two prompts, two PLMS steps of the UNet with
-   classifier-free guidance at batch 1 and one VAE decode, full width,
-   float32, seeded random weights, GPU against the CPU twins, switches off
-   and on;
-10. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler,
+11. SD parity: CLIP on two prompts, two PLMS steps of the UNet with
+    classifier-free guidance at batch 1, one VAE decode, and DPM-Solver-2
+    over three steps from the same latent, full width, float32, seeded
+    random weights, GPU against the CPU twins, switches off and on;
+12. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler,
     switches off and on (``chiprun_out/chip_smoke_profile_sd.txt``,
     ``chip_smoke_profile_sd_fused.txt``), with the packed and D = 80
     forwards' lines of a UNet call, the wide forward's line of the decode
     and the GroupNorm forward's time in each;
-11. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
+13. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
     scale 7.5, 512 x 512, chunk 2 x batch 4, 8 samples per candidate,
     population 4, one epoch) from a seeded random-weight CompVis-layout
     ``.ckpt``, a synthesized byte-level vocabulary and COCO captions file,
     twice (switches off, on), each FID finite and >= 0 and each kernel's
     launches equal to its per-call count from the models times the UNet
-    calls and decodes.
+    calls and decodes; then ``--sampler dpm_solver`` (five time knots,
+    DPM-Solver-2, the smallest population the EA takes) twice, with the
+    same launch check.
 
 The last lines of standard output are a ``kernels`` JSON line, the
 ``nvidia-smi`` name / power-limit line and ``{"ok": true, "device": ...}``.
@@ -1227,9 +1239,11 @@ def phase_profile(unet_sd, cls_sd):
 
 
 def phase_parity(unet_sd, cls_sd, env, label: str):
-    """Two guided DDIM steps of the full-width models in float32 under the
-    switches of ``env``: GPU (the kernels) against CPU (their plain twins),
-    same weights and noise. Returns (max abs error, the GPU run's kernel
+    """Two guided DDIM steps and two guided ancestral steps (the same x_T
+    and per-step z on both devices) of the full-width models in float32
+    under the switches of ``env``: GPU (the kernels) against CPU (their
+    plain twins), same weights. Each output within 1e-3 x its scale.
+    Returns ({"ddim2": err, "ancestral2": err}, the GPU runs' kernel
     launches)."""
     import torch
     from autodiffusion_tpu_torch.models import (ClassifierConfig,
@@ -1238,7 +1252,8 @@ def phase_parity(unet_sd, cls_sd, env, label: str):
                                                 create_model)
     from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from autodiffusion_tpu_torch.samplers import (classifier_cond_fn,
-                                                  ddim_sample_loop)
+                                                  ddim_sample_loop,
+                                                  p_sample_loop)
     from autodiffusion_tpu_torch.schedules import build_tables
 
     tf32 = torch.backends.cudnn.allow_tf32
@@ -1246,6 +1261,7 @@ def phase_parity(unet_sd, cls_sd, env, label: str):
     try:
         gen = torch.Generator().manual_seed(3)
         x_t = torch.randn(2, 3, 64, 64, generator=gen)
+        z = torch.randn(2, 2, 3, 64, 64, generator=gen)
         y = torch.tensor([7, 321])
         tables = build_tables("ddim2", base_schedule="cosine")
         outs = {}
@@ -1258,25 +1274,35 @@ def phase_parity(unet_sd, cls_sd, env, label: str):
             c.load_state_dict(cls_sd)
             yd = y.to(dev)
             cond = classifier_cond_fn(c, yd, 1.0)
+            t0 = time.time()
             reset_launch_counts()
             with switches(env):
-                out = ddim_sample_loop(
-                    lambda x, t, i: m(x, t, yd), (2, 3, 64, 64),
-                    tables.to(dev), device=dev, cond_fn=cond, noise=x_t)
-            outs[dev] = out.cpu()
+                for name, loop, kw in (("ddim2", ddim_sample_loop, {}),
+                                       ("ancestral2", p_sample_loop,
+                                        {"step_noise": z})):
+                    out = loop(lambda x, t, i: m(x, t, yd), (2, 3, 64, 64),
+                               tables.to(dev), device=dev, cond_fn=cond,
+                               noise=x_t, **kw)
+                    outs[(name, dev)] = out.cpu()
             launches = dict(LAUNCHES)
+            log(f"parity ({label}) on {dev}: {time.time() - t0:.1f} s")
             del m, c
-        if not torch.isfinite(outs["cuda"]).all():
-            raise AssertionError("non-finite guided DDIM output on the GPU")
-        err = float((outs["cuda"] - outs["cpu"]).abs().max())
-        scale = float(outs["cpu"].abs().max())
-        log(f"parity ({label}): guided DDIM-2, ADM-64 float32, GPU vs CPU "
-            f"max abs err {err:.3e} (output max {scale:.3f}, tol 1e-3 x "
-            f"scale), GPU launches {launches}")
-        if not err <= 1e-3 * max(scale, 1.0):
-            raise AssertionError(f"GPU guided DDIM ({label}) disagrees with "
-                                 f"the CPU twin: {err}")
-        return err, launches
+        errs = {}
+        for name in ("ddim2", "ancestral2"):
+            got, want = outs[(name, "cuda")], outs[(name, "cpu")]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"non-finite guided {name} output on "
+                                     "the GPU")
+            errs[name] = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            log(f"parity ({label}): guided {name}, ADM-64 float32, GPU vs "
+                f"CPU max abs err {errs[name]:.3e} (output max {scale:.3f}, "
+                f"tol 1e-3 x scale)")
+            if not errs[name] <= 1e-3 * max(scale, 1.0):
+                raise AssertionError(f"GPU guided {name} ({label}) disagrees "
+                                     f"with the CPU twin: {errs[name]}")
+        log(f"parity ({label}): GPU launches {launches}")
+        return errs, launches
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -1365,6 +1391,146 @@ def phase_search(paths, env, per_step, label: str):
     return dict(fids=fids, launches=launches, expected_launches=want,
                 chunks=chunks, guided_steps=steps, phases=phases,
                 images_per_s=ips, wall_s=wall)
+
+
+# a searched 4-step schedule (the first four knots of the README's
+# published ADM-64 artifact) and one skip list per step for ``sample``
+SAMPLE_TIMESTEPS = "[94, 834, 217, 944]"
+SAMPLE_SKIPS = "[[0, 3], [], [10, 57], [5]]"
+
+
+def phase_sample(paths):
+    """``adt-torch sample`` at full ADM-64 width (bf16, classifier guidance,
+    32 samples at batch 16) twice: ancestral (--use_ddim False) with the
+    4-step --use_timestep, then DDIM with a 4-entry --skip_layers. The
+    launch counters, set to 0 just before each run and read just after,
+    must show the flash forward, dQ and dK/dV each ``PER_STEP`` times a
+    guided step (8 steps) and nothing else; the .npz must hold uint8
+    [32, 64, 64, 3] images and labels in [0, 1000). Returns {run: dict}."""
+    import io
+
+    import numpy as np
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    runs = {"ancestral": ["--use_ddim", "False"],
+            "ddim_skip": ["--use_ddim", "True", "--skip_layers",
+                          SAMPLE_SKIPS]}
+    steps = 2 * 4                      # two batches of DDIM-4 / ancestral-4
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    out = {}
+    for label, extra in runs.items():
+        npz = os.path.join(WORK, f"samples_{label}.npz")
+        argv = ["sample", "--device", "cuda", "--model_path", paths["unet"],
+                "--classifier_path", paths["cls"], "--use_timestep",
+                SAMPLE_TIMESTEPS, "--num_samples", "32", "--batch_size", "16",
+                "--seed", "0", "--out", npz] + extra
+        buf = io.StringIO()
+        with switches(SWITCHES_OFF), contextlib.redirect_stdout(buf):
+            reset_launch_counts()
+            t0 = time.time()
+            rc = adt_torch(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(LAUNCHES)
+        text = buf.getvalue()
+        print(text, end="", flush=True)
+        if rc != 0:
+            raise AssertionError(f"adt-torch sample ({label}) returned {rc}")
+        with np.load(npz) as z:
+            arr, labels = z["arr_0"], z["arr_1"]
+        if arr.dtype != np.uint8 or arr.shape != (32, 64, 64, 3):
+            raise AssertionError(f"sample ({label}): {arr.dtype} "
+                                 f"{arr.shape}")
+        if labels.shape != (32,) or labels.min() < 0 or labels.max() >= 1000:
+            raise AssertionError(f"sample ({label}): labels {labels}")
+        log(f"sample ({label}): {steps} guided steps at batch 16, launches "
+            f"{launches} (expected {want}), wall {wall:.1f} s")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if not launches[name]:
+                raise AssertionError(f"kernel {name} never launched by "
+                                     f"sample ({label})")
+        if launches != want:
+            raise AssertionError(f"sample ({label}) launch counts {launches}"
+                                 f" != {want}")
+        times = [float(v) for v in re.findall(
+            r"created \d+ samples \(([\d.]+) s\)", text)]
+        ips = 16 / (times[1] - times[0])
+        log(f"sample ({label}): images/s through the guided sampler (the "
+            f"second batch of 16, 4 guided steps + uint8): {ips:.2f}; "
+            f"{32 / wall:.2f} end to end (the command, models built and "
+            "loaded)")
+        out[label] = dict(npz=npz, launches=launches,
+                          expected_launches=want, batch_s=times,
+                          images_per_s=ips, wall_s=wall)
+    return out
+
+
+def phase_fid_commands(paths, samples_npz):
+    """``adt-torch ref-stats`` of 64 seeded uint8 images on cuda, then
+    ``adt-torch evaluate`` of the ancestral samples against those
+    statistics with --ref_batch, on cuda and on cpu, TF32 off: FID finite
+    and >= 0, IS finite and >= 1, precision and recall in [0, 1], the cuda
+    FID within 1e-3 relative of the cpu FID. Returns the metrics and
+    seconds."""
+    import io
+
+    import numpy as np
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+
+    refs = os.path.join(WORK, "ref_images.npz")
+    np.savez(refs, np.random.RandomState(6).randint(
+        0, 256, (64, 64, 64, 3), dtype=np.uint8))
+    ref_out = os.path.join(WORK, "ref_cmd.npz")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.time()
+        rc = adt_torch(["ref-stats", "--device", "cuda", "--images", refs,
+                        "--out", ref_out, "--inception_path", paths["incep"],
+                        "--batch_size", "32"])
+        ref_s = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"adt-torch ref-stats returned {rc}")
+        log(f"ref-stats (cuda): 64 images, {ref_s:.2f} s")
+        metrics, secs = {}, {"ref_stats": ref_s}
+        for dev in ("cuda", "cpu"):
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                rc = adt_torch(["evaluate", "--device", dev, "--sample_batch",
+                                samples_npz, "--ref_stats", ref_out,
+                                "--ref_batch", refs, "--inception_path",
+                                paths["incep"], "--batch_size", "32"])
+            secs[f"evaluate_{dev}"] = time.time() - t0
+            if rc != 0:
+                raise AssertionError(f"adt-torch evaluate ({dev}) returned "
+                                     f"{rc}")
+            m = json.loads(buf.getvalue().strip().splitlines()[-1])
+            log(f"evaluate ({dev}): {m}, {secs[f'evaluate_{dev}']:.2f} s")
+            ok = (math.isfinite(m["fid"]) and m["fid"] >= 0
+                  and math.isfinite(m["inception_score"])
+                  and m["inception_score"] >= 1
+                  and 0 <= m["precision"] <= 1 and 0 <= m["recall"] <= 1)
+            if not ok:
+                raise AssertionError(f"evaluate ({dev}) metrics out of "
+                                     f"range: {m}")
+            metrics[dev] = m
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    rel = abs(metrics["cuda"]["fid"] - metrics["cpu"]["fid"]) \
+        / max(metrics["cpu"]["fid"], 1e-12)
+    log(f"evaluate: cuda FID vs cpu FID relative difference {rel:.3e} "
+        "(tol 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"evaluate: the cuda FID disagrees with the cpu "
+                             f"FID: {metrics}")
+    return dict(metrics=metrics, seconds=secs, fid_rel_diff=rel)
 
 
 # ------------------------------------------------------ Stable Diffusion
@@ -1588,19 +1754,27 @@ def sd_towers(weights, use_bf16: bool, device: str):
     return tuple(m.to(device) for m in towers)
 
 
-def phase_sd_parity(weights, envs):
+def phase_sd_parity(weights, envs, dpm_label: str = "switches off"):
     """The SD towers at full width in float32 with seeded random weights,
     GPU (the kernels) against CPU (their twins), under the switches of each
     of ``envs`` ({label: env}): CLIP on two prompts' ids, two PLMS steps of
     the UNet with classifier-free guidance (scale 7.5) at batch 1 (three
-    UNet calls at the doubled batch 2), one VAE decode of the result. Each
-    output within 1e-3 x its scale. Returns {label: ({output: max abs
-    error}, GPU launches)}."""
+    UNet calls at the doubled batch 2), one VAE decode of the result, and,
+    under the switches of ``dpm_label`` (the solver's arithmetic is the
+    same under either), DPM-Solver-2 from the same latent over three steps
+    (three guided UNet calls; the middle step second order, the last first
+    order as lower_order_final makes it). Each output within 1e-3 x its
+    scale. Returns {label: ({output: max abs error}, GPU launches)}."""
+    import numpy as np
     import torch
     from autodiffusion_tpu_torch.models import SD_SCALE_FACTOR
     from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
-    from autodiffusion_tpu_torch.samplers import cfg_eps_fn, plms_sample_loop
-    from autodiffusion_tpu_torch.schedules import build_sd_tables
+    from autodiffusion_tpu_torch.samplers import (DiscreteNoiseSchedule,
+                                                  cfg_eps_fn,
+                                                  dpm_solver_sample_loop,
+                                                  plms_sample_loop)
+    from autodiffusion_tpu_torch.schedules import (build_sd_tables,
+                                                   make_beta_schedule)
 
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1609,6 +1783,9 @@ def phase_sd_parity(weights, envs):
     ids[:, 0], ids[:, 20:] = 49406, 49407
     z_t = torch.randn(1, 4, 64, 64, generator=gen)
     tables = build_sd_tables([301, 801])
+    sched = DiscreteNoiseSchedule.from_betas(
+        make_beta_schedule("sqrt_linear", 1000))
+    times = torch.from_numpy(np.array([1.0, 0.62, 0.3, 1e-3], np.float32))
     outs = {label: {} for label in envs}
     launches = {}
     try:
@@ -1624,8 +1801,14 @@ def phase_sd_parity(weights, envs):
                                          tables.to(dev), device=dev,
                                          noise=z_t)
                     img = vae.decode(z / SD_SCALE_FACTOR)
-                outs[label][dev] = {"clip": ctx.cpu(), "plms2": z.cpu(),
-                                    "decode": img.cpu()}
+                    outs[label][dev] = {"clip": ctx.cpu(), "plms2": z.cpu(),
+                                        "decode": img.cpu()}
+                    if label == dpm_label:
+                        outs[label][dev]["dpm_solver2"] = \
+                            dpm_solver_sample_loop(
+                                guided, (1, 4, 64, 64), sched.to(dev),
+                                times.to(dev), device=dev, order=2,
+                                noise=z_t).cpu()
                 launches[label] = dict(LAUNCHES)
                 log(f"SD parity ({label}) on {dev}: {time.time() - t0:.1f} s")
             del unet, vae, clip
@@ -1799,12 +1982,15 @@ def sd_search_files(weights, paths):
     return out
 
 
-def phase_sd_search(paths, env, sites, label: str):
-    """``adt-torch search-sd`` under the switches of ``env`` (PLMS-4,
-    scale 7.5, 512 x 512, chunk 2 x batch 4, 8 samples per candidate,
-    population 4, one epoch), its launch counters set to 0 just before and
-    read just after: each must equal the per-call counts derived from the
-    models times the UNet calls (5 per dispatch) and the decodes (1)."""
+def phase_sd_search(paths, env, sites, label: str, sampler: str = "plms",
+                    population: int = 4):
+    """``adt-torch search-sd`` under the switches of ``env`` (``sampler``:
+    PLMS-4 or DPM-Solver-2 over five knots; scale 7.5, 512 x 512, chunk 2 x
+    batch 4, 8 samples per candidate, ``population`` candidates, one
+    epoch), its launch counters set to 0 just before and read just after:
+    each must equal the per-call counts derived from the models times the
+    UNet calls (5 per dispatch for PLMS-4, 4 for DPM-Solver over 4 steps)
+    and the decodes (1)."""
     import torch
     from autodiffusion_tpu_torch.cli.main import main as adt_torch
     from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
@@ -1815,11 +2001,12 @@ def phase_sd_search(paths, env, sites, label: str):
             "--clip_vocab", paths["vocab"], "--clip_merges", paths["merges"],
             "--captions", paths["captions"], "--inception_path",
             paths["incep"], "--ref_stats", paths["ref"], "--save_dir",
-            save_dir, "--sampler", "plms", "--scale", "7.5", "--H", "512",
+            save_dir, "--sampler", sampler, "--scale", "7.5", "--H", "512",
             "--W", "512", "--time_step", "4", "--num_samples", "8",
             "--batch_size", "4", "--candidate_chunk", "2",
-            "--population_num", "4", "--select_num", "2", "--mutation_num",
-            "2", "--crossover_num", "2", "--max_epochs", "1", "--seed", "0",
+            "--population_num", str(population), "--select_num", "2",
+            "--mutation_num", str(population // 2), "--crossover_num",
+            str(population // 2), "--max_epochs", "1", "--seed", "0",
             "--num_prompts", "16"]
     with switches(env):
         reset_launch_counts()
@@ -1839,7 +2026,8 @@ def phase_sd_search(paths, env, sites, label: str):
             r"reset_time: ([\d.]+), sample_time: ([\d.]+), "
             r"fid_time: ([\d.]+)", f.read())]
     dispatches = len(phases) * 2          # chunks x (8 samples / batch 4)
-    unet_calls, decodes = 5 * dispatches, dispatches
+    unet_calls = (5 if sampler == "plms" else 4) * dispatches
+    decodes = dispatches
     want = {k: 0 for k in LAUNCHES}
     for part, n in (("unet", unet_calls), ("decode", decodes)):
         for k, c in per_call(sites[part], on).items():
@@ -1860,8 +2048,9 @@ def phase_sd_search(paths, env, sites, label: str):
     ips = 2 * SD_BATCH * len(steady) / sum(steady)
     log(f"search-sd ({label}): per-chunk reset/sample/fid seconds: "
         + "; ".join(f"{a:.3f}/{b:.3f}/{c:.3f}" for a, b, c in phases))
+    name = "PLMS-4" if sampler == "plms" else "DPM-Solver-2 (4 steps)"
     log(f"search-sd ({label}): images/s through the guided sampler (sample "
-        f"phase = PLMS-4 + decode + Inception + moments, chunks after the "
+        f"phase = {name} + decode + Inception + moments, chunks after the "
         f"first): {ips:.3f}")
     return dict(fids=fids, launches=launches, expected_launches=want,
                 chunks=len(phases), unet_calls=unet_calls, decodes=decodes,
@@ -1883,6 +2072,12 @@ def main() -> int:
     from autodiffusion_tpu_torch.ops import _build
 
     t_start = time.time()
+    marks = []                   # (phase, seconds since the start)
+
+    def mark(name: str) -> None:
+        marks.append((name, round(time.time() - t_start, 1)))
+        log(f"phase {name} done at {marks[-1][1]} s")
+
     smi = smi_line()
     log(f"card: {smi}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1893,11 +2088,14 @@ def main() -> int:
     log(_build.ptxas_report())
     ptxas = phase_ptxas()
 
+    mark("build")
     rows = phase_kernels()
     attn_ms, attn_sdpa_ms, attn_bwd = attention_per_step(rows)
+    mark("ADM attention kernels")
     sites = adm64_sites()
     new_rows = phase_new_kernels(sites)
     new_ms = new_kernels_per_step(new_rows)
+    mark("ADM GroupNorm and conv kernels")
 
     os.makedirs(WORK, exist_ok=True)
     try:
@@ -1915,23 +2113,32 @@ def main() -> int:
                                      "switches off")
         parity_on_err, parity_on_launches = phase_parity(
             unet_sd, cls_sd, SWITCHES_ON, "switches on")
+        mark("ADM parity")
         missing = [k for k in ADM_KERNELS if not parity_on_launches[k]]
         if missing:
             raise AssertionError(f"the switches-on parity run launched no "
                                  f"{missing}")
         with switches(SWITCHES_OFF):
             prof = phase_profile(unet_sd, cls_sd)
+        mark("ADM profile")
         ab = phase_ab(unet_sd, cls_sd)
+        mark("ADM A/B")
         paths = search_files(unet_sd, cls_sd)
         search = phase_search(paths, SWITCHES_OFF, PER_STEP, "default")
         search_on = phase_search(paths, SWITCHES_ON, PER_STEP_FUSED,
                                  "switches on")
+        mark("ADM searches")
+        sample = phase_sample(paths)
+        mark("sample")
+        fid_cmds = phase_fid_commands(paths, sample["ancestral"]["npz"])
+        mark("ref-stats and evaluate")
         log(f"ADM phases done at {time.time() - t_start:.1f} s")
 
         # the Stable Diffusion slice: search-sd's kernels at every SD site,
         # parity of the full-width towers, a profile and two searches
         sd = sd_sites()
         sd_attn_rows = phase_sd_attention(sd)
+        mark("SD attention kernels")
         sd_rows, sd_ms = [], {}
         for part, batch in (("unet", SD_UNET_BATCH), ("decode", SD_BATCH)):
             part_rows = phase_new_kernels(
@@ -1939,9 +2146,11 @@ def main() -> int:
             sd_ms[part] = new_kernels_per_step(
                 part_rows, f"SD {part} call (batch {batch}")
             sd_rows += part_rows
+        mark("SD GroupNorm and conv kernels")
         weights = sd_weights()
         sd_parity = phase_sd_parity(weights, {"switches off": SWITCHES_OFF,
                                               "switches on": SWITCHES_ON})
+        mark("SD parity")
         missing = [k for k in SD_KERNELS
                    if not sd_parity["switches on"][1][k]]
         if missing:
@@ -1951,10 +2160,19 @@ def main() -> int:
             sd_prof = phase_sd_profile(weights)
         with switches(SWITCHES_ON):
             sd_prof_on = phase_sd_profile(weights, "switches on")
+        mark("SD profiles")
         paths = sd_search_files(weights, paths)
         del weights
         sd_search = phase_sd_search(paths, SWITCHES_OFF, sd, "default")
         sd_search_on = phase_sd_search(paths, SWITCHES_ON, sd, "switches on")
+        mark("SD PLMS searches")
+        # DPM-Solver: the smallest population the EA takes
+        sd_dpm = phase_sd_search(paths, SWITCHES_OFF, sd, "dpm_solver",
+                                 "dpm_solver", population=2)
+        sd_dpm_on = phase_sd_search(paths, SWITCHES_ON, sd,
+                                    "dpm_solver switches on", "dpm_solver",
+                                    population=2)
+        mark("SD DPM-Solver searches")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1968,9 +2186,12 @@ def main() -> int:
     # default searches, the GroupNorm and conv kernels on the searches with
     # the switches on (ADM and SD each)
     launches = {k: search["launches"][k] + sd_search["launches"][k]
+                + sd_dpm["launches"][k]
+                + sum(r["launches"][k] for r in sample.values())
                 for k in KERNEL_INFO}
     for k in NEW_KERNELS:
-        launches[k] = search_on["launches"][k] + sd_search_on["launches"][k]
+        launches[k] = (search_on["launches"][k] + sd_search_on["launches"][k]
+                       + sd_dpm_on["launches"][k])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
@@ -1996,7 +2217,8 @@ def main() -> int:
                    "sdpa_attention_ms_per_step": attn_sdpa_ms,
                    "backward_ms_per_step": attn_bwd,
                    "profile": prof, "ab": ab, "search": search,
-                   "search_switches_on": search_on,
+                   "search_switches_on": search_on, "sample": sample,
+                   "fid_commands": fid_cmds,
                    "sd_sites": {part: {k: {str(s): n for s, n in v.items()}
                                        for k, v in d.items()}
                                 for part, d in sd.items()},
@@ -2005,7 +2227,9 @@ def main() -> int:
                    "sd_parity": {k: v[0] for k, v in sd_parity.items()},
                    "sd_profile": sd_prof, "sd_profile_switches_on": sd_prof_on,
                    "sd_search": sd_search, "sd_search_switches_on":
-                       sd_search_on, "ptxas_pipelined": ptxas,
+                       sd_search_on, "sd_dpm_search": sd_dpm,
+                   "sd_dpm_search_switches_on": sd_dpm_on,
+                   "phase_marks": marks, "ptxas_pipelined": ptxas,
                    "kernels_line": line,
                    "total_s": time.time() - t_start}, f, indent=1)
     log(f"total {time.time() - t_start:.1f} s")

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the GPU, held against their plain twins:
 flash attention (forward at D <= 128 and D = 512, the packed small-head-dim
 forward, dQ, dK/dV), the fused GroupNorm (forward, backward) and the 3x3
-convolutions (im2col, fused norm-act-conv).
+convolutions (im2col, fused norm-act-conv); and the paths that run them
+end to end at a tiny size, GPU against CPU: guided ancestral sampling,
+DPM-Solver through an SD UNet, and the FID evaluator.
 
 Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda``, and
 skips where ``torch.cuda.is_available()`` is false. The file imports no
@@ -21,7 +23,9 @@ The GroupNorm backward's per-channel sums (dscale, dshift, dgamma, dbeta:
 float32 sums over up to B x HW terms, in another order than the twin's)
 take 2e-4 (1 + |twin|), the JAX package's own gradient tolerance for the
 TPU kernels (tests/test_fused_norm.py). The conv twins run their float32
-convolutions with TF32 off.
+convolutions with TF32 off. The end-to-end paths run float32 with TF32
+off and hold the GPU's output to 1e-3 of its scale, as chip_smoke.py's
+parity phases do at full width, the evaluator's FID to 1e-3 relative.
 """
 
 import pytest
@@ -684,3 +688,119 @@ def test_conv_rejects_c_in_not_multiple_of_8(cuda_device):
     x = torch.zeros(1, 12, 4, 4, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 8"):
         conv3x3_im2col(x, torch.zeros(8, 12, 3, 3, device=cuda_device))
+
+
+# ------------------------------------------------- paths, GPU against CPU
+
+def _tiny_adm(dev):
+    from autodiffusion_tpu_torch.models import random_init_
+    from autodiffusion_tpu_torch.models.unet import (EncoderUNetModel,
+                                                     UNetModel)
+
+    common = dict(model_channels=64, num_res_blocks=1, attention_ds=(2,),
+                  channel_mult=(1, 2), num_head_channels=64)
+    m = random_init_(UNetModel(in_channels=3, out_channels=6,
+                               num_classes=10, **common), 0)
+    c = random_init_(EncoderUNetModel(image_size=16, in_channels=3,
+                                      out_channels=10, **common), 1)
+    return (m.eval().to(dev).requires_grad_(False),
+            c.eval().to(dev).requires_grad_(False))
+
+
+@pytest.mark.cuda
+def test_guided_ancestral_sampling_gpu_matches_cpu(cuda_device, no_tf32):
+    """p_sample_loop with classifier guidance (head dim 64): the same x_T
+    and per-step z on both devices; the GPU run launches the flash
+    forward, dQ and dK/dV."""
+    from autodiffusion_tpu_torch.samplers import (classifier_cond_fn,
+                                                  p_sample_loop)
+    from autodiffusion_tpu_torch.schedules import build_tables
+
+    gen = torch.Generator().manual_seed(0)
+    x_t = torch.randn(2, 3, 16, 16, generator=gen)
+    z = torch.randn(3, 2, 3, 16, 16, generator=gen)
+    y = torch.tensor([3, 7])
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m, c = _tiny_adm(dev)
+        yd = y.to(dev)
+        reset_launch_counts()
+        outs[dev] = p_sample_loop(
+            lambda x, t, i: m(x, t, yd), (2, 3, 16, 16),
+            build_tables([50, 400, 900]).to(dev), device=dev,
+            cond_fn=classifier_cond_fn(c, yd, 2.0), noise=x_t,
+            step_noise=z).cpu()
+    assert LAUNCHES["flash_fwd"] and LAUNCHES["flash_bwd_dq"] \
+        and LAUNCHES["flash_bwd_dkv"]
+    scale = float(outs["cpu"].abs().max())
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0,
+                               atol=1e-3 * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+def test_dpm_solver_sd_unet_gpu_matches_cpu(cuda_device, no_tf32):
+    """DPM-Solver-2 over three steps of a tiny SD UNet (head dims 40 and
+    80, the packed and token-major forwards) under classifier-free
+    guidance."""
+    from autodiffusion_tpu_torch.models import SDUNetModel, random_init_
+    from autodiffusion_tpu_torch.samplers import (DiscreteNoiseSchedule,
+                                                  cfg_eps_fn,
+                                                  dpm_solver_sample_loop)
+    from autodiffusion_tpu_torch.schedules import make_beta_schedule
+
+    cfg = dict(in_channels=4, model_channels=320, out_channels=4,
+               num_res_blocks=1, attention_ds=(1, 2), channel_mult=(1, 2),
+               num_heads=8, context_dim=32)
+    gen = torch.Generator().manual_seed(1)
+    x_t = torch.randn(2, 4, 16, 16, generator=gen)
+    ctx = torch.randn(2, 7, 32, generator=gen)
+    unc = torch.randn(7, 32, generator=gen)
+    times = torch.tensor([1.0, 0.6, 0.25, 1e-3])
+    sched = DiscreteNoiseSchedule.from_betas(
+        make_beta_schedule("sqrt_linear", 1000))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        unet = random_init_(SDUNetModel(**cfg), 2).eval().to(dev)
+        reset_launch_counts()
+        outs[dev] = dpm_solver_sample_loop(
+            cfg_eps_fn(unet, ctx.to(dev), unc.to(dev), 7.5), (2, 4, 16, 16),
+            sched.to(dev), times.to(dev), device=dev, order=2,
+            noise=x_t).cpu()
+    assert LAUNCHES["flash_fwd_packed"] and LAUNCHES["flash_fwd"]
+    scale = float(outs["cpu"].abs().max())
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0,
+                               atol=1e-3 * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+def test_fid_evaluator_gpu_matches_cpu(cuda_device, no_tf32, tmp_path):
+    """cal_metrics with synthesized Inception weights at 75 px on both
+    devices: FID, IS and sFID within 1e-3 relative, precision and recall
+    (float32 distances with TF32 off) equal."""
+    import numpy as np
+
+    from autodiffusion_tpu_torch.fid import (FIDEvaluator, FIDStats,
+                                             load_fid_inception,
+                                             make_inception_feature_fn,
+                                             synthesize_pt_inception)
+
+    path = str(tmp_path / "pt_inception.pth")
+    torch.save(synthesize_pt_inception(3), path)
+    rng = np.random.RandomState(2)
+    refs = rng.randint(0, 256, (40, 64, 64, 3), dtype=np.uint8)
+    samples = rng.randint(0, 200, (30, 64, 64, 3), dtype=np.uint8)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        fn = make_inception_feature_fn(load_fid_inception(path, device=dev),
+                                       resize_to=75)
+        ev = FIDEvaluator(fn, FIDEvaluator.stats_from_images(fn, refs, 16),
+                          batch_size=16)
+        pool3, _, spatial = ev.compute_activations(refs, want_spatial=True)
+        assert pool3.device.type == dev
+        ev.ref_stats_spatial = FIDStats.from_features(spatial.cpu().numpy())
+        got[dev] = ev.cal_metrics(samples, ref_features=pool3)
+    for key in ("fid", "inception_score", "sfid"):
+        assert got["cuda"][key] == pytest.approx(got["cpu"][key],
+                                                 rel=1e-3), key
+    assert (got["cuda"]["precision"], got["cuda"]["recall"]) == \
+        (got["cpu"]["precision"], got["cpu"]["recall"])

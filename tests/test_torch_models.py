@@ -179,6 +179,33 @@ def test_classifier_matches_jax_fp32():
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
 
 
+SKIP_SETS = {"updown_attention": (1, 3, 11), "projections": (2, 7, 12),
+             "middle": (0, 4, 5, 6, 13), "all": tuple(range(14))}
+
+
+@pytest.mark.parametrize("which", list(SKIP_SETS))
+def test_structural_skip_matches_jax_and_a_zero_keep_mask(which):
+    """Layer ids left out of the graph: the JAX UNet's structural_skip
+    gives the same output, and so does the port with those ids zeroed in
+    the keep mask (the block's resample and channel projection stay)."""
+    jm, params, pm = _unet_pair()
+    assert pm.layer_num == 14
+    skip = frozenset(SKIP_SETS[which])
+    x, t, y = _inputs(7)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x), torch.from_numpy(t),
+                 torch.from_numpy(y), structural_skip=skip).numpy()
+    want = np.asarray(jax.jit(jm.apply, static_argnames="structural_skip")(
+        params, jnp.asarray(x.transpose(0, 2, 3, 1)), jnp.asarray(t),
+        jnp.asarray(y), structural_skip=skip)).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    keep = np.ones(pm.layer_num, np.float32)
+    keep[list(skip)] = 0.0
+    np.testing.assert_allclose(got, _port_unet(pm, x, t, y, keep),
+                               atol=1e-5, rtol=1e-5)
+    assert np.abs(got - _port_unet(pm, x, t, y)).max() > 1e-3
+
+
 def test_keep_mask_length_checked():
     _, _, pm = _unet_pair()
     x, t, y = _inputs(6)

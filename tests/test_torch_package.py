@@ -119,7 +119,17 @@ def _entry_points():
             ref_stats=FIDStats(np.zeros(4), np.eye(4)), num_samples=2,
             batch_size=2, candidate_chunk=1, feature_dim=4, **kw)
 
+    def cli(*argv):
+        return lambda **kw: main(
+            list(argv) + (["--device", kw["device"]] if kw else []))
+
     return {
+        "cli.main sample": cli("sample", "--model_path", "m.pt"),
+        "cli.main evaluate": cli("evaluate", "--sample_batch", "s.npz",
+                                 "--ref_stats", "r.npz",
+                                 "--inception_path", "i.pth"),
+        "cli.main ref-stats": cli("ref-stats", "--images", "s.npz",
+                                  "--inception_path", "i.pth"),
         "cli.main search-sd": lambda **kw: main(
             ["search-sd", "--ckpt", "sd.ckpt", "--clip_vocab", "v.json",
              "--clip_merges", "m.txt", "--captions", "c.json",
@@ -144,7 +154,9 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["cli.main search", "create_model",
                                   "create_classifier", "make_adm_fitness",
                                   "load_fid_inception", "cli.main search-sd",
-                                  "create_sd_models", "make_sd_fitness"])
+                                  "create_sd_models", "make_sd_fitness",
+                                  "cli.main sample", "cli.main evaluate",
+                                  "cli.main ref-stats"])
 def test_entry_points_raise_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -164,6 +176,9 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
         eps["cli.main search"](device="cpu")
     with pytest.raises(FileNotFoundError):
         eps["cli.main search-sd"](device="cpu")
+    for cmd in ("sample", "evaluate", "ref-stats"):
+        with pytest.raises(FileNotFoundError):
+            eps[f"cli.main {cmd}"](device="cpu")
 
 
 def _run_smoke(cwd, env_extra):

@@ -1,11 +1,12 @@
-"""DDIM sampling of the PyTorch port against the JAX package.
+"""DDIM and ancestral sampling of the PyTorch port against the JAX package.
 
-The same seeded inputs (x_T, labels, schedule tables, and for eta > 0 the
-per-step noise the JAX scan draws) go through both samplers with tiny
-models whose weights are carried flax -> port. Both run float32 on the CPU.
+The same seeded inputs (x_T, labels, schedule tables, and for eta > 0 or
+ancestral sampling the per-step noise the JAX scan draws) go through both
+samplers with tiny models whose weights are carried flax -> port. Both run
+float32 on the CPU.
 
 Tolerances: p_mean_variance 1e-6 relative (the same float32 formulas on the
-same tables); whole DDIM loops 5e-4 absolute, the 2e-4 model tolerance of
+same tables); whole loops 5e-4 absolute, the 2e-4 model tolerance of
 tests/test_torch_models.py carried through a few steps (and through the
 classifier's gradient when guided).
 """
@@ -20,6 +21,7 @@ from autodiffusion_tpu.models import EncoderUNetModel as JaxEncoder
 from autodiffusion_tpu.models import UNetModel as JaxUNet
 from autodiffusion_tpu.samplers import classifier_cond_fn as jax_cond_fn
 from autodiffusion_tpu.samplers import ddim_sample_loop as jax_ddim
+from autodiffusion_tpu.samplers import p_sample_loop as jax_ancestral
 from autodiffusion_tpu.samplers import diffusion as jax_diffusion
 from autodiffusion_tpu.schedules import build_tables as jax_build_tables
 from autodiffusion_tpu.schedules import stack_tables as jax_stack_tables
@@ -29,7 +31,7 @@ from autodiffusion_tpu_torch.models.unet import EncoderUNetModel, UNetModel
 from autodiffusion_tpu_torch.samplers import (ModelMeanType, ModelVarType,
                                               classifier_cond_fn,
                                               ddim_sample_loop,
-                                              p_mean_variance)
+                                              p_mean_variance, p_sample_loop)
 from autodiffusion_tpu_torch.schedules import build_tables, stack_tables
 from test_torch_package import one_torch_thread  # noqa: F401
 
@@ -100,8 +102,14 @@ def _nchw(a):
     return np.asarray(a).transpose(0, 3, 1, 2)
 
 
-def _run(models, *, guided, per_sample, eta=0.0, with_jax=True):
+def _run(models, *, guided, per_sample, eta=0.0, with_jax=True,
+         ancestral=False, var_type=ModelVarType.LEARNED_RANGE):
+    """(port x_0 NCHW, JAX x_0 NCHW or None). ``ancestral`` runs
+    p_sample_loop instead of DDIM; FIXED_LARGE takes the model's first 3
+    output channels, as a learn_sigma=False model's."""
     jm, mp, pm, jc, cp, pc = models
+    c = 3 if var_type == ModelVarType.FIXED_LARGE else 6
+    jvar = getattr(jax_diffusion.ModelVarType, var_type.name)
     b = 4
     rng = np.random.RandomState(7)
     x_t = rng.randn(b, IMG, IMG, 3).astype(np.float32)
@@ -117,13 +125,15 @@ def _run(models, *, guided, per_sample, eta=0.0, with_jax=True):
 
     want = None
     if with_jax:
-        want = _nchw(jax.jit(lambda x: jax_ddim(
-            lambda xx, t, i: jm.apply(mp, xx, t, jnp.asarray(y)),
-            x.shape, jt, rng=key, eta=eta, noise=x, cond_fn=j_cond))(
-                jnp.asarray(x_t)))
+        jloop, jkw = ((jax_ancestral, {}) if ancestral
+                      else (jax_ddim, {"eta": eta}))
+        want = _nchw(jax.jit(lambda x: jloop(
+            lambda xx, t, i: jm.apply(mp, xx, t, jnp.asarray(y))[..., :c],
+            x.shape, jt, rng=key, noise=x, cond_fn=j_cond, var_type=jvar,
+            **jkw))(jnp.asarray(x_t)))
 
     step_noise = None
-    if eta:
+    if eta or ancestral:
         # the z the JAX scan draws at step i: normal(fold_in(rng, i))
         # after its split of the sampler key
         k_steps, _ = jax.random.split(key)
@@ -132,10 +142,12 @@ def _run(models, *, guided, per_sample, eta=0.0, with_jax=True):
                                     x_t.shape))
             for i in range(pt.num_steps)]))
     y_t = torch.from_numpy(y)
-    got = ddim_sample_loop(lambda x, t, i: pm(x, t, y_t),
-                           (b, 3, IMG, IMG), pt, device="cpu",
-                           noise=torch.from_numpy(_nchw(x_t)), eta=eta,
-                           cond_fn=p_cond, step_noise=step_noise)
+    loop, kw = ((p_sample_loop, {}) if ancestral
+                else (ddim_sample_loop, {"eta": eta}))
+    got = loop(lambda x, t, i: pm(x, t, y_t)[:, :c], (b, 3, IMG, IMG), pt,
+               device="cpu", noise=torch.from_numpy(_nchw(x_t)),
+               cond_fn=p_cond, step_noise=step_noise, var_type=var_type,
+               **kw)
     return got.numpy(), want
 
 
@@ -159,6 +171,51 @@ def test_ddim_classifier_guided_matches_jax(models, per_sample):
 def test_ddim_eta_with_injected_noise_matches_jax(models):
     got, want = _run(models, guided=False, per_sample=True, eta=0.5)
     np.testing.assert_allclose(got, want, atol=LOOP_TOL, rtol=0)
+
+
+ANCESTRAL_VARS = [ModelVarType.LEARNED_RANGE, ModelVarType.FIXED_LARGE]
+
+
+@pytest.mark.parametrize("var_type", ANCESTRAL_VARS,
+                         ids=[v.value for v in ANCESTRAL_VARS])
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_ancestral_unguided_matches_jax(models, var_type, per_sample):
+    """p_sample_loop with the z the JAX scan draws at each step
+    (normal(fold_in(rng, i))) injected as step_noise."""
+    got, want = _run(models, guided=False, per_sample=per_sample,
+                     ancestral=True, var_type=var_type)
+    assert got.dtype == np.float32 and got.shape == (4, 3, IMG, IMG)
+    np.testing.assert_allclose(got, want, atol=LOOP_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("var_type", ANCESTRAL_VARS,
+                         ids=[v.value for v in ANCESTRAL_VARS])
+def test_ancestral_classifier_guided_matches_jax(models, var_type):
+    """Guidance on the mean (mean + variance * cond_fn), per-sample
+    tables."""
+    got, want = _run(models, guided=True, per_sample=True, ancestral=True,
+                     var_type=var_type)
+    np.testing.assert_allclose(got, want, atol=LOOP_TOL, rtol=0)
+    plain, _ = _run(models, guided=False, per_sample=True, ancestral=True,
+                    var_type=var_type, with_jax=False)
+    assert np.abs(got - plain).max() > 1e-3
+
+
+def test_ancestral_draws_from_the_generator(models):
+    """Without injected noise, x_T and every z but step 0's come from the
+    generator: the same seed gives the same samples, another seed others."""
+    _, _, pm, _, _, _ = models
+    tables = build_tables(CANDS[0], base_schedule="cosine")
+    y = torch.tensor([1, 5])
+
+    def run(seed):
+        return p_sample_loop(lambda x, t, i: pm(x, t, y), (2, 3, IMG, IMG),
+                             tables, device="cpu",
+                             generator=torch.Generator().manual_seed(seed))
+
+    a, b, c = run(0), run(0), run(1)
+    assert torch.equal(a, b) and not torch.allclose(a, c)
+    assert torch.isfinite(a).all()
 
 
 def test_classifier_gradient_matches_jax(models):

@@ -90,16 +90,6 @@ def test_tiny_search_runs_through_the_python_api(tmp_path, sampler):
     assert set(LAUNCHES.values()) == {0}
 
 
-def test_dpm_solver_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sd_fitness(unet=None, vae=None, context_bank=torch.zeros(1, 1, 1),
-                        uncond_context=torch.zeros(1, 1),
-                        feature_fn=None, ref_stats=FIDStats(np.zeros(1),
-                                                            np.eye(1)),
-                        num_samples=1, batch_size=1, sampler="dpm_solver",
-                        device="cpu")
-
-
 def test_search_sd_defaults_equal_the_jax_cli(monkeypatch):
     seen = {}
     monkeypatch.setattr(jax_cli, "cmd_search_sd",

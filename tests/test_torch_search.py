@@ -21,6 +21,7 @@ from autodiffusion_tpu.search import BatchedFIDFitness as JaxFitness
 from autodiffusion_tpu.search import EvolutionSearcher as JaxSearcher
 from autodiffusion_tpu.search import JointSpace as JaxJointSpace
 from autodiffusion_tpu.search import TimestepSpace as JaxTimestepSpace
+from autodiffusion_tpu.search import make_adm_fitness as jax_adm_fitness
 from autodiffusion_tpu.search import to_uint8 as jax_to_uint8
 from autodiffusion_tpu_torch.fid import FIDStats
 from autodiffusion_tpu_torch.search import (BatchedFIDFitness,
@@ -222,6 +223,85 @@ def test_guided_adm_fitness_runs_on_cpu():
                              candidate_chunk=2, feature_dim=16,
                              device="cpu")
     assert again([(100, 500, 900), (50, 300, 700)]) == fids[:2]
+
+
+def _saturating_eps(x_shape, t, chunk, lib):
+    """A stub eps model for both packages: eps = -1e6 s, s = +-1 by a
+    pattern of the sample's index in its candidate's slice, the pixel (of
+    the NHWC ``x_shape``) and the timestep. Ancestral sampling's last step returns its clipped x0
+    prediction exactly (the respaced step 0 has alphas_cumprod_prev = 1),
+    and that is s itself, whatever x_T and the per-step noise were: the
+    two packages' RNG streams differ, their images do not."""
+    n = x_shape[0]
+    j = (lib.arange(n) % (n // chunk)).reshape(n, 1)
+    k = lib.arange(int(np.prod(x_shape[1:]))).reshape(1, -1)
+    tt = t.reshape(n, 1)
+    v = lib.sin(0.7 * j + 0.11 * k * (j + 1) + 0.013 * tt)
+    return -1e6 * lib.where(v >= 0, 1.0, -1.0).reshape(x_shape)
+
+
+def test_ancestral_adm_fitness_matches_jax_with_shared_stubs():
+    """make_adm_fitness(use_ddim=False) in both packages with the same
+    stub eps model and pixel features (learn_sigma False: FIXED_LARGE):
+    the same images, so the FIDs agree to the moments' 1e-4."""
+    chunk = 2
+
+    class JaxStub:
+        layer_num = 1
+
+        def apply(self, params, x, t):
+            return _saturating_eps(x.shape, t, chunk, jnp).astype(
+                jnp.float32)
+
+    class PortStub(torch.nn.Module):
+        layer_num = 1
+
+        def forward(self, x, t, y=None, keep_mask=None):
+            n, c, h, w = x.shape
+            return _saturating_eps((n, h, w, c), t, chunk, torch) \
+                .permute(0, 3, 1, 2).float()
+
+    def jax_features(imgs):
+        return {"pool3": imgs.astype(jnp.float32).reshape(
+            imgs.shape[0], -1)[:, :FEAT]}
+
+    def port_features(imgs):
+        return {"pool3": imgs.float().reshape(imgs.shape[0], -1)[:, :FEAT]}
+
+    kw = dict(image_size=PIX, ref_stats=_ref_stats(), num_samples=16,
+              batch_size=8, num_classes=None, use_ddim=False,
+              learn_sigma=False, candidate_chunk=chunk, feature_dim=FEAT)
+    cands = [(0, 300, 700), (20, 500, 999), (100, 400, 800)]
+    want = jax_adm_fitness(model=JaxStub(), params=None,
+                           feature_fn=jax_features, **kw)(cands)
+    got = make_adm_fitness(model=PortStub(), feature_fn=port_features,
+                           device="cpu", **kw)(cands)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert len(set(np.round(got, 6))) == 3
+
+
+def test_guided_ancestral_adm_fitness_runs_on_cpu():
+    """make_adm_fitness(use_ddim=False) with a tiny UNet and classifier:
+    guided ancestral sampling of two folded candidates, finite FIDs, the
+    same FIDs again from the same seed."""
+    m, c = _tiny_port_models()
+
+    def feature_fn(imgs):
+        return {"pool3": imgs.float().reshape(imgs.shape[0], -1)[:, :16]}
+
+    ref = FIDStats.from_features(
+        np.random.RandomState(0).randn(50, 16) * 40 + 127)
+
+    def fitness():
+        return make_adm_fitness(model=m, image_size=8, feature_fn=feature_fn,
+                                ref_stats=ref, num_samples=4, batch_size=4,
+                                classifier=c, num_classes=10,
+                                use_ddim=False, candidate_chunk=2,
+                                feature_dim=16, device="cpu")
+
+    fids = fitness()([(100, 500, 900), (50, 300, 700)])
+    assert len(fids) == 2 and all(np.isfinite(fids)) and min(fids) >= 0
+    assert fitness()([(100, 500, 900), (50, 300, 700)]) == fids
 
 
 def test_cli_search_end_to_end_on_cpu(tmp_path, capsys):
