@@ -15,9 +15,16 @@ raises unless ``--device cpu`` is given):
   search-sd   the Stable Diffusion latent search (sd/scripts/search_ea.py):
               classifier-free guided PLMS, DDIM or DPM-Solver, FID of the
               decoded images against COCO statistics
+  train       train or fine-tune an ADM UNet (train_util.py TrainLoop and
+              its OFA variants)
+  train-classifier  the noisy guidance classifier
+              (scripts/classifier_train.py)
+  nll         bits/dim over a dataset (scripts/image_nll.py)
 
-Checkpoints are guided-diffusion ``.pt`` state dicts and CompVis
-``sd-v1-*.ckpt`` files (loaded with ``load_state_dict(strict=True)``), the
+Checkpoints are guided-diffusion ``.pt`` state dicts (what ``train``
+writes), the JAX package's ``.msgpack`` param trees (what ``adt train``
+writes, read without flax) and CompVis ``sd-v1-*.ckpt`` files (loaded with
+``load_state_dict(strict=True)``), the
 CLIP tokenizer a vocab.json / merges.txt pair, the Inception weights
 pytorch_fid's ``pt_inception-2015-12-05`` ``.pth``, the reference
 statistics an ``.npz`` of mu and sigma, sample and image arrays an
@@ -40,7 +47,8 @@ from ..utils import logger
 from ..utils.config import add_dict_to_argparser
 
 __all__ = ["main", "cmd_search", "cmd_sample", "cmd_evaluate",
-           "cmd_ref_stats", "cmd_search_sd"]
+           "cmd_ref_stats", "cmd_search_sd", "cmd_train",
+           "cmd_train_classifier", "cmd_nll"]
 
 
 def _search_defaults():
@@ -63,15 +71,16 @@ def _search_defaults():
 
 
 def _load_state(module, path: str) -> None:
-    import torch
+    """Weights of ``module`` (the UNet or the classifier) from a ``.pt``
+    state dict or a JAX ``.msgpack`` param tree."""
+    from ..utils.checkpoint import flax_state_dict, load_checkpoint
 
     if path.endswith(".msgpack"):
-        raise ValueError(f"{path}: the port loads PyTorch .pt checkpoints "
-                         "only (msgpack loading waits for ROADMAP queue 1 "
-                         "item 8)")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
+        sd = flax_state_dict(path, module)
+    else:
+        sd = load_checkpoint(path)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
     module.load_state_dict(sd, strict=True)
 
 
@@ -434,6 +443,253 @@ def cmd_search_sd(args) -> int:
     return 0
 
 
+def _train_data_iter(data_dir: str, *, batch_size: int, image_size: int,
+                     class_cond: bool, seed: int = 0):
+    """Training batches (numpy [B, H, W, C] in [-1, 1]) from an image
+    folder (data/images.py ``load_data``) or from a uint8 [N, H, W, C]
+    ``.npy`` served by the C++ loader (data/native_loader.py), whose class
+    labels for a class-conditional run come from a sibling
+    ``<stem>_labels.npy``."""
+    from ..data import load_data
+
+    if not data_dir:
+        raise ValueError("unspecified data directory (--data_dir)")
+    if data_dir.endswith(".npy"):
+        from ..data.native_loader import NativeNpyLoader
+
+        labels = data_dir[:-len(".npy")] + "_labels.npy"
+        if class_cond and not os.path.exists(labels):
+            raise ValueError(
+                f"class_cond training from an npy needs labels at {labels} "
+                "(one int per image)")
+        return NativeNpyLoader(data_dir, labels if class_cond else None,
+                               batch_size=batch_size, crop=image_size,
+                               seed=seed)
+    return load_data(data_dir=data_dir, batch_size=batch_size,
+                     image_size=image_size, class_cond=class_cond, seed=seed)
+
+
+def _train_defaults():
+    # the JAX CLI's train flags (autodiffusion_tpu/cli/main.py:1294-1309)
+    return dict(
+        data_dir="", save_dir="", resume_checkpoint="", lr=1e-4,
+        weight_decay=0.0, lr_anneal_steps=0, batch_size=16, microbatch=0,
+        ema_rate="0.9999", log_interval=10, save_interval=10000,
+        schedule_sampler="uniform", ofa_mode="", max_steps=0, seed=0,
+        image_size=64, num_channels=192, num_res_blocks=3,
+        num_head_channels=64, attention_resolutions="32,16,8",
+        class_cond=True, learn_sigma=True, noise_schedule="cosine",
+        dropout=0.1, resblock_updown=True, use_scale_shift_norm=True,
+        use_new_attention_order=True, use_bf16=True, channel_mult="",
+        sr_small_size=0, lq_dir="", device="cuda",
+    )
+
+
+def cmd_train(args) -> int:
+    """Train or fine-tune an ADM UNet (scripts/image_train.py and
+    train_util.py's TrainLoop, with the OFA respacing curricula). The
+    model trains in train mode (dropout on); bf16 compute over float32
+    parameters under --use_bf16."""
+    import torch
+
+    from ..models import create_model, create_tables
+    from ..samplers import ModelVarType
+    from ..train import (TrainLoop, create_named_schedule_sampler,
+                         create_train_state, make_train_step,
+                         ofa_random_select_tables_fn, ofa_tables_fn,
+                         resume_train_state)
+
+    dev = resolve_device(args.device)
+    if args.sr_small_size > 0:
+        raise ValueError("--sr_small_size trains a SuperResModel, which the "
+                         "port does not have yet (ROADMAP queue 1 item 11)")
+    if args.ofa_mode not in ("", "random_section", "random_select"):
+        raise ValueError(f"unknown --ofa_mode {args.ofa_mode!r} (random_"
+                         "section or random_select)")
+    cfg = _model_config(args, dropout=args.dropout)
+    data = _train_data_iter(args.data_dir, batch_size=args.batch_size,
+                            image_size=cfg.image_size,
+                            class_cond=cfg.class_cond, seed=args.seed)
+    logger.configure(args.save_dir or None)
+    torch.manual_seed(args.seed)
+    model = create_model(cfg, device=dev).train()
+    state = create_train_state(
+        model, lr=args.lr, weight_decay=args.weight_decay,
+        ema_rates=tuple(float(r) for r in str(args.ema_rate).split(",")),
+        lr_anneal_steps=args.lr_anneal_steps)
+    if args.resume_checkpoint:
+        resume_train_state(state, args.resume_checkpoint)
+    # learn_sigma False -> FIXED_LARGE, the reference default
+    # (script_util.py:415-453 create_gaussian_diffusion)
+    var_type = (ModelVarType.LEARNED_RANGE if cfg.learn_sigma
+                else ModelVarType.FIXED_LARGE)
+    step = make_train_step(
+        model, class_cond=cfg.class_cond, var_type=var_type,
+        microbatches=max(1, args.batch_size
+                         // (args.microbatch or args.batch_size)))
+    grad_fn = tables_fn = None
+    if args.ofa_mode == "random_section":
+        tables_fn = ofa_tables_fn(cfg.noise_schedule, cfg.diffusion_steps)
+    elif args.ofa_mode == "random_select":
+        tables_fn = ofa_random_select_tables_fn(cfg.noise_schedule,
+                                                cfg.diffusion_steps)
+        # the sandwich accumulates gradients over four schedules an update
+        grad_fn = step.grads_and_metrics
+    logger.log(f"training {sum(p.numel() for p in model.parameters())} "
+               f"parameters on {dev}")
+    loop = TrainLoop(
+        state=state, step_fn=step, grad_fn=grad_fn, data=data,
+        schedule_sampler=create_named_schedule_sampler(
+            args.schedule_sampler, cfg.diffusion_steps),
+        tables=create_tables(cfg), tables_fn=tables_fn,
+        batch_size=args.batch_size, lr_anneal_steps=args.lr_anneal_steps,
+        log_interval=args.log_interval, save_interval=args.save_interval,
+        save_dir=args.save_dir, seed=args.seed)
+    loop.run_loop(max_steps=args.max_steps or None)
+    return 0
+
+
+def _train_classifier_defaults():
+    # the JAX CLI's train-classifier flags (cli/main.py:1311-1322)
+    return dict(
+        data_dir="", save_dir="", resume_checkpoint="", noised=True,
+        iterations=150000, lr=3e-4, weight_decay=0.05, anneal_lr=False,
+        batch_size=4, log_interval=10, save_interval=10000, seed=0,
+        num_classes=1000, noise_schedule="cosine", diffusion_steps=1000,
+        image_size=64, classifier_width=128, classifier_depth=2,
+        classifier_attention_resolutions="32,16,8",
+        classifier_use_scale_shift_norm=True, classifier_resblock_updown=True,
+        classifier_pool="attention", classifier_use_bf16=True,
+        device="cuda",
+    )
+
+
+def cmd_train_classifier(args) -> int:
+    """Train the noisy guidance classifier (scripts/classifier_train.py):
+    noised inputs at uniform t, cross-entropy, AdamW, top-1 / top-5."""
+    import torch
+
+    from ..data import load_data
+    from ..models import ClassifierConfig, create_classifier
+    from ..schedules import build_base_tables
+    from ..train import (create_train_state, make_classifier_train_step,
+                         resume_train_state)
+    from ..train.loop import batch_to_device
+    from ..utils.checkpoint import save_checkpoint
+
+    dev = resolve_device(args.device)
+    data = load_data(data_dir=args.data_dir, batch_size=args.batch_size,
+                     image_size=args.image_size, class_cond=True,
+                     random_crop=True)
+    logger.configure(args.save_dir or None)
+    cfg = ClassifierConfig(
+        image_size=args.image_size, classifier_width=args.classifier_width,
+        classifier_depth=args.classifier_depth,
+        classifier_attention_resolutions=args.classifier_attention_resolutions,
+        classifier_use_scale_shift_norm=args.classifier_use_scale_shift_norm,
+        classifier_resblock_updown=args.classifier_resblock_updown,
+        classifier_pool=args.classifier_pool,
+        classifier_use_bf16=args.classifier_use_bf16)
+    torch.manual_seed(args.seed)
+    clf = create_classifier(cfg, num_classes=args.num_classes,
+                            device=dev).train()
+    state = create_train_state(
+        clf, lr=args.lr, weight_decay=args.weight_decay, ema_rates=(),
+        lr_anneal_steps=args.iterations if args.anneal_lr else 0)
+    if args.resume_checkpoint:
+        resume_train_state(state, args.resume_checkpoint)
+    step = make_classifier_train_step(clf, noised=args.noised)
+    tables = build_base_tables(args.noise_schedule,
+                               args.diffusion_steps).to(dev)
+    logger.log(f"training {sum(p.numel() for p in clf.parameters())} "
+               f"parameters on {dev}")
+    rng = np.random.RandomState(args.seed)
+
+    def save(i):
+        save_checkpoint(f"{args.save_dir}/model{i:06d}.pt", clf.state_dict())
+        save_checkpoint(f"{args.save_dir}/opt{i:06d}.pt",
+                        state.optimizer.state_dict())
+
+    i = state.step
+    while i < args.iterations:
+        t0 = time.time()
+        batch = batch_to_device(next(data), dev)
+        t = torch.from_numpy(rng.randint(0, tables.num_steps,
+                                         args.batch_size)).long().to(dev)
+        gen = torch.Generator(device=dev).manual_seed(
+            int(rng.randint(2 ** 31)))
+        _, metrics = step(state, tables, batch, t, gen)
+        i = state.step
+        metrics.pop("per_example_loss", None)
+        logger.logkv("step", i)
+        logger.logkv("samples", i * args.batch_size)
+        logger.logkv_mean("step_time", time.time() - t0)
+        for k, v in metrics.items():
+            logger.logkv_mean(k, float(v))
+        if i % args.log_interval == 0:
+            logger.dumpkvs()
+        if args.save_dir and args.save_interval and \
+                i % args.save_interval == 0:
+            save(i)
+    if args.save_dir and (not args.save_interval
+                          or i % args.save_interval != 0):
+        save(i)
+    return 0
+
+
+def _nll_defaults():
+    # the JAX CLI's nll flags (cli/main.py:1324-1328)
+    return dict(
+        model_path="", data_dir="", num_samples=100, batch_size=10,
+        image_size=64, num_channels=192, num_res_blocks=3, learn_sigma=True,
+        noise_schedule="cosine", class_cond=True, device="cuda",
+    )
+
+
+def cmd_nll(args) -> int:
+    """Bits/dim over a dataset (scripts/image_nll.py): the full
+    variational bound over the model's 1000-step schedule, float32. The
+    model is ``train``'s ADM-64 architecture at the given widths, so the
+    command reads what ``train`` writes at its defaults."""
+    import torch
+
+    from ..data import load_data
+    from ..models import ModelConfig, create_model, create_tables
+    from ..samplers import ModelVarType
+    from ..train import calc_bpd_loop
+    from ..train.loop import batch_to_device
+
+    dev = resolve_device(args.device)
+    if not args.model_path:
+        raise ValueError("nll needs --model_path")
+    cfg = ModelConfig.adm64(
+        image_size=args.image_size, num_channels=args.num_channels,
+        num_res_blocks=args.num_res_blocks, learn_sigma=args.learn_sigma,
+        noise_schedule=args.noise_schedule, class_cond=args.class_cond,
+        use_bf16=False, dropout=0.0)
+    data = load_data(data_dir=args.data_dir, batch_size=args.batch_size,
+                     image_size=cfg.image_size, class_cond=cfg.class_cond,
+                     deterministic=True)
+    model = create_model(cfg, device=dev).requires_grad_(False)
+    _load_state(model, args.model_path)
+    tables = create_tables(cfg).to(dev)
+    var_type = (ModelVarType.LEARNED_RANGE if cfg.learn_sigma
+                else ModelVarType.FIXED_LARGE)
+    totals = []
+    t0 = time.time()
+    for i in range(args.num_samples // args.batch_size):
+        batch = batch_to_device(next(data), dev)
+        y = batch.get("y")
+        gen = torch.Generator(device=dev).manual_seed(i)
+        out = calc_bpd_loop(tables, lambda x_t, t: model(x_t, t, y),
+                            batch["x"], gen, var_type=var_type)
+        totals.extend(out["total_bpd"].cpu().numpy().tolist())
+        logger.log(f"batch {i}: mean bpd {np.mean(totals):.4f} "
+                   f"({time.time() - t0:.3f} s)")
+    print(json.dumps({"bpd": float(np.mean(totals))}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="adt-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -457,6 +713,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("search-sd", help="Stable Diffusion latent search")
     add_dict_to_argparser(p, _search_sd_defaults())
     p.set_defaults(fn=cmd_search_sd)
+    p = sub.add_parser("train", help="train/fine-tune a diffusion UNet")
+    add_dict_to_argparser(p, _train_defaults())
+    p.set_defaults(fn=cmd_train)
+    p = sub.add_parser("train-classifier",
+                       help="train the noisy guidance classifier")
+    add_dict_to_argparser(p, _train_classifier_defaults())
+    p.set_defaults(fn=cmd_train_classifier)
+    p = sub.add_parser("nll", help="bits/dim over a dataset")
+    add_dict_to_argparser(p, _nll_defaults())
+    p.set_defaults(fn=cmd_nll)
     return parser
 
 

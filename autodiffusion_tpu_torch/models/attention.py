@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import multihead_attention
-from .nn import GroupNorm32, conv2d, linear
+from .nn import GroupNorm32, conv2d, linear, zero_module
 
 __all__ = ["CrossAttention", "GEGLU", "FeedForward", "BasicTransformerBlock",
            "SpatialTransformer", "layer_norm"]
@@ -122,7 +122,7 @@ class SpatialTransformer(nn.Module):
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(inner, heads, dim_head, context_dim)
              for _ in range(depth)])
-        self.proj_out = nn.Conv2d(inner, in_channels, 1)
+        self.proj_out = zero_module(nn.Conv2d(inner, in_channels, 1))
 
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:

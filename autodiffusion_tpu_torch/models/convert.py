@@ -253,11 +253,15 @@ def clip_text_state_dict_from_flax(params: Mapping) -> StateDict:
 
 
 def classifier_state_dict_from_flax(params: Mapping) -> StateDict:
-    """A JAX ``EncoderUNetModel`` (attention pool) -> the port's state dict."""
+    """A JAX ``EncoderUNetModel`` (attention or adaptive pool) -> the
+    port's state dict."""
     p = params.get("params", params)
     sd: StateDict = {}
     _trunk(sd, p)
     _gn(sd, "out.0", p["out_norm"])
+    if "out_conv" in p:                        # the adaptive pool
+        _conv(sd, "out.3", p["out_conv"])
+        return sd
     pool = p["out_pool"]
     # flax keeps [T+1, C]; guided-diffusion [C, T+1]
     sd["out.2.positional_embedding"] = _t(

@@ -115,47 +115,53 @@ class ClassifierConfig:
 
 
 def create_model(cfg: ModelConfig, device=None) -> UNetModel:
-    """The UNet of ``cfg`` on ``device`` (cuda by default), in eval mode."""
+    """The UNet of ``cfg`` on ``device`` (cuda by default), in eval mode,
+    built (and initialised) on the device itself."""
     dev = resolve_device(device)
-    return UNetModel(
-        in_channels=3,
-        model_channels=cfg.num_channels,
-        out_channels=6 if cfg.learn_sigma else 3,
-        num_res_blocks=cfg.num_res_blocks,
-        attention_ds=attention_ds(cfg.image_size, cfg.attention_resolutions),
-        dropout=cfg.dropout,
-        channel_mult=parse_channel_mult(cfg.image_size, cfg.channel_mult),
-        num_classes=NUM_CLASSES if cfg.class_cond else None,
-        num_heads=cfg.num_heads,
-        num_head_channels=cfg.num_head_channels,
-        num_heads_upsample=cfg.num_heads_upsample,
-        use_scale_shift_norm=cfg.use_scale_shift_norm,
-        resblock_updown=cfg.resblock_updown,
-        use_new_attention_order=cfg.use_new_attention_order,
-        dtype=compute_dtype(cfg.use_bf16),
-    ).to(dev).eval()
+    with torch.device(dev):
+        model = UNetModel(
+            in_channels=3,
+            model_channels=cfg.num_channels,
+            out_channels=6 if cfg.learn_sigma else 3,
+            num_res_blocks=cfg.num_res_blocks,
+            attention_ds=attention_ds(cfg.image_size,
+                                      cfg.attention_resolutions),
+            dropout=cfg.dropout,
+            channel_mult=parse_channel_mult(cfg.image_size,
+                                            cfg.channel_mult),
+            num_classes=NUM_CLASSES if cfg.class_cond else None,
+            num_heads=cfg.num_heads,
+            num_head_channels=cfg.num_head_channels,
+            num_heads_upsample=cfg.num_heads_upsample,
+            use_scale_shift_norm=cfg.use_scale_shift_norm,
+            resblock_updown=cfg.resblock_updown,
+            use_new_attention_order=cfg.use_new_attention_order,
+            dtype=compute_dtype(cfg.use_bf16))
+    return model.eval()
 
 
 def create_classifier(cfg: ClassifierConfig, num_classes: Optional[int] = None,
                       device=None) -> EncoderUNetModel:
-    """The noisy classifier of ``cfg`` on ``device`` (cuda by default)."""
+    """The noisy classifier of ``cfg`` on ``device`` (cuda by default),
+    built on the device itself."""
     dev = resolve_device(device)
-    return EncoderUNetModel(
-        image_size=cfg.image_size,
-        in_channels=3,
-        model_channels=cfg.classifier_width,
-        out_channels=num_classes or NUM_CLASSES,
-        num_res_blocks=cfg.classifier_depth,
-        attention_ds=attention_ds(cfg.image_size,
-                                  cfg.classifier_attention_resolutions),
-        channel_mult=parse_channel_mult(cfg.image_size),
-        num_head_channels=64,
-        use_scale_shift_norm=cfg.classifier_use_scale_shift_norm,
-        resblock_updown=cfg.classifier_resblock_updown,
-        use_new_attention_order=False,
-        pool=cfg.classifier_pool,
-        dtype=compute_dtype(cfg.classifier_use_bf16),
-    ).to(dev).eval()
+    with torch.device(dev):
+        model = EncoderUNetModel(
+            image_size=cfg.image_size,
+            in_channels=3,
+            model_channels=cfg.classifier_width,
+            out_channels=num_classes or NUM_CLASSES,
+            num_res_blocks=cfg.classifier_depth,
+            attention_ds=attention_ds(cfg.image_size,
+                                      cfg.classifier_attention_resolutions),
+            channel_mult=parse_channel_mult(cfg.image_size),
+            num_head_channels=64,
+            use_scale_shift_norm=cfg.classifier_use_scale_shift_norm,
+            resblock_updown=cfg.classifier_resblock_updown,
+            use_new_attention_order=False,
+            pool=cfg.classifier_pool,
+            dtype=compute_dtype(cfg.classifier_use_bf16))
+    return model.eval()
 
 
 # v1-inference.yaml: the UNet (860 M parameters), the KL-f8 autoencoder and

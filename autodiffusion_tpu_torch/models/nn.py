@@ -20,7 +20,7 @@ from ..ops import (conv3x3, conv3x3_fused, fused_group_norm,
                    fused_norm_available, resolve_use_im2col)
 
 __all__ = ["timestep_embedding", "GroupNorm32", "Conv3x3", "conv2d",
-           "linear", "conv1x1", "Upsample", "Downsample"]
+           "linear", "conv1x1", "Upsample", "Downsample", "zero_module"]
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -36,6 +36,15 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def zero_module(module: nn.Module) -> nn.Module:
+    """Zero every parameter of ``module`` (guided_diffusion/nn.py:68-74):
+    a fresh model's output projections start at zero, as the JAX
+    package's ``kernel_init=zero_init`` does."""
+    for p in module.parameters():
+        nn.init.zeros_(p)
+    return module
 
 
 def conv2d(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ from torch import nn
 
 from .attention import SpatialTransformer
 from .nn import Downsample, GroupNorm32, Upsample, conv2d, linear, \
-    timestep_embedding
+    timestep_embedding, zero_module
 from .unet import ResBlock
 
 __all__ = ["SDUNetModel"]
@@ -92,8 +92,9 @@ class SDUNetModel(nn.Module):
                     blk.append(Upsample(ch, True, out_channels=ch))
                     ds //= 2
                 self.output_blocks.append(blk)
-        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
-                                 nn.Conv2d(ch, out_channels, 3, padding=1))
+        self.out = nn.Sequential(
+            GroupNorm32(ch), nn.SiLU(),
+            zero_module(nn.Conv2d(ch, out_channels, 3, padding=1)))
 
     @staticmethod
     def _run(blk: nn.ModuleList, h, emb, context):

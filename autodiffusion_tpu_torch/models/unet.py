@@ -35,7 +35,7 @@ from torch import nn
 
 from ..ops import flash_attention, resolve_use_fused_conv
 from .nn import (Conv3x3, Downsample, GroupNorm32, Upsample, conv1x1,
-                 conv2d, linear, timestep_embedding)
+                 conv2d, linear, timestep_embedding, zero_module)
 
 __all__ = ["ResBlock", "AttentionBlock", "AttentionPool2d", "UNetModel",
            "EncoderUNetModel", "unet_layer_count"]
@@ -92,7 +92,7 @@ class ResBlock(nn.Module):
         self.out_layers = nn.Sequential(
             GroupNorm32(self.out_channels), nn.SiLU(),
             nn.Dropout(dropout),
-            Conv3x3(self.out_channels, self.out_channels))
+            zero_module(Conv3x3(self.out_channels, self.out_channels)))
         if self.out_channels == channels:
             self.skip_connection = nn.Identity()
         elif use_conv:
@@ -166,7 +166,7 @@ class AttentionBlock(nn.Module):
         self.new_order = use_new_attention_order
         self.norm = GroupNorm32(channels)
         self.qkv = nn.Conv1d(channels, channels * 3, 1)
-        self.proj_out = nn.Conv1d(channels, channels, 1)
+        self.proj_out = zero_module(nn.Conv1d(channels, channels, 1))
 
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -398,8 +398,9 @@ class UNetModel(_Trunk):
                         blk.layer_ids.append(None)
                     ds //= 2
                 self.output_blocks.append(blk)
-        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),
-                                 nn.Conv2d(ch, out_channels, 3, padding=1))
+        self.out = nn.Sequential(
+            GroupNorm32(ch), nn.SiLU(),
+            zero_module(nn.Conv2d(ch, out_channels, 3, padding=1)))
         self.layer_num = self._lid
         expected = unet_layer_count(num_res_blocks, channel_mult,
                                     attention_ds, resblock_updown)
@@ -435,9 +436,10 @@ class UNetModel(_Trunk):
 
 
 class EncoderUNetModel(_Trunk):
-    """Half-UNet noisy classifier (guided_diffusion/unet.py:685-896) with
-    attention pooling, the ADM classifier's head. forward(x, timesteps) ->
-    logits [B, out_channels] float32."""
+    """Half-UNet noisy classifier (guided_diffusion/unet.py:685-896).
+    ``pool`` is "attention" (the ADM classifier's head) or "adaptive" (a
+    spatial mean and a zero-initialised 1x1 conv). forward(x, timesteps)
+    -> logits [B, out_channels] float32."""
 
     def __init__(self, image_size: int, in_channels: int,
                  model_channels: int, out_channels: int,
@@ -452,20 +454,26 @@ class EncoderUNetModel(_Trunk):
                  pool: str = "attention",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pool != "attention":
+        if pool not in ("attention", "adaptive"):
             raise NotImplementedError(
-                f"pool={pool!r}: only the ADM classifier's attention pool "
-                "is ported")
+                f"pool={pool!r}: the attention and adaptive pools are "
+                "ported")
         self.dtype = dtype
+        self.pool = pool
         ch, ds, _ = self._build_trunk(
             in_channels, model_channels, num_res_blocks, attention_ds,
             dropout, channel_mult, conv_resample, num_heads,
             num_head_channels, use_scale_shift_norm, resblock_updown,
             use_new_attention_order)
-        self.out = nn.Sequential(
-            GroupNorm32(ch), nn.SiLU(),
-            AttentionPool2d(image_size // ds, ch, num_head_channels,
-                            out_channels))
+        if pool == "adaptive":
+            self.out = nn.Sequential(
+                GroupNorm32(ch), nn.SiLU(), nn.AdaptiveAvgPool2d((1, 1)),
+                zero_module(nn.Conv2d(ch, out_channels, 1)), nn.Flatten())
+        else:
+            self.out = nn.Sequential(
+                GroupNorm32(ch), nn.SiLU(),
+                AttentionPool2d(image_size // ds, ch, num_head_channels,
+                                out_channels))
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor
                 ) -> torch.Tensor:
@@ -475,4 +483,8 @@ class EncoderUNetModel(_Trunk):
             h = blk.run(h, emb, None)
         h = self.middle_block.run(h, emb, None)
         h = self.out[0](h, act="silu")
+        if self.pool == "adaptive":
+            # the mean in the compute dtype, the 1x1 conv in float32
+            h = h.mean(dim=(2, 3), keepdim=True)
+            return conv2d(self.out[3], h.float()).flatten(1)
         return self.out[2](h).float()

@@ -16,7 +16,7 @@ x_T and the per-step noise may be given; what is not given is drawn from
 from __future__ import annotations
 
 import enum
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -40,20 +40,29 @@ class ModelVarType(enum.Enum):
     LEARNED_RANGE = "learned_range"
 
 
-def _at(arr: torch.Tensor, i: int, x_ndim: int) -> torch.Tensor:
-    """tables[..., i] broadcast against an x of rank ``x_ndim`` + 1."""
+# a respaced step index: one int for the whole batch, or an int64 [B]
+# tensor of per-example steps (training draws one t per example)
+Index = Union[int, torch.Tensor]
+
+
+def _at(arr: torch.Tensor, i: Index, x_ndim: int) -> torch.Tensor:
+    """tables[..., i] broadcast against an x of rank ``x_ndim`` + 1
+    (gaussian_diffusion.py:910-923 _extract_into_tensor): an int ``i``
+    gives [...] + (1,) * x_ndim, a [B] ``i`` over [K] tables [B] + (1,) *
+    x_ndim."""
     v = arr[..., i]
     return v.reshape(v.shape + (1,) * x_ndim)
 
 
-def q_sample(tables: ScheduleTables, x_start, i: int, noise):
+def q_sample(tables: ScheduleTables, x_start, i: Index, noise):
     """Diffuse x_start to respaced step i (gaussian_diffusion.py:188-210)."""
     nd = x_start.dim() - 1
     return (_at(tables.sqrt_alphas_cumprod, i, nd) * x_start
             + _at(tables.sqrt_one_minus_alphas_cumprod, i, nd) * noise)
 
 
-def q_posterior_mean_variance(tables: ScheduleTables, x_start, x_t, i: int):
+def q_posterior_mean_variance(tables: ScheduleTables, x_start, x_t,
+                              i: Index):
     """q(x_{i-1} | x_i, x_0) (gaussian_diffusion.py:212-230)."""
     nd = x_t.dim() - 1
     mean = (_at(tables.posterior_mean_coef1, i, nd) * x_start
@@ -73,7 +82,7 @@ def _split_model_output(model_out, x, var_type: ModelVarType):
     return model_out, None
 
 
-def p_mean_variance(tables: ScheduleTables, model_out, x, i: int, *,
+def p_mean_variance(tables: ScheduleTables, model_out, x, i: Index, *,
                     mean_type: ModelMeanType, var_type: ModelVarType,
                     clip_denoised: bool = True,
                     denoised_fn: Optional[Callable] = None):
@@ -94,10 +103,17 @@ def p_mean_variance(tables: ScheduleTables, model_out, x, i: int, *,
     elif var_type == ModelVarType.FIXED_LARGE:
         # betas, with step 0's variance replaced by posterior_variance[1]
         # (gaussian_diffusion.py:278-289); taken per step, so per-sample
-        # [N, K] tables broadcast over the batch axis, never the channels
+        # [N, K] tables broadcast over the batch axis, never the channels,
+        # and a [B] index per example
         k1 = min(1, tables.num_steps - 1)
-        variance = (_at(tables.posterior_variance, k1, nd) if i == 0
-                    else _at(tables.betas, i, nd))
+        if isinstance(i, int):
+            variance = (_at(tables.posterior_variance, k1, nd) if i == 0
+                        else _at(tables.betas, i, nd))
+        else:
+            first = (i == 0).reshape(i.shape + (1,) * nd)
+            variance = torch.where(first,
+                                   _at(tables.posterior_variance, k1, nd),
+                                   _at(tables.betas, i, nd))
         log_variance = torch.log(variance)
     elif var_type == ModelVarType.FIXED_SMALL:
         variance = _at(tables.posterior_variance, i, nd)

@@ -137,7 +137,9 @@ class BatchedFIDFitness:
         for idxs in groups.values():
             for j in range(0, len(idxs), self.candidate_chunk):
                 part = idxs[j:j + self.candidate_chunk]
+                t0 = time.time()
                 part_fids = self._eval_chunk([candidates[i] for i in part])
+                logger.logkv_mean("fitness_chunk_time", time.time() - t0)
                 for i, f in zip(part, part_fids):
                     fids[i] = f
         return [fids[i] for i in range(len(candidates))]

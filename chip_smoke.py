@@ -111,7 +111,33 @@ Phases, each of which raises on failure:
     launches equal to its per-call count from the models times the UNet
     calls and decodes; then ``--sampler dpm_solver`` (five time knots,
     DPM-Solver-2, the smallest population the EA takes) twice, with the
-    same launch check.
+    same launch check;
+14. train: ``adt-torch train`` through its Python entry at full ADM-64
+    width (bf16, dropout 0.1, batch 16 in two microbatches of 8, EMA
+    0.9999) from a seeded uint8 ``.npy`` of 256 images with labels over
+    1000 classes, 4 steps with a save at step 2, then a
+    ``--resume_checkpoint`` of the save directory for 2 more (the resumed
+    model and EMA equal to the saved ones, the step counter going on),
+    switches off and on: finite losses, the command's step time, peak
+    memory, and each kernel's launches a step (the flash kernels 22 a
+    microbatch; on, one GroupNorm backward a forward and the fused conv at
+    the in-norms only, dropout keeping the out-norm out of it);
+15. train profile: the same training step driven directly on
+    device-resident data, switches off and on: wall and device-busy ms a
+    step, idle share, samples/s, peak memory, and the GroupNorm backward
+    in its every-gradient form (one batch sum a call)
+    (``chiprun_out/chip_smoke_profile_train_{off,on}.txt``);
+16. ``adt-torch train-classifier`` at its defaults (width 128, depth 2)
+    over a folder of 32 seeded PNGs, batch 16, 3 steps, switches off and
+    on: finite losses, launches a step;
+17. ``adt-torch nll`` of the trained EMA checkpoint, one batch of 2 over
+    the 1000-step bound: bits/dim finite, seconds;
+18. ``adt-torch sample`` of the trained EMA checkpoint, 16 images;
+19. train parity: two AdamW + EMA steps of the full-width UNet in float32
+    (dropout 0, the same weights, batch, t and noise) on the GPU against
+    the CPU twins, switches off and on: losses, gradient norms, the first
+    step's gradients and every parameter and EMA value after the steps
+    within 1e-3 of their scale.
 
 The last lines of standard output are a ``kernels`` JSON line, the
 ``nvidia-smi`` name / power-limit line and ``{"ok": true, "device": ...}``.
@@ -1034,8 +1060,12 @@ def device_busy(prof, steps: int):
     """(busy ms per step, kernels sorted by device time) of a profile."""
     import torch
 
+    # device events less user annotations (the optimizer's
+    # ``Optimizer.step#AdamW.step`` range spans kernels counted already)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if busy <= 0:
@@ -2057,6 +2087,477 @@ def phase_sd_search(paths, env, sites, label: str, sampler: str = "plms",
                 phases=phases, images_per_s=ips, wall_s=wall)
 
 
+# ------------------------------------------------------------ training path
+
+# ``adt-torch train``'s defaults: ADM-64 full width, bf16, dropout 0.1; the
+# smoke run's batch of 16 goes in two microbatches of 8
+TRAIN_BATCH, TRAIN_MICRO = 16, 8
+MICROBATCHES = TRAIN_BATCH // TRAIN_MICRO
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_KERNELS_ON = TRAIN_KERNELS + NEW_KERNELS
+
+
+def train_files():
+    """A seeded uint8 [256, 64, 64, 3] .npy with labels over 1000 classes
+    (``train``'s bulk input) and a folder of 32 PNGs of four classes
+    (``train-classifier`` and ``nll`` read image folders), made here."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(7)
+    d = os.path.join(WORK, "train_data")
+    os.makedirs(os.path.join(d, "pngs"), exist_ok=True)
+    npy = os.path.join(d, "imgs.npy")
+    np.save(npy, rng.randint(0, 256, (256, 64, 64, 3), dtype=np.uint8))
+    np.save(os.path.join(d, "imgs_labels.npy"), rng.randint(0, 1000, 256))
+    for i in range(32):
+        Image.fromarray(rng.randint(0, 256, (64, 64, 3), dtype=np.uint8)) \
+            .save(os.path.join(d, "pngs", f"n{i % 4:08d}_{i}.png"))
+    return dict(npy=npy, pngs=os.path.join(d, "pngs"))
+
+
+def _progress(save_dir):
+    import csv
+
+    with open(os.path.join(save_dir, "progress.csv")) as f:
+        return [{k: float(v) if v not in ("", None) else None
+                 for k, v in r.items()} for r in csv.DictReader(f)]
+
+
+def _per_step(launches, steps: int, label: str):
+    out = {}
+    for k, v in launches.items():
+        if v % steps:
+            raise AssertionError(f"{label}: {v} {k} launches over {steps} "
+                                 "steps")
+        out[k] = v // steps
+    return out
+
+
+def _in_norm_sites():
+    """ResBlocks of the ADM-64 UNet without resampling: the in-norm sites
+    the fused conv takes in training (read from the model on the meta
+    device)."""
+    import torch
+    from autodiffusion_tpu_torch.models import ModelConfig, create_model
+    from autodiffusion_tpu_torch.models.unet import ResBlock
+
+    with torch.device("meta"):
+        m = create_model(ModelConfig.adm64(), device="meta")
+    return sum(isinstance(mod, ResBlock) and not mod.updown
+               for mod in m.modules())
+
+
+def phase_train(files, env, label: str):
+    """``adt-torch train`` at ADM-64 full width (bf16, dropout 0.1, batch
+    16 in two microbatches, EMA 0.9999) for 4 steps with a save at step 2,
+    then ``--resume_checkpoint`` of the save directory for 2 more: the
+    launch counters set to 0 just before each run and read just after
+    (every step the same launches; the flash kernels 22 a microbatch; with
+    the switches on the GroupNorm backward once for every GroupNorm
+    forward and the fused conv only at the in-norms, the out-norm's
+    dropout keeping it out), finite losses, the files, the resumed state
+    equal to the saved one and the step counter continuing."""
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+    from autodiffusion_tpu_torch.models import ModelConfig, create_model
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.train import (create_train_state,
+                                               resume_train_state)
+
+    save_dir = os.path.join(WORK, f"train_{label}")
+    base = ["train", "--device", "cuda", "--data_dir", files["npy"],
+            "--save_dir", save_dir, "--batch_size", str(TRAIN_BATCH),
+            "--microbatch", str(TRAIN_MICRO), "--ema_rate", "0.9999",
+            "--save_interval", "2", "--log_interval", "1"]
+    runs = {}
+    with switches(env):
+        for run, extra, steps in (
+                ("first", ["--max_steps", "4"], 4),
+                ("resumed", ["--max_steps", "6", "--resume_checkpoint",
+                             save_dir], 2)):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.time()
+            rc = adt_torch(base + extra)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            if rc != 0:
+                raise AssertionError(f"adt-torch train ({label}, {run}) "
+                                     f"returned {rc}")
+            runs[run] = dict(launches=dict(LAUNCHES), wall_s=wall,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                             per_step=_per_step(dict(LAUNCHES), steps,
+                                                f"train {label} {run}"))
+            if run == "first":
+                # the state a resume reads equals what the run saved
+                ref = torch.load(os.path.join(save_dir, "model000004.pt"),
+                                 map_location="cuda", weights_only=True)
+                ema = torch.load(os.path.join(save_dir,
+                                              "ema_0.9999_000004.pt"),
+                                 map_location="cuda", weights_only=True)
+                m = create_model(ModelConfig.adm64(), device="cuda")
+                st = create_train_state(m, ema_rates=(0.9999,))
+                resume_train_state(st, save_dir)
+                if st.step != 4 or st.updates() != 4:
+                    raise AssertionError(f"train {label}: resumed at step "
+                                         f"{st.step}, {st.updates()} updates")
+                for k, v in m.state_dict().items():
+                    if not torch.equal(v, ref[k]):
+                        raise AssertionError(f"train {label}: resumed {k} "
+                                             "differs from the saved one")
+                for k, v in st.ema_state_dict(0).items():
+                    if not torch.equal(v, ema[k]):
+                        raise AssertionError(f"train {label}: resumed EMA "
+                                             f"{k} differs")
+                del m, st, ref, ema
+                torch.cuda.empty_cache()
+    rows = _progress(save_dir)
+    if [int(r["step"]) for r in rows] != [1, 2, 3, 4, 5, 6]:
+        raise AssertionError(f"train {label}: steps {[r['step'] for r in rows]}")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train {label}: losses {losses}")
+    for name in ("model000006.pt", "ema_0.9999_000006.pt", "opt000006.pt"):
+        if not os.path.exists(os.path.join(save_dir, name)):
+            raise AssertionError(f"train {label}: no {name}")
+    per = runs["first"]["per_step"]
+    if per != runs["resumed"]["per_step"]:
+        raise AssertionError(f"train {label}: launches a step "
+                             f"{per} then {runs['resumed']['per_step']}")
+    want_flash = 22 * MICROBATCHES
+    on = env is SWITCHES_ON
+    for k in TRAIN_KERNELS_ON if on else TRAIN_KERNELS:
+        if not per[k]:
+            raise AssertionError(f"train {label}: {k} never launched")
+    for k in TRAIN_KERNELS:
+        if per[k] != want_flash:
+            raise AssertionError(f"train {label}: {per[k]} {k} a step, want "
+                                 f"{want_flash}")
+    if on:
+        fused = _in_norm_sites() * MICROBATCHES
+        if per["group_norm_bwd"] != per["group_norm_fwd"] or \
+                per["conv3x3_fused"] != fused:
+            raise AssertionError(
+                f"train {label}: a step ran {per['group_norm_fwd']} GroupNorm "
+                f"forwards, {per['group_norm_bwd']} backwards and "
+                f"{per['conv3x3_fused']} fused convs (want one backward a "
+                f"forward, {fused} fused convs: the in-norms only)")
+    elif any(per[k] for k in NEW_KERNELS):
+        raise AssertionError(f"train {label}: switched-off kernels ran {per}")
+    # the command's own step time (host clock, data and logging included),
+    # after the first step of each run
+    step_s = sorted(r["step_time"] for r in rows
+                    if int(r["step"]) not in (1, 5))
+    log(f"train ({label}): losses {[round(v, 4) for v in losses]}, "
+        f"command step time after warm-up {1e3 * step_s[len(step_s) // 2]:.1f}"
+        f" ms (median of {len(step_s)}), launches a step {per}, peak memory "
+        f"{runs['first']['peak_gb']:.2f} GB, wall {runs['first']['wall_s']:.1f}"
+        f" + {runs['resumed']['wall_s']:.1f} s (resumed at step 4)")
+    return dict(runs=runs, losses=losses, per_step=per,
+                command_step_ms=1e3 * step_s[len(step_s) // 2],
+                launches={k: runs["first"]["launches"][k]
+                          + runs["resumed"]["launches"][k] for k in per},
+                save_dir=save_dir)
+
+
+def phase_train_profile(env, label: str, steps: int = 3):
+    """The training step the command runs (make_train_step at ADM-64 full
+    width, bf16, dropout 0.1, batch 16 in two microbatches, AdamW + EMA),
+    driven directly on device-resident data: host-clock ms a step after
+    two warm-up steps, device-busy ms a step under torch.profiler, the idle
+    share, peak memory, the kernels' launches a step and the GroupNorm
+    backward's form (with the switches on every call must launch its
+    batch sum: the every-gradient form)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from autodiffusion_tpu_torch.models import ModelConfig, create_model
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.schedules import build_base_tables
+    from autodiffusion_tpu_torch.train import (create_train_state,
+                                               make_train_step)
+
+    with switches(env):
+        torch.manual_seed(0)
+        model = create_model(ModelConfig.adm64(), device="cuda").train()
+        state = create_train_state(model, ema_rates=(0.9999,))
+        step = make_train_step(model, class_cond=True,
+                               microbatches=MICROBATCHES)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tables = build_base_tables("cosine").to("cuda")
+        batch = {"x": torch.rand(TRAIN_BATCH, 3, 64, 64, device="cuda",
+                                 generator=gen) * 2 - 1,
+                 "y": torch.randint(0, 1000, (TRAIN_BATCH,), device="cuda",
+                                    generator=gen)}
+        t = torch.randint(0, 1000, (TRAIN_BATCH,), device="cuda",
+                          generator=gen)
+        w = torch.ones(TRAIN_BATCH, device="cuda")
+
+        def one():
+            return step(state, tables, batch, t, w, gen)[1]
+
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(steps):
+            metrics = one()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3 / steps
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                one()
+            torch.cuda.synchronize()
+        per = _per_step(dict(LAUNCHES), steps, f"train profile {label}")
+    busy, kernels = device_busy(prof, steps)
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"train profile {label}: loss {loss}")
+    gn_calls, batch_sums = (sum(e.count for e in kernels if tag in e.key)
+                            / steps for tag in ("group_norm_bwd_kernel",
+                                                "group_norm_batch_sum"))
+    if env is SWITCHES_ON and not (
+            gn_calls == batch_sums == per["group_norm_bwd"] > 0):
+        raise AssertionError(
+            f"train profile {label}: {gn_calls:g} GroupNorm backward kernels"
+            f" and {batch_sums:g} batch sums a step for "
+            f"{per['group_norm_bwd']} calls (want the every-gradient form: "
+            "one batch sum a call)")
+    own = {k: sum(e.self_device_time_total for e in kernels if tag in e.key)
+           / 1e3 / steps
+           for k, tag in (("flash_fwd", "flash_fwd_tma_kernel"),
+                          ("flash_bwd_dq", "flash_bwd_dq_tma_kernel"),
+                          ("flash_bwd_dkv", "flash_bwd_dkv_tma_kernel"),
+                          ("group_norm_fwd", "group_norm_fwd_"),
+                          ("group_norm_bwd", "group_norm_bwd_kernel"),
+                          ("group_norm_batch_sum", "group_norm_batch_sum"),
+                          ("conv3x3", "conv3x3_igemm_kernel<false"),
+                          ("conv3x3_fused", "conv3x3_igemm_kernel<true"),
+                          ("wgrad", "wgrad"))}
+    lines = profile_lines(kernels, steps)
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, f"chip_smoke_profile_train_{label}.txt"),
+              "w") as f:
+        f.write(f"{smi_line()}\ntraining step, ADM-64 bf16, batch "
+                f"{TRAIN_BATCH} in {MICROBATCHES} microbatches, dropout 0.1, "
+                f"{label}; device time per step by kernel\n"
+                + "\n".join(lines) + "\n")
+    log(f"train profile ({label}): {wall:.2f} ms a step wall, busy "
+        f"{busy:.2f} ms (idle {100 * (1 - busy / wall):.1f}%), "
+        f"{1e3 * TRAIN_BATCH / wall:.2f} samples/s, peak memory "
+        f"{peak_gb:.2f} GB, launches a step {per}, GroupNorm backward "
+        f"{gn_calls:g} kernels and {batch_sums:g} batch sums a step, "
+        f"own device ms a step {dict((k, round(v, 3)) for k, v in own.items())}")
+    for line in lines[:8]:
+        log(f"train profile ({label}): " + line)
+    del model, state
+    torch.cuda.empty_cache()
+    return dict(step_ms=wall, busy_ms=busy, idle=1 - busy / wall,
+                samples_per_s=1e3 * TRAIN_BATCH / wall, peak_gb=peak_gb,
+                launches_per_step=per, gn_bwd_kernels=gn_calls,
+                batch_sums=batch_sums, own_ms=own, loss=loss, top=lines)
+
+
+def phase_train_classifier(files, env, label: str, steps: int = 3):
+    """``adt-torch train-classifier`` at its defaults (width 128, depth 2,
+    attention pool, bf16, batch 4 raised to 16) for a few steps: finite
+    losses and the kernels' launches a step."""
+    import json as _json
+
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    save_dir = os.path.join(WORK, f"classifier_{label}")
+    with switches(env):
+        reset_launch_counts()
+        t0 = time.time()
+        rc = adt_torch(["train-classifier", "--device", "cuda", "--data_dir",
+                        files["pngs"], "--save_dir", save_dir,
+                        "--iterations", str(steps), "--batch_size", "16",
+                        "--log_interval", "1"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"train-classifier ({label}) returned {rc}")
+    with open(os.path.join(save_dir, "progress.json")) as f:
+        rows = [_json.loads(r) for r in f]
+    losses = [r["loss"] for r in rows]
+    if len(rows) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train-classifier ({label}): {rows}")
+    per = _per_step(launches, steps, f"train-classifier {label}")
+    for k in TRAIN_KERNELS_ON if env is SWITCHES_ON else TRAIN_KERNELS:
+        if not per[k]:
+            raise AssertionError(f"train-classifier ({label}): {k} never "
+                                 "launched")
+    step_ms = 1e3 * sorted(r["step_time"] for r in rows[1:])[
+        (len(rows) - 1) // 2]
+    log(f"train-classifier ({label}): losses {[round(v, 4) for v in losses]}"
+        f", launches a step {per}, command step time {step_ms:.1f} ms after "
+        f"the first, wall {wall:.1f} s")
+    return dict(losses=losses, per_step=per, launches=launches,
+                command_step_ms=step_ms, wall_s=wall)
+
+
+def phase_nll(files, ema_path):
+    """``adt-torch nll`` of the trained EMA checkpoint over the PNG folder:
+    one batch of 2 through the full 1000-step bound, float32."""
+    import io
+
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with switches(SWITCHES_OFF), contextlib.redirect_stdout(buf):
+        rc = adt_torch(["nll", "--device", "cuda", "--model_path", ema_path,
+                        "--data_dir", files["pngs"], "--num_samples", "2",
+                        "--batch_size", "2"])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"adt-torch nll returned {rc}")
+    bpd = json.loads(text.strip().splitlines()[-1])["bpd"]
+    if not (math.isfinite(bpd) and bpd > 0):
+        raise AssertionError(f"nll: bpd {bpd}")
+    log(f"nll: {bpd:.4f} bits/dim over 2 images, 1000 steps of the bound, "
+        f"{secs:.1f} s (models built and loaded)")
+    return dict(bpd=bpd, seconds=secs)
+
+
+def phase_sample_trained(ema_path):
+    """``adt-torch sample`` of the trained EMA checkpoint (DDIM, the
+    4-step schedule, 16 samples): the trained weights deploy."""
+    import numpy as np
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+
+    npz = os.path.join(WORK, "samples_trained.npz")
+    t0 = time.time()
+    with switches(SWITCHES_OFF):
+        rc = adt_torch(["sample", "--device", "cuda", "--model_path",
+                        ema_path, "--use_timestep", SAMPLE_TIMESTEPS,
+                        "--num_samples", "16", "--batch_size", "16",
+                        "--seed", "1", "--out", npz])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"sample of the trained model returned {rc}")
+    with np.load(npz) as z:
+        arr = z["arr_0"]
+    if arr.dtype != np.uint8 or arr.shape != (16, 64, 64, 3):
+        raise AssertionError(f"sample of the trained model: {arr.dtype} "
+                             f"{arr.shape}")
+    log(f"sample (trained EMA): 16 images {arr.shape}, "
+        f"{time.time() - t0:.1f} s")
+    return dict(shape=list(arr.shape), seconds=time.time() - t0)
+
+
+def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
+    """Two AdamW + EMA training steps of the full-width ADM-64 UNet in
+    float32 (dropout 0; the same weights, batch, t and noise) on the GPU
+    (the kernels) against the CPU (their plain twins), TF32 off: each
+    step's loss and gradient norm, the first step's gradients and every
+    parameter and EMA value after the steps within 1e-3 of their scale."""
+    import torch
+    from autodiffusion_tpu_torch.models import ModelConfig, create_model
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.schedules import build_base_tables
+    from autodiffusion_tpu_torch.train import (create_train_state,
+                                               make_train_step)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(11)
+    data = [dict(x=torch.rand(batch, 3, 64, 64, generator=gen) * 2 - 1,
+                 y=torch.randint(0, 1000, (batch,), generator=gen),
+                 t=torch.randint(0, 1000, (batch,), generator=gen),
+                 noise=torch.randn(batch, 3, 64, 64, generator=gen))
+            for _ in range(2)]
+    res = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            t0 = time.time()
+            with switches(env):
+                m = create_model(ModelConfig.adm64(use_bf16=False,
+                                                   dropout=0.0), device=dev)
+                m.load_state_dict(unet_sd)
+                m.train()
+                st = create_train_state(m, lr=1e-4, weight_decay=0.01,
+                                        ema_rates=(0.9,))
+                step = make_train_step(m, class_cond=True)
+                tables = build_base_tables("cosine").to(dev)
+                reset_launch_counts()
+                metrics, first = [], None
+                for d in data:
+                    grads, mt = step.grads_and_metrics(
+                        st, tables, {"x": d["x"].to(dev), "y": d["y"].to(dev)},
+                        d["t"].to(dev), torch.ones(batch, device=dev),
+                        noise=d["noise"].to(dev))
+                    if first is None:
+                        first = [g.cpu() for g in grads]
+                    st.apply_gradients(grads)
+                    metrics.append({k: float(mt[k]) for k in
+                                    ("loss", "grad_norm", "mse", "vb")})
+                launches = dict(LAUNCHES)
+            res[dev] = dict(metrics=metrics, grads=first,
+                            params={n: p.detach().cpu()
+                                    for n, p in m.named_parameters()},
+                            ema={n: e.cpu() for n, e in
+                                 st.ema_state_dict(0).items()},
+                            launches=launches, names=st.names)
+            log(f"train parity ({label}) on {dev}: {time.time() - t0:.1f} s")
+            del m, st, grads
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    gpu, cpu = res["cuda"], res["cpu"]
+    errs = {}
+    for i, (g, c) in enumerate(zip(gpu["metrics"], cpu["metrics"])):
+        for k in g:
+            if not (math.isfinite(g[k]) and abs(g[k] - c[k])
+                    <= 1e-3 * max(abs(c[k]), 1.0)):
+                raise AssertionError(f"train parity ({label}) step {i} {k}: "
+                                     f"GPU {g[k]} CPU {c[k]}")
+    gscale = max(float(g.abs().max()) for g in cpu["grads"])
+    errs["grads"] = max(float((a - b).abs().max())
+                        for a, b in zip(gpu["grads"], cpu["grads"]))
+    if not errs["grads"] <= 1e-3 * gscale:
+        worst = max(zip(gpu["grads"], cpu["grads"], cpu["names"]),
+                    key=lambda z: float((z[0] - z[1]).abs().max()))[2]
+        raise AssertionError(f"train parity ({label}): gradients "
+                             f"{errs['grads']:.3e} apart (scale {gscale:.3e}"
+                             f", worst {worst})")
+    for part in ("params", "ema"):
+        errs[part] = 0.0
+        for n, c in cpu[part].items():
+            e = float((gpu[part][n] - c).abs().max())
+            errs[part] = max(errs[part], e)
+            if not e <= 1e-3 * max(float(c.abs().max()), 1.0):
+                raise AssertionError(f"train parity ({label}): {part} {n} "
+                                     f"{e:.3e} apart")
+    missing = [k for k in (TRAIN_KERNELS_ON if env is SWITCHES_ON
+                           else TRAIN_KERNELS) if not gpu["launches"][k]]
+    if missing:
+        raise AssertionError(f"train parity ({label}): GPU launched no "
+                             f"{missing}")
+    log(f"train parity ({label}): ADM-64 float32 batch {batch}, 2 AdamW + "
+        f"EMA steps, GPU vs CPU: losses {[m['loss'] for m in gpu['metrics']]}"
+        f" vs {[m['loss'] for m in cpu['metrics']]}, grad norms "
+        f"{[m['grad_norm'] for m in gpu['metrics']]} vs "
+        f"{[m['grad_norm'] for m in cpu['metrics']]}, max abs err gradients "
+        f"{errs['grads']:.3e} (scale {gscale:.3e}), parameters "
+        f"{errs['params']:.3e}, EMA {errs['ema']:.3e} (tol 1e-3 x scale); "
+        f"GPU launches {gpu['launches']}")
+    return dict(errs=errs, gpu_metrics=gpu["metrics"],
+                cpu_metrics=cpu["metrics"], launches=gpu["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -2134,6 +2635,33 @@ def main() -> int:
         mark("ref-stats and evaluate")
         log(f"ADM phases done at {time.time() - t_start:.1f} s")
 
+        # the training slice: train (switches off, on), the training step
+        # profiled, train-classifier, nll and sample of the trained
+        # checkpoint, GPU-vs-CPU training parity
+        files = train_files()
+        train = {label: phase_train(files, env, label)
+                 for label, env in (("off", SWITCHES_OFF),
+                                    ("on", SWITCHES_ON))}
+        mark("train")
+        train_prof = {label: phase_train_profile(env, label)
+                      for label, env in (("off", SWITCHES_OFF),
+                                         ("on", SWITCHES_ON))}
+        mark("train profile")
+        train_cls = {label: phase_train_classifier(files, env, label)
+                     for label, env in (("off", SWITCHES_OFF),
+                                        ("on", SWITCHES_ON))}
+        mark("train-classifier")
+        ema_path = os.path.join(train["off"]["save_dir"],
+                                "ema_0.9999_000006.pt")
+        nll = phase_nll(files, ema_path)
+        mark("nll")
+        sample_trained = phase_sample_trained(ema_path)
+        mark("sample of the trained checkpoint")
+        train_parity = {label: phase_train_parity(unet_sd, env, label)
+                        for label, env in (("switches off", SWITCHES_OFF),
+                                           ("switches on", SWITCHES_ON))}
+        mark("train parity")
+
         # the Stable Diffusion slice: search-sd's kernels at every SD site,
         # parity of the full-width towers, a profile and two searches
         sd = sd_sites()
@@ -2192,6 +2720,14 @@ def main() -> int:
     for k in NEW_KERNELS:
         launches[k] = (search_on["launches"][k] + sd_search_on["launches"][k]
                        + sd_dpm_on["launches"][k])
+    # ... and the training commands: the flash kernels switched off, every
+    # ADM kernel switched on
+    for k in KERNEL_INFO:
+        launches[k] += (train["on"]["launches"][k]
+                        + train_cls["on"]["launches"][k])
+        if k not in NEW_KERNELS:
+            launches[k] += (train["off"]["launches"][k]
+                            + train_cls["off"]["launches"][k])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
@@ -2229,6 +2765,10 @@ def main() -> int:
                    "sd_search": sd_search, "sd_search_switches_on":
                        sd_search_on, "sd_dpm_search": sd_dpm,
                    "sd_dpm_search_switches_on": sd_dpm_on,
+                   "train": train, "train_profile": train_prof,
+                   "train_classifier": train_cls, "nll": nll,
+                   "sample_trained": sample_trained,
+                   "train_parity": train_parity,
                    "phase_marks": marks, "ptxas_pipelined": ptxas,
                    "kernels_line": line,
                    "total_s": time.time() - t_start}, f, indent=1)

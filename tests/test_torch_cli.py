@@ -9,8 +9,11 @@ tests/test_torch_fid.py); fid and inception_score 1e-4 relative; precision
 and recall equal.
 """
 
+import csv
 import json
+import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -39,7 +42,11 @@ def _fresh_port_logger():
 
 @pytest.mark.parametrize("cmd,fn", [("sample", "cmd_sample"),
                                     ("evaluate", "cmd_evaluate"),
-                                    ("ref-stats", "cmd_ref_stats")])
+                                    ("ref-stats", "cmd_ref_stats"),
+                                    ("train", "cmd_train"),
+                                    ("train-classifier",
+                                     "cmd_train_classifier"),
+                                    ("nll", "cmd_nll")])
 def test_defaults_equal_the_jax_cli(monkeypatch, cmd, fn):
     seen = {}
     monkeypatch.setattr(jax_cli, fn, lambda args: seen.update(vars(args)) or 0)
@@ -156,6 +163,159 @@ def test_sample_ddim_with_skip_layers(tiny_checkpoints, tmp_path):
     with pytest.raises(ValueError, match="--skip_layers has 2 entries"):
         main(_sample_argv(d, tmp_path / "w.npz", "--skip_layers",
                           str(skips[:2])))
+    # a .msgpack model path is read as a flax tree: bytes that are none
+    # raise the reader's named error
+    bad = tmp_path / "model.msgpack"
+    bad.write_bytes(b"\xc1")
     with pytest.raises(ValueError, match="msgpack"):
-        main(_sample_argv(d, tmp_path / "m.npz", "--model_path",
-                          "model.msgpack"))
+        main(_sample_argv(d, tmp_path / "m.npz", "--model_path", str(bad)))
+
+
+# ------------------------------------------------------------------ training
+
+def _train_argv(data, save_dir, *extra):
+    argv = ["train", "--device", "cpu", "--data_dir", str(data),
+            "--save_dir", str(save_dir), "--batch_size", "4",
+            "--microbatch", "2", "--use_bf16", "False", "--dropout", "0.0",
+            "--log_interval", "1"]
+    for k, v in TINY.items():
+        argv += [f"--{k}", str(v)]
+    return argv + list(extra)
+
+
+@pytest.fixture(scope="module")
+def npy_data(tmp_path_factory):
+    d = tmp_path_factory.mktemp("npy")
+    rng = np.random.RandomState(0)
+    np.save(d / "imgs.npy", rng.randint(0, 256, (10, 32, 32, 3), np.uint8))
+    np.save(d / "imgs_labels.npy", rng.randint(0, 1000, 10))
+    return d / "imgs.npy"
+
+
+def test_train_writes_checkpoints_and_resumes(npy_data, tmp_path):
+    """Two steps write guided-diffusion's three .pt files; a resume from
+    the directory loads them (the model equal to the saved one, AdamW's
+    moments and count restored) and continues the step counter."""
+    out = tmp_path / "run"
+    assert main(_train_argv(npy_data, out, "--max_steps", "2")) == 0
+    names = {"model000002.pt", "ema_0.9999_000002.pt", "opt000002.pt"}
+    assert names <= set(os.listdir(out))
+    saved = torch.load(out / "model000002.pt", weights_only=True)
+    opt = torch.load(out / "opt000002.pt", weights_only=True)
+    assert int(next(iter(opt["state"].values()))["step"]) == 2
+    ema = torch.load(out / "ema_0.9999_000002.pt", weights_only=True)
+    assert set(ema) == set(saved)
+
+    from autodiffusion_tpu_torch.train import (create_train_state,
+                                               resume_train_state)
+    model = create_model(ModelConfig.adm64(**TINY, use_bf16=False),
+                         device="cpu")
+    state = create_train_state(model)
+    resume_train_state(state, str(out))
+    assert state.step == 2 and state.updates() == 2
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, saved[k], rtol=0, atol=0)
+
+    assert main(_train_argv(npy_data, out, "--max_steps", "3",
+                            "--resume_checkpoint", str(out))) == 0
+    assert {"model000003.pt", "opt000003.pt"} <= set(os.listdir(out))
+    opt = torch.load(out / "opt000003.pt", weights_only=True)
+    assert int(next(iter(opt["state"].values()))["step"]) == 3
+    assert "resuming model from" in (out / "log.txt").read_text()
+    with open(out / "progress.csv") as f:
+        assert [int(float(r["step"])) for r in csv.DictReader(f)] == [1, 2, 3]
+
+
+def test_train_ofa_random_select_sandwich(npy_data, tmp_path):
+    """--ofa_mode random_select: one update from four schedules' averaged
+    gradients, logged per schedule length."""
+    out = tmp_path / "ofa"
+    assert main(_train_argv(npy_data, out, "--max_steps", "1",
+                            "--ofa_mode", "random_select")) == 0
+    log = (out / "log.txt").read_text()
+    assert "loss_len1000" in log and "loss_len4 " in log
+    assert (out / "model000001.pt").exists()
+
+
+def test_train_refuses_what_is_not_ported(npy_data, tmp_path):
+    with pytest.raises(ValueError, match="item 11"):
+        main(_train_argv(npy_data, tmp_path, "--sr_small_size", "16"))
+    with pytest.raises(ValueError, match="ofa_mode"):
+        main(_train_argv(npy_data, tmp_path, "--ofa_mode", "every_step"))
+
+
+def test_adt_train_checkpoint_samples_in_the_port(tmp_path):
+    """A model tree in the files ``adt train`` writes (save_tree of the JAX
+    model's params as model{step}.msgpack) samples in ``adt-torch sample``
+    exactly as the same weights from a .pt do."""
+    from autodiffusion_tpu.models import ModelConfig as JaxConfig
+    from autodiffusion_tpu.models import create_model as jax_create_model
+    from autodiffusion_tpu.utils.checkpoint import save_tree
+    from autodiffusion_tpu_torch.models.convert import \
+        unet_state_dict_from_flax
+    from test_torch_models import _random_params
+
+    jm = jax_create_model(JaxConfig.adm64(**TINY))
+    params = _random_params(jm, 2, jnp.zeros((1, 32, 32, 3)),
+                            jnp.zeros((1,)), jnp.zeros((1,), jnp.int32))
+    save_tree(str(tmp_path / "model000001.msgpack"), params)
+    torch.save(unet_state_dict_from_flax(params), tmp_path / "model.pt")
+    arrs = []
+    for name in ("model000001.msgpack", "model.pt"):
+        out = tmp_path / f"{name}.npz"
+        assert main(_sample_argv(tmp_path, out, "--model_path",
+                                 str(tmp_path / name))) == 0
+        arrs.append(_check_npz(out)[0])
+    assert np.array_equal(arrs[0], arrs[1])
+
+
+@pytest.fixture(scope="module")
+def png_dir(tmp_path_factory):
+    from PIL import Image
+
+    d = tmp_path_factory.mktemp("pngs")
+    rng = np.random.RandomState(3)
+    for i in range(6):
+        Image.fromarray(rng.randint(0, 256, (36, 36, 3), dtype=np.uint8)) \
+            .save(d / f"n{i % 3:03d}_{i}.png")
+    return d
+
+
+def test_train_classifier_command(png_dir, tmp_path):
+    out = tmp_path / "cls"
+    argv = ["train-classifier", "--device", "cpu", "--data_dir", str(png_dir),
+            "--save_dir", str(out), "--iterations", "2", "--batch_size", "2",
+            "--image_size", "32", "--classifier_width", "64",
+            "--classifier_depth", "1", "--classifier_use_bf16", "False",
+            "--num_classes", "3", "--log_interval", "1"]
+    assert main(argv) == 0
+    assert {"model000002.pt", "opt000002.pt"} <= set(os.listdir(out))
+    rows = [json.loads(r) for r in open(out / "progress.json")]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and 0 <= r["acc@5"] <= 1 for r in rows)
+    sd = torch.load(out / "model000002.pt", weights_only=True)
+    c = create_classifier(ClassifierConfig(
+        image_size=32, classifier_width=64, classifier_depth=1),
+        num_classes=3, device="cpu")
+    c.load_state_dict(sd, strict=True)
+
+
+def test_nll_command(png_dir, tmp_path, monkeypatch, capsys):
+    """bits/dim of a trained checkpoint over an image folder, the 1000-step
+    schedule swapped for a 10-step respacing to keep the CPU run short."""
+    from autodiffusion_tpu_torch import models
+
+    cfg = ModelConfig.adm64(image_size=32, num_channels=64,
+                            num_res_blocks=1, use_bf16=False)
+    m = random_init_(create_model(cfg, device="cpu"), 4)
+    torch.save(m.state_dict(), tmp_path / "ema.pt")
+    real = models.create_tables
+    monkeypatch.setattr(models, "create_tables",
+                        lambda c, ts=None: real(c, "ddim10"))
+    assert main(["nll", "--device", "cpu", "--model_path",
+                 str(tmp_path / "ema.pt"), "--data_dir", str(png_dir),
+                 "--image_size", "32", "--num_channels", "64",
+                 "--num_res_blocks", "1", "--num_samples", "4",
+                 "--batch_size", "2"]) == 0
+    bpd = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["bpd"]
+    assert np.isfinite(bpd) and bpd > 0

@@ -287,3 +287,52 @@ def test_state_dict_keys_match_guided_diffusion(reference_gd):
     _, _, pc = _classifier_pair()
     assert set(pc.state_dict()) == set(gdc.state_dict())
     pc.load_state_dict(gdc.state_dict(), strict=True)
+
+
+# ------------------------------------------------ zero-initialised outputs
+
+def _zero_names(sd):
+    return {k for k, v in sd.items() if not torch.as_tensor(v).any()}
+
+
+@pytest.mark.parametrize("which", ["unet", "classifier_adaptive",
+                                   "classifier_attention"])
+def test_fresh_model_zeroes_what_jax_init_zeroes(which):
+    """A freshly built port model starts with the parameters the JAX
+    package initialises to zero (``kernel_init=zero_init``, guided-
+    diffusion's ``zero_module``: the ResBlock out-convs, the attention
+    output projections, the UNet's final conv and the adaptive pool's
+    conv) at zero. flax also starts every bias at zero where PyTorch draws
+    them, so the weights' zero sets must be equal and every parameter the
+    port zeroes must be zero in the JAX init too."""
+    if which == "unet":
+        jm = JaxUNet(out_channels=6, num_classes=10, **COMMON)
+        tree = jax.jit(jm.init)(jax.random.key(0),
+                                jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1,)),
+                                jnp.zeros((1,), jnp.int32))
+        jax_sd = unet_state_dict_from_flax(tree)
+        torch.manual_seed(0)
+        port_sd = UNetModel(in_channels=3, out_channels=6, num_classes=10,
+                            **COMMON).state_dict()
+    else:
+        pool = which.split("_")[1]
+        cfg = dict(COMMON, num_head_channels=32)
+        jm = JaxEncoder(out_channels=10, use_new_attention_order=False,
+                        pool=pool, **cfg)
+        tree = jax.jit(jm.init)(jax.random.key(0),
+                                jnp.zeros((1, IMG, IMG, 3)), jnp.zeros((1,)))
+        jax_sd = classifier_state_dict_from_flax(tree)
+        torch.manual_seed(0)
+        port_sd = EncoderUNetModel(image_size=IMG, in_channels=3,
+                                   out_channels=10, pool=pool,
+                                   use_new_attention_order=False,
+                                   **cfg).state_dict()
+    assert set(port_sd) == set(jax_sd)
+    port_zero, jax_zero = _zero_names(port_sd), _zero_names(jax_sd)
+
+    def weights(names):
+        return {n for n in names if not n.endswith("bias")}
+
+    assert weights(port_zero) == weights(jax_zero)
+    assert port_zero <= jax_zero
+    assert weights(port_zero), "no zero-initialised weight"

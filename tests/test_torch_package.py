@@ -148,6 +148,12 @@ def _entry_points():
         "make_adm_fitness": fitness,
         "load_fid_inception": lambda **kw: load_fid_inception(
             "missing.pth", **kw),
+        "cli.main train": cli("train", "--data_dir", "missing.npy",
+                              "--class_cond", "False"),
+        "cli.main train-classifier": cli("train-classifier", "--data_dir",
+                                         "missing_dir"),
+        "cli.main nll": cli("nll", "--model_path", "m.pt", "--data_dir",
+                            "missing_dir"),
     }
 
 
@@ -156,7 +162,9 @@ def _entry_points():
                                   "load_fid_inception", "cli.main search-sd",
                                   "create_sd_models", "make_sd_fitness",
                                   "cli.main sample", "cli.main evaluate",
-                                  "cli.main ref-stats"])
+                                  "cli.main ref-stats", "cli.main train",
+                                  "cli.main train-classifier",
+                                  "cli.main nll"])
 def test_entry_points_raise_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -176,7 +184,8 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
         eps["cli.main search"](device="cpu")
     with pytest.raises(FileNotFoundError):
         eps["cli.main search-sd"](device="cpu")
-    for cmd in ("sample", "evaluate", "ref-stats"):
+    for cmd in ("sample", "evaluate", "ref-stats", "train",
+                "train-classifier", "nll"):
         with pytest.raises(FileNotFoundError):
             eps[f"cli.main {cmd}"](device="cpu")
 
