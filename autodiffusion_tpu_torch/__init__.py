@@ -17,11 +17,12 @@ the CPU; there is no silent CPU path.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "compute_dtype"]
+__all__ = ["resolve_device", "compute_dtype", "no_tf32"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -39,3 +40,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def compute_dtype(use_bf16: bool) -> torch.dtype:
     """The activation dtype of a model under the precision policy."""
     return torch.bfloat16 if use_bf16 else torch.float32
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 matrix products in full float32 (no TF32) for the block:
+    where a product's rounding decides a discrete result (an argmin, a
+    precision / recall radius) or a statistic needs every bit."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

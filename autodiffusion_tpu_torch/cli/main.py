@@ -15,6 +15,17 @@ raises unless ``--device cpu`` is given):
   search-sd   the Stable Diffusion latent search (sd/scripts/search_ea.py):
               classifier-free guided PLMS, DDIM or DPM-Solver, FID of the
               decoded images against COCO statistics
+  txt2img     Stable Diffusion text-to-image with a searched schedule
+              (sd/scripts/txt2img_fid.py; --prompt_mask the ablation of
+              txt2img_prompt_mask.py)
+  img2img     Stable Diffusion image-to-image (sd/scripts/img2img.py)
+  ldm-sample  latent-diffusion sampling, unconditional or class-
+              conditional, VQ or KL first stage (sd/scripts/
+              sample_diffusion.py)
+  inpaint     latent inpainting of image + mask pairs (sd/scripts/
+              inpaint.py)
+  convert     a torch checkpoint -> the JAX package's msgpack params
+              (a CompVis SD .ckpt -> the three-tower params directory)
   train       train or fine-tune an ADM UNet (train_util.py TrainLoop and
               its OFA variants)
   train-classifier  the noisy guidance classifier
@@ -23,8 +34,9 @@ raises unless ``--device cpu`` is given):
 
 Checkpoints are guided-diffusion ``.pt`` state dicts (what ``train``
 writes), the JAX package's ``.msgpack`` param trees (what ``adt train``
-writes, read without flax) and CompVis ``sd-v1-*.ckpt`` files (loaded with
-``load_state_dict(strict=True)``), the
+writes, read without flax), CompVis ``sd-v1-*.ckpt`` and LDM ``.ckpt``
+files (loaded with ``load_state_dict(strict=True)``) and the SD params
+directory ``convert --preset sd`` writes (either package's), the
 CLIP tokenizer a vocab.json / merges.txt pair, the Inception weights
 pytorch_fid's ``pt_inception-2015-12-05`` ``.pth``, the reference
 statistics an ``.npz`` of mu and sigma, sample and image arrays an
@@ -48,7 +60,9 @@ from ..utils.config import add_dict_to_argparser
 
 __all__ = ["main", "cmd_search", "cmd_sample", "cmd_evaluate",
            "cmd_ref_stats", "cmd_search_sd", "cmd_train",
-           "cmd_train_classifier", "cmd_nll"]
+           "cmd_train_classifier", "cmd_nll", "cmd_txt2img", "cmd_img2img",
+           "cmd_ldm_sample", "cmd_inpaint", "cmd_convert",
+           "img2img_latents", "inpaint_condition", "inpaint_composite"]
 
 
 def _search_defaults():
@@ -373,11 +387,11 @@ def _search_sd_defaults():
 
 
 def _sd_stack(args, dev):
-    """The three SD towers from a CompVis checkpoint, and the tokenizer."""
-    from ..models import (ClipBPETokenizer, create_sd_models,
-                          load_sd_checkpoint, split_sd_checkpoint)
+    """The three SD towers from ``--ckpt`` (a CompVis checkpoint or a
+    params directory), and the tokenizer."""
+    from ..models import ClipBPETokenizer, create_sd_models, load_sd_weights
 
-    parts = split_sd_checkpoint(load_sd_checkpoint(args.ckpt))
+    parts = load_sd_weights(args.ckpt)
     tok = ClipBPETokenizer.from_files(args.clip_vocab, args.clip_merges)
     towers = create_sd_models(args.use_bf16, device=dev)
     for module, part in zip(towers, parts):
@@ -690,6 +704,450 @@ def cmd_nll(args) -> int:
     return 0
 
 
+def _txt2img_defaults():
+    # the JAX CLI's txt2img flags (autodiffusion_tpu/cli/main.py:1253-1259)
+    return dict(
+        ckpt="", clip_vocab="", clip_merges="", prompt="", from_file="",
+        sampler="plms", scale=7.5, H=512, W=512, steps=50, timesteps="",
+        prompt_mask="", n_samples=4, seed=42, out="", save_png_dir="",
+        use_bf16=True, device="cuda",
+    )
+
+
+def _encode_prompts(clip, tok, prompts, dev):
+    import torch
+
+    return clip(torch.from_numpy(tok(prompts)).long().to(dev))
+
+
+def cmd_txt2img(args) -> int:
+    """Text-to-image with an optional searched schedule
+    (sd/scripts/txt2img_fid.py): prompts in batches of --n_samples, each
+    batch's classifier-free guidance against one empty-prompt row; PLMS,
+    DDIM or multistep DPM-Solver (--timesteps then the time knots), an
+    optional per-step guidance mask (--prompt_mask, PLMS and DDIM)."""
+    import torch
+
+    from ..samplers import (DiscreteNoiseSchedule, ModelVarType, cfg_eps_fn,
+                            ddim_sample_loop, dpm_solver_sample_loop,
+                            plms_sample_loop)
+    from ..schedules import (build_sd_tables, make_beta_schedule,
+                             make_ddim_timesteps)
+    from ..search import sd_decode_to_uint8
+
+    dev = resolve_device(args.device)
+    prompts = [args.prompt] * args.n_samples if args.prompt else []
+    if args.from_file:
+        with open(args.from_file) as f:
+            prompts = [line.strip() for line in f if line.strip()]
+    if not prompts:
+        print("no prompts: pass --prompt or a non-empty --from_file "
+              "(writing a 0-sample npz would only fail downstream)")
+        return 1
+    # the guidance mask of txt2img_prompt_mask.py: steps with mask 0 run
+    # unconditional only; the DPM-Solver loop passes no step index
+    if args.prompt_mask and args.sampler == "dpm_solver":
+        print("--prompt_mask needs a stepwise sampler (plms/ddim); "
+              "the dpm_solver loop has no per-step index")
+        return 1
+    steps = ast.literal_eval(args.timesteps) if args.timesteps else None
+    n_steps = None
+    if args.sampler == "dpm_solver":
+        sched = DiscreteNoiseSchedule.from_betas(
+            make_beta_schedule("sqrt_linear", 1000)).to(dev)
+        times = torch.from_numpy(np.asarray(
+            sorted(steps, reverse=True) if steps
+            else np.linspace(1.0, 1e-3, args.steps + 1), np.float32)).to(dev)
+    else:
+        tables = build_sd_tables(
+            steps or make_ddim_timesteps("uniform", args.steps, 1000)).to(dev)
+        n_steps = tables.num_steps
+    pmask = None
+    if args.prompt_mask:
+        pmask = torch.tensor(ast.literal_eval(args.prompt_mask),
+                             dtype=torch.float32, device=dev)
+        # checked against the built schedule: the uniform grid can hold
+        # another count than --steps (make_ddim_timesteps)
+        if pmask.shape[0] != n_steps:
+            print(f"--prompt_mask has {pmask.shape[0]} entries but the "
+                  f"schedule has {n_steps} steps")
+            return 1
+    unet, vae, clip, tok = _sd_stack(args, dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    bsz = max(1, args.n_samples)
+    all_imgs = []
+    t0 = time.time()
+    with torch.no_grad():
+        uc = _encode_prompts(clip, tok, [""], dev)[0]
+        for start in range(0, len(prompts), bsz):
+            ctx = _encode_prompts(clip, tok, prompts[start:start + bsz], dev)
+            shape = (ctx.shape[0], 4, args.H // 8, args.W // 8)
+            guided = cfg_eps_fn(unet, ctx, uc, args.scale, prompt_mask=pmask)
+            if args.sampler == "dpm_solver":
+                z = dpm_solver_sample_loop(guided, shape, sched, times,
+                                           device=dev, generator=gen)
+            elif args.sampler == "plms":
+                z = plms_sample_loop(guided, shape, tables, device=dev,
+                                     generator=gen)
+            else:
+                z = ddim_sample_loop(guided, shape, tables, device=dev,
+                                     generator=gen, clip_denoised=False,
+                                     var_type=ModelVarType.FIXED_SMALL)
+            all_imgs.append(sd_decode_to_uint8(vae.decode, z).cpu().numpy())
+            logger.log(f"created {start + ctx.shape[0]} samples "
+                       f"({time.time() - t0:.3f} s)")
+    imgs = np.concatenate(all_imgs)
+    out = args.out or "txt2img_samples.npz"
+    np.savez(out, arr_0=imgs)
+    if args.save_png_dir:
+        _write_pngs(args.save_png_dir, imgs)
+    print(f"saved {len(imgs)} samples to {out}")
+    return 0
+
+
+def _img2img_defaults():
+    # the JAX CLI's img2img flags (autodiffusion_tpu/cli/main.py:1261-1266)
+    return dict(
+        ckpt="", clip_vocab="", clip_merges="", prompt="", init_img="",
+        strength=0.75, scale=7.5, H=512, W=512, steps=50, timesteps="",
+        n_samples=2, seed=42, out="", save_png_dir="", use_bf16=True,
+        device="cuda",
+    )
+
+
+def img2img_latents(guided, vae, x, tables, strength: float, n: int, *,
+                    generator=None, posterior_noise=None, noise=None):
+    """The latents img2img decodes (img2img.py semantics): the init image
+    ``x`` [1, 3, H, W] in [-1, 1] encoded, one posterior draw a sample
+    (``posterior_noise`` [n, 4, h, w], else from ``generator``; the
+    reference samples the posterior, not its mean), scaled by 0.18215,
+    diffused by ``q_sample`` to respaced index t_enc = max(1, int(strength
+    K)) (one level past the last step decoded, as stochastic_encode
+    gathers; clamped at the last grid point for strength 1) with
+    ``noise`` (else from ``generator``), then DDIM over the first t_enc
+    steps. ``tables`` must be on x's device."""
+    import torch
+
+    from ..models import SD_SCALE_FACTOR
+    from ..samplers import ModelVarType, ddim_sample_loop, q_sample
+
+    dev = x.device
+    mean, logvar = vae.encode(x)
+    shape = (n,) + tuple(mean.shape[1:])
+    if posterior_noise is None:
+        posterior_noise = torch.randn(shape, generator=generator, device=dev)
+    z0 = (mean + torch.exp(0.5 * logvar) * posterior_noise) * SD_SCALE_FACTOR
+    k = tables.num_steps
+    t_enc = max(1, int(strength * k))
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=dev)
+    z_enc = q_sample(tables, z0, min(t_enc, k - 1), noise)
+    return ddim_sample_loop(guided, shape, tables.map(lambda a: a[..., :t_enc]),
+                            device=dev, generator=generator,
+                            clip_denoised=False,
+                            var_type=ModelVarType.FIXED_SMALL, noise=z_enc)
+
+
+def cmd_img2img(args) -> int:
+    """Image-to-image (sd/scripts/img2img.py): the init image resized
+    (LANCZOS), encoded, noised to --strength of the schedule and denoised
+    by guided DDIM."""
+    import torch
+    from PIL import Image
+
+    from ..samplers import cfg_eps_fn
+    from ..schedules import build_sd_tables, make_ddim_timesteps
+    from ..search import sd_decode_to_uint8
+
+    dev = resolve_device(args.device)
+    unet, vae, clip, tok = _sd_stack(args, dev)
+    img = Image.open(args.init_img).convert("RGB").resize(
+        (args.W, args.H), Image.LANCZOS)
+    x = torch.from_numpy(np.array(img, np.float32) / 127.5 - 1.0) \
+        .permute(2, 0, 1)[None].to(dev)
+    n = args.n_samples
+    steps = (ast.literal_eval(args.timesteps) if args.timesteps
+             else make_ddim_timesteps("uniform", args.steps, 1000))
+    tables = build_sd_tables(steps).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.time()
+    with torch.no_grad():
+        ctx = _encode_prompts(clip, tok, [args.prompt] * n, dev)
+        uc = _encode_prompts(clip, tok, [""], dev)[0]
+        z = img2img_latents(cfg_eps_fn(unet, ctx, uc, args.scale), vae, x,
+                            tables, args.strength, n, generator=gen)
+        imgs = sd_decode_to_uint8(vae.decode, z).cpu().numpy()
+    logger.log(f"created {n} samples ({time.time() - t0:.3f} s)")
+    out = args.out or "img2img_samples.npz"
+    np.savez(out, arr_0=imgs)
+    if args.save_png_dir:
+        _write_pngs(args.save_png_dir, imgs)
+    print(f"saved {n} samples to {out}")
+    return 0
+
+
+def _first_stage_defaults():
+    # the first-stage flags ldm-sample and inpaint share (VQ-f4, the
+    # celebahq / inpainting_big configs)
+    return dict(latent_channels=3, first_stage="vq", fs_ch=128,
+                fs_ch_mult="1,2,4", fs_num_res_blocks=2, fs_attn_ds="",
+                n_embed=8192, embed_dim=3)
+
+
+def _ldm_sample_defaults():
+    # the JAX CLI's ldm-sample flags (autodiffusion_tpu/cli/main.py:
+    # 1268-1280): CompVis celebahq-ldm-vq-4
+    return dict(
+        ckpt="", latent_size=64, **_first_stage_defaults(),
+        num_channels=224, num_res_blocks=2, channel_mult="1,2,3,4",
+        attention_ds="8,4,2", num_head_channels=32,
+        num_classes=0, class_label=-1, context_dim=512,
+        linear_start=0.0015, linear_end=0.0195, steps=50, timesteps="",
+        eta=1.0, scale_factor=1.0, n_samples=4, seed=0, out="",
+        save_png_dir="", use_bf16=True, device="cuda",
+    )
+
+
+def _ints(flag) -> tuple:
+    return tuple(int(v) for v in str(flag).split(",") if v)
+
+
+def _ldm_unet(args, sd, dev, in_channels: int, num_classes: int = 0,
+              context_dim: int = 512):
+    """The LDM UNet of the command's flags with ``model.diffusion_model.*``
+    of the checkpoint ``sd`` (``context_dim`` the class token's width, for
+    a class-conditional UNet)."""
+    from ..models import create_ldm_unet
+    from ..models.sd_convert import strip_prefix
+
+    unet = create_ldm_unet(
+        in_channels=in_channels, latent_channels=args.latent_channels,
+        num_channels=args.num_channels, num_res_blocks=args.num_res_blocks,
+        channel_mult=_ints(args.channel_mult),
+        attention_ds=_ints(args.attention_ds),
+        num_head_channels=args.num_head_channels, num_classes=num_classes,
+        context_dim=context_dim, use_bf16=args.use_bf16,
+        device=dev).requires_grad_(False)
+    unet.load_state_dict(strip_prefix(sd, "model.diffusion_model."),
+                         strict=True)
+    return unet
+
+
+def _ldm_first_stage(args, sd, dev):
+    """The first stage (VQ or KL) of the --fs_* flags with
+    ``first_stage_model.*`` of the checkpoint ``sd`` (cli/main.py:
+    672-694 of the JAX package)."""
+    from ..models import create_ldm_first_stage
+    from ..models.sd_convert import strip_prefix
+
+    fs = create_ldm_first_stage(
+        args.first_stage, ch=args.fs_ch, ch_mult=_ints(args.fs_ch_mult),
+        num_res_blocks=args.fs_num_res_blocks,
+        attn_at_ds=_ints(args.fs_attn_ds),
+        latent_channels=args.latent_channels, embed_dim=args.embed_dim,
+        n_embed=args.n_embed, use_bf16=args.use_bf16,
+        device=dev).requires_grad_(False)
+    fs.load_state_dict(strip_prefix(sd, "first_stage_model."), strict=True)
+    return fs
+
+
+def cmd_ldm_sample(args) -> int:
+    """Latent-diffusion sampling (sd/scripts/sample_diffusion.py): DDIM
+    with --eta (and CompVis's noise at the last step where eta > 0) in the
+    latent space, then the first stage's decode of z / --scale_factor.
+    With --num_classes the cross-attention UNet is conditioned on a
+    ClassEmbedder token of --class_label, or of labels drawn uniformly.
+    The defaults are celebahq-ldm-vq-4's."""
+    import torch
+
+    from ..models import ClassEmbedder, load_sd_checkpoint
+    from ..models.sd_convert import strip_prefix
+    from ..samplers import ModelVarType, ddim_sample_loop
+    from ..schedules import build_sd_tables, make_ddim_timesteps
+    from ..search import to_uint8
+
+    dev = resolve_device(args.device)
+    sd = load_sd_checkpoint(args.ckpt)
+    unet = _ldm_unet(args, sd, dev, args.latent_channels, args.num_classes,
+                     args.context_dim)
+    fs = _ldm_first_stage(args, sd, dev)
+    steps = (ast.literal_eval(args.timesteps) if args.timesteps
+             else make_ddim_timesteps("uniform", args.steps, 1000))
+    tables = build_sd_tables(steps, linear_start=args.linear_start,
+                             linear_end=args.linear_end).to(dev)
+    n, hw = args.n_samples, args.latent_size
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if args.num_classes:
+        emb = strip_prefix(sd, "cond_stage_model.")
+        # the checkpoint's table as it is (cin256-v2 keeps a 1001st,
+        # unconditional row); labels come from [0, num_classes)
+        embedder = ClassEmbedder(
+            args.context_dim, emb["embedding.weight"].shape[0]).to(dev)
+        embedder.load_state_dict(emb, strict=True)
+        y = (torch.full((n,), args.class_label, device=dev)
+             if args.class_label >= 0 else
+             torch.randint(0, args.num_classes, (n,), generator=gen,
+                           device=dev))
+        with torch.no_grad():
+            ctx = embedder(y)
+
+        def model_fn(x, t, i):
+            return unet(x, t, ctx)
+    else:
+        def model_fn(x, t, i):
+            return unet(x, t)
+    t0 = time.time()
+    with torch.no_grad():
+        z = ddim_sample_loop(model_fn, (n, args.latent_channels, hw, hw),
+                             tables, device=dev, generator=gen,
+                             eta=args.eta, clip_denoised=False,
+                             var_type=ModelVarType.FIXED_SMALL,
+                             final_step_noise=args.eta > 0)
+        imgs = to_uint8(fs.decode(z / args.scale_factor)).cpu().numpy()
+    logger.log(f"created {n} samples ({time.time() - t0:.3f} s)")
+    out = args.out or "ldm_samples.npz"
+    np.savez(out, arr_0=imgs)
+    if args.save_png_dir:
+        _write_pngs(args.save_png_dir, imgs)
+    print(f"saved {n} samples to {out}")
+    return 0
+
+
+def _inpaint_defaults():
+    # the JAX CLI's inpaint flags (autodiffusion_tpu/cli/main.py:
+    # 1282-1292): CompVis inpainting_big
+    return dict(
+        ckpt="", indir="", image="", mask="", outdir="inpaint_out",
+        **_first_stage_defaults(),
+        num_channels=256, num_res_blocks=2, channel_mult="1,2,3,4",
+        attention_ds="8,4,2", num_head_channels=32,
+        linear_start=0.0015, linear_end=0.0205, steps=50, seed=0,
+        use_bf16=True, device="cuda",
+    )
+
+
+def inpaint_condition(fs, img01: np.ndarray, mask01: np.ndarray, device):
+    """make_batch's conditioning (inpaint.py:11-30): the masked image
+    (1 - mask) x image, mapped to [-1, 1] and encoded (a KL first stage's
+    mean), beside the binary mask mapped to [-1, 1] and resized to the
+    latent grid the encoder produced (its stride-2 convs round odd sizes
+    up). The resize samples at half-pixel centres, as the JAX package's
+    ``jax.image.resize(..., "nearest")``: 16 -> 4 picks rows 2, 6, 10,
+    14 (``nearest-exact``; CompVis's inpaint.py takes torch's ``nearest``,
+    rows 0, 4, 8, 12). img01 [H, W, 3] and mask01 [H, W] float32 in
+    [0, 1]; returns [1, C + 1, h, w]."""
+    import torch
+    import torch.nn.functional as F
+
+    masked = (1.0 - mask01)[..., None] * img01
+    x = torch.from_numpy(masked * 2.0 - 1.0).permute(2, 0, 1)[None]
+    c = fs.encode(x.to(device))
+    if isinstance(c, tuple):                   # KL: (mean, logvar)
+        c = c[0]
+    cc = F.interpolate(torch.from_numpy(mask01 * 2.0 - 1.0)[None, None],
+                       size=tuple(c.shape[2:]), mode="nearest-exact")
+    return torch.cat([c.float(), cc.to(device)], dim=1)
+
+
+def inpaint_composite(pred: np.ndarray, img01: np.ndarray,
+                      mask01: np.ndarray) -> np.ndarray:
+    """The decoded prediction pred [3, h, w] in [-1, 1], mapped to [0, 1],
+    cropped to the image (a decode of a rounded-up grid overshoots) and
+    composited with the image outside the mask; uint8 [H, W, 3]."""
+    h, w = img01.shape[:2]
+    pred01 = np.clip((pred.transpose(1, 2, 0) + 1.0) / 2.0, 0, 1)[:h, :w]
+    out01 = (1.0 - mask01)[..., None] * img01 + mask01[..., None] * pred01
+    return (out01 * 255.0 + 0.5).astype(np.uint8)
+
+
+def cmd_inpaint(args) -> int:
+    """Latent inpainting (sd/scripts/inpaint.py, an inpainting_big-style
+    model): the UNet takes [x, the masked image's latent, the mask] on its
+    channels; the sampled latent is decoded and composited with the image
+    outside the mask. --indir scans for ``X.png`` + ``X_mask.png`` pairs,
+    --image / --mask name one pair."""
+    import glob
+    import torch
+    from PIL import Image
+
+    from ..models import load_sd_checkpoint
+    from ..samplers import ModelVarType, ddim_sample_loop
+    from ..schedules import build_sd_tables, make_ddim_timesteps
+
+    dev = resolve_device(args.device)
+    pairs = ([(args.image, args.mask)] if args.image else
+             [(m.replace("_mask.png", ".png"), m) for m in
+              sorted(glob.glob(os.path.join(args.indir, "*_mask.png")))])
+    if not pairs:
+        print("no image/mask pairs found")
+        return 1
+    sd = load_sd_checkpoint(args.ckpt)
+    unet = _ldm_unet(args, sd, dev, 2 * args.latent_channels + 1)
+    fs = _ldm_first_stage(args, sd, dev)
+    tables = build_sd_tables(make_ddim_timesteps("uniform", args.steps, 1000),
+                             linear_start=args.linear_start,
+                             linear_end=args.linear_end).to(dev)
+    os.makedirs(args.outdir, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.time()
+    for n_done, (img_path, mask_path) in enumerate(pairs, 1):
+        img01 = np.asarray(Image.open(img_path).convert("RGB"),
+                           np.float32) / 255.0
+        mask01 = (np.asarray(Image.open(mask_path).convert("L"),
+                             np.float32) / 255.0 >= 0.5).astype(np.float32)
+        with torch.no_grad():
+            cond = inpaint_condition(fs, img01, mask01, dev)
+
+            def model_fn(x, t, i, cond=cond):
+                return unet(torch.cat(
+                    [x, cond.expand(x.shape[0], -1, -1, -1)], dim=1), t)
+
+            z = ddim_sample_loop(
+                model_fn, (1, args.latent_channels) + tuple(cond.shape[2:]),
+                tables, device=dev, generator=gen, clip_denoised=False,
+                var_type=ModelVarType.FIXED_SMALL)
+            pred = fs.decode(z)[0].float().cpu().numpy()
+        out_path = os.path.join(args.outdir, os.path.basename(img_path))
+        Image.fromarray(inpaint_composite(pred, img01, mask01)).save(out_path)
+        print(f"inpainted {img_path} -> {out_path}")
+        logger.log(f"created {n_done} samples ({time.time() - t0:.3f} s)")
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """A torch checkpoint -> the JAX package's msgpack params (``adt
+    convert``'s files, byte for byte): --preset sd a CompVis SD .ckpt ->
+    the params directory of the three towers (sd_unet / sd_vae /
+    sd_clip.msgpack, which every SD command reads with --ckpt <dir>),
+    --preset adm64 or default a guided-diffusion UNet .pt -> one param
+    tree (ModelConfig.adm64() or ModelConfig()). The weights are loaded
+    into the port's models on --device (strictly: every name, every
+    shape) and written from there."""
+    from ..models import (ModelConfig, create_model, create_sd_models,
+                          load_sd_checkpoint, save_sd_params_dir,
+                          split_sd_checkpoint)
+    from ..models.convert import flax_tree_from_unet
+    from ..utils.checkpoint import load_checkpoint, save_msgpack
+
+    dev = resolve_device(args.device)
+    if args.preset == "sd":
+        parts = split_sd_checkpoint(load_sd_checkpoint(args.torch_path))
+        towers = create_sd_models(False, device=dev)
+        for module, part in zip(towers, parts):
+            module.load_state_dict(part, strict=True)
+        save_sd_params_dir(args.out, *towers)
+        print(f"converted {args.torch_path} -> {args.out}/"
+              f"{{sd_unet,sd_vae,sd_clip}}.msgpack")
+        return 0
+    sd = load_checkpoint(args.torch_path)
+    cfg = ModelConfig.adm64() if args.preset == "adm64" else ModelConfig()
+    model = create_model(cfg, device=dev)
+    model.load_state_dict(sd.get("state_dict", sd), strict=True)
+    save_msgpack(args.out, flax_tree_from_unet(model))
+    print(f"converted {args.torch_path} -> {args.out}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="adt-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -723,6 +1181,24 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("nll", help="bits/dim over a dataset")
     add_dict_to_argparser(p, _nll_defaults())
     p.set_defaults(fn=cmd_nll)
+    p = sub.add_parser("txt2img", help="text-to-image sampling (SD)")
+    add_dict_to_argparser(p, _txt2img_defaults())
+    p.set_defaults(fn=cmd_txt2img)
+    p = sub.add_parser("img2img", help="image-to-image (SD)")
+    add_dict_to_argparser(p, _img2img_defaults())
+    p.set_defaults(fn=cmd_img2img)
+    p = sub.add_parser("ldm-sample",
+                       help="unconditional latent-diffusion sampling")
+    add_dict_to_argparser(p, _ldm_sample_defaults())
+    p.set_defaults(fn=cmd_ldm_sample)
+    p = sub.add_parser("inpaint",
+                       help="latent inpainting over image+mask pairs")
+    add_dict_to_argparser(p, _inpaint_defaults())
+    p.set_defaults(fn=cmd_inpaint)
+    p = sub.add_parser("convert", help="torch checkpoint -> msgpack")
+    add_dict_to_argparser(p, dict(torch_path="", out="", preset="adm64",
+                                  device="cuda"))
+    p.set_defaults(fn=cmd_convert)
     return parser
 
 

@@ -11,22 +11,13 @@ reduced at full precision).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
 
+from .. import no_tf32
+
 __all__ = ["pairwise_sq_distances", "manifold_radii", "precision_recall"]
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def pairwise_sq_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,7 +25,7 @@ def pairwise_sq_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.float(), b.float()
     a2 = (a * a).sum(dim=1, keepdim=True)
     b2 = (b * b).sum(dim=1, keepdim=True)
-    with _no_tf32():
+    with no_tf32():
         d = a2 + b2.T - 2.0 * (a @ b.T)
     return d.clamp_min(0.0)
 

@@ -15,6 +15,9 @@ causal tokens, D = 64), as the JAX package computes it.
 :class:`ClipBPETokenizer` is the port's own copy of the JAX package's
 tokenizer: vocab.json + merges.txt (or bpe_simple_vocab_16e6.txt.gz) in,
 the padded 77-token ids CLIPTokenizer gives FrozenCLIPEmbedder out.
+
+:class:`ClassEmbedder` is the class-conditional LDMs' conditioning tower
+(modules.py:21-33): one embedding row a label, as a one-token context.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from torch import nn
 from .attention import layer_norm
 from .nn import linear
 
-__all__ = ["CLIPTextConfig", "CLIPTextEncoder", "ClipBPETokenizer"]
+__all__ = ["CLIPTextConfig", "CLIPTextEncoder", "ClipBPETokenizer",
+           "ClassEmbedder"]
 
 
 @dataclasses.dataclass
@@ -144,6 +148,20 @@ class CLIPTextEncoder(nn.Module):
                             tm.final_layer_norm.weight,
                             tm.final_layer_norm.bias,
                             tm.final_layer_norm.eps)
+
+
+class ClassEmbedder(nn.Module):
+    """[B] int labels -> the [B, 1, D] one-token cross-attention context of
+    the class-conditional LDMs (cin256-v2.yaml, cin-ldm-vq-f8.yaml).
+    ``embedding.weight`` is CompVis's ``cond_stage_model.embedding.weight``
+    (the state dict of ``cond_stage_model.*``)."""
+
+    def __init__(self, embed_dim: int, n_classes: int = 1000):
+        super().__init__()
+        self.embedding = nn.Embedding(n_classes, embed_dim)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        return self.embedding(y.long())[:, None, :]
 
 
 class ClipBPETokenizer:

@@ -1,10 +1,13 @@
-"""Model factories: the canonical ADM-64 flag bundles and the Stable
-Diffusion v1 towers.
+"""Model factories: the canonical ADM-64 flag bundles, the Stable
+Diffusion v1 towers and the latent-diffusion (LDM) UNets and first stages.
 
 Port of autodiffusion_tpu/models/factory.py (guided_diffusion/
 script_util.py:12-453) plus the v1-inference configuration the JAX CLI
 builds its SD models with (models/sd_unet.py:25-44, models/vae.py:280-311,
-models/clip_text.py:29-38; configs/stable-diffusion/v1-inference.yaml).
+models/clip_text.py:29-38; configs/stable-diffusion/v1-inference.yaml),
+and the LDM models the JAX CLI's ``ldm-sample`` and ``inpaint`` build
+(autodiffusion_tpu/cli/main.py:672-694,713-744,806-818; configs/
+latent-diffusion/*.yaml).
 Factories take an explicit ``device`` and build on ``cuda`` unless asked
 for another.
 """
@@ -13,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -23,12 +26,13 @@ from ..schedules import build_base_tables, build_tables
 from .clip_text import CLIPTextConfig, CLIPTextEncoder
 from .sd_unet import SDUNetModel
 from .unet import EncoderUNetModel, UNetModel
-from .vae import AutoencoderKL
+from .vae import AutoencoderKL, VQModelInterface
 
 __all__ = ["ModelConfig", "ClassifierConfig", "create_model",
            "create_classifier", "create_tables", "random_init_",
            "parse_channel_mult", "attention_ds", "NUM_CLASSES",
-           "SD_V1_UNET", "SD_V1_VAE", "create_sd_models"]
+           "SD_V1_UNET", "SD_V1_VAE", "create_sd_models",
+           "create_ldm_unet", "create_ldm_first_stage"]
 
 NUM_CLASSES = 1000
 
@@ -187,6 +191,59 @@ def create_sd_models(use_bf16: bool = True, device=None
         return (SDUNetModel(**SD_V1_UNET, dtype=dtype).eval(),
                 AutoencoderKL(**SD_V1_VAE, dtype=dtype).eval(),
                 CLIPTextEncoder(CLIPTextConfig(), dtype=dtype).eval())
+
+
+def create_ldm_unet(*, in_channels: int, latent_channels: int,
+                    num_channels: int, num_res_blocks: int,
+                    channel_mult: Sequence[int], attention_ds: Sequence[int],
+                    num_head_channels: int, num_classes: int = 0,
+                    context_dim: int = 512, use_bf16: bool = True,
+                    device=None):
+    """An LDM's UNet on ``device`` (cuda by default), in eval mode.
+    Unconditional (``num_classes`` 0; the celebahq / ffhq / churches and
+    inpainting configs): the ADM ``UNetModel`` with
+    ``use_scale_shift_norm``, ``resblock_updown`` and
+    ``use_new_attention_order`` off. Class-conditional (cin256-v2,
+    cin-ldm-vq-f8): the cross-attention ``SDUNetModel`` at
+    ``context_dim``, transformer depth 1, conditioned on a ClassEmbedder
+    token. ``in_channels`` is the latent's channels, or 2 latent + 1 for
+    inpainting (x, the masked image's latent, the mask); the output is the
+    latent's."""
+    dev = resolve_device(device)
+    dtype = compute_dtype(use_bf16)
+    kw = dict(in_channels=in_channels, model_channels=num_channels,
+              out_channels=latent_channels, num_res_blocks=num_res_blocks,
+              attention_ds=tuple(attention_ds),
+              channel_mult=tuple(channel_mult),
+              num_head_channels=num_head_channels, dtype=dtype)
+    with torch.device(dev):
+        if num_classes:
+            return SDUNetModel(**kw, transformer_depth=1,
+                               context_dim=context_dim).eval()
+        return UNetModel(**kw, use_scale_shift_norm=False,
+                         resblock_updown=False,
+                         use_new_attention_order=False).eval()
+
+
+def create_ldm_first_stage(first_stage: str, *, ch: int,
+                           ch_mult: Sequence[int], num_res_blocks: int,
+                           attn_at_ds: Sequence[int], latent_channels: int,
+                           embed_dim: int, n_embed: int,
+                           use_bf16: bool = True, device=None):
+    """An LDM's first stage on ``device`` (cuda by default), in eval mode:
+    ``first_stage`` "vq" a VQModelInterface (z_channels the latent's,
+    ``embed_dim`` and ``n_embed`` its codebook's), else an AutoencoderKL
+    (embed_dim the latent's channels), the JAX CLI's ``_ldm_first_stage``."""
+    dev = resolve_device(device)
+    dtype = compute_dtype(use_bf16)
+    kw = dict(ch=ch, ch_mult=tuple(ch_mult), num_res_blocks=num_res_blocks,
+              attn_at_ds=tuple(attn_at_ds), z_channels=latent_channels,
+              dtype=dtype)
+    with torch.device(dev):
+        if first_stage == "vq":
+            return VQModelInterface(**kw, embed_dim=embed_dim,
+                                    n_embed=n_embed).eval()
+        return AutoencoderKL(**kw, embed_dim=latent_channels).eval()
 
 
 def create_tables(cfg: ModelConfig, use_timesteps=None):

@@ -89,9 +89,11 @@ class GroupNorm32(nn.GroupNorm):
     dicts load unchanged.
 
     Where :func:`~autodiffusion_tpu_torch.ops.fused_norm_available` says so
-    (``ADT_FUSED_NORM=1``, off by default) the whole operation goes through
-    the fused GroupNorm kernels (ops/fused_norm.py), which apply FiLM and
-    SiLU in float32 before one cast. ``return_affine=True`` returns instead
+    (CUDA tensors, unless ``ADT_FUSED_NORM=0``; CPU tensors only under
+    ``ADT_FUSED_NORM=1``) the whole operation goes through the fused
+    GroupNorm kernels (ops/fused_norm.py), which apply FiLM and SiLU in
+    float32 before one cast. The chain below is the CPU path and the
+    tests' twin. ``return_affine=True`` returns instead
     the per-(sample, channel) float32 affine (a, b) with GN(x) * (1 +
     scale) + shift == x a + b, for the fused norm-act-conv (Conv3x3
     ``affine=``), which applies silu(x a + b) itself (models/nn.py:108-131)."""
@@ -118,7 +120,7 @@ class GroupNorm32(nn.GroupNorm):
             if shift is not None:
                 off = off + shift.reshape(b, c).float()
             return a, off
-        if fused_norm_available(x.shape, g):
+        if fused_norm_available(x.shape, g, x.device.type):
             return fused_group_norm(
                 x, self.weight, self.bias,
                 scale=None if scale is None else scale.reshape(b, c),

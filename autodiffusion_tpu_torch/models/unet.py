@@ -16,13 +16,15 @@ out altogether: the same output as a zero in the keep mask, without their
 work.
 
 Self-attention goes through ``ops.flash_attention`` at every site: the
-hand-written kernels on the card, their plain twin on the CPU. Three
-environment switches, all off by default, route the rest of the blocks
-through the port's other kernels (each wrapper takes its plain twin on CPU
-tensors): ``ADT_FUSED_NORM=1`` every GroupNorm32 not folded into a conv
-(ops/fused_norm.py), ``ADT_IM2COL_CONV=1`` every Conv3x3 not fused
-(ops/conv_im2col.py), ``ADT_FUSED_CONV=all`` each ResBlock norm that feeds
-its conv directly into the fused norm-act-conv.
+hand-written kernels on the card, their plain twin on the CPU. Every
+GroupNorm32 not folded into a conv takes the fused GroupNorm kernels on
+CUDA tensors (ops/fused_norm.py; ``ADT_FUSED_NORM=0`` turns them off, the
+A/B's "off" arm, and ``ADT_FUSED_NORM=1`` takes their twins on the CPU).
+Two switches, off by default, route the convs through the port's conv
+kernels (each wrapper takes its plain twin on CPU tensors):
+``ADT_IM2COL_CONV=1`` every Conv3x3 not fused (ops/conv_im2col.py),
+``ADT_FUSED_CONV=all`` each ResBlock norm that feeds its conv directly
+into the fused norm-act-conv.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""AutoencoderKL, the Stable Diffusion first-stage VAE (NCHW).
+"""AutoencoderKL, the Stable Diffusion first-stage VAE, and the VQ first
+stage of the latent-diffusion models (NCHW).
 
 Port of autodiffusion_tpu/models/vae.py (ldm/models/autoencoder.py:285-443
 and ldm/modules/diffusionmodules/model.py:368-570): Encoder -> diagonal
@@ -6,15 +7,18 @@ Gaussian moments, Decoder, with the CompVis details kept: GroupNorm eps
 1e-6, swish, the asymmetric (0, 1, 0, 1) padding of the stride-2
 downsample conv, single-head attention blocks with 1x1-conv projections,
 the quant / post_quant 1x1 convs, and the 0.18215 latent scale the caller
-applies (v1-inference.yaml:17). Module and parameter names are CompVis's
+applies (v1-inference.yaml:17). :class:`VQModelInterface` is the LDM VQ
+first stage (autoencoder.py:264-282): the same Encoder without the doubled
+moments, and a nearest-codebook :class:`VectorQuantizer` on the way out. Module and parameter names are CompVis's
 own (``encoder.down.{l}.block.{i}.norm1``, ``decoder.mid.attn_1.q``,
 ``decoder.up.{l}.upsample.conv``, ...), so ``first_stage_model.*`` of a
 checkpoint loads with ``load_state_dict(strict=True)``.
 
-The ResnetBlocks' GroupNorms and 3x3 convs take the port's kernels behind
-the same switches as the ADM ResBlocks: ``ADT_FUSED_NORM=1`` the fused
-GroupNorm, ``ADT_IM2COL_CONV=1`` the im2col conv, ``ADT_FUSED_CONV=all``
-the fused norm-act-conv (with the residual in its epilogue). The attention
+The ResnetBlocks' GroupNorms and 3x3 convs take the port's kernels as the
+ADM ResBlocks do: the fused GroupNorm on CUDA tensors (``ADT_FUSED_NORM=0``
+turns it off), and behind their switches ``ADT_IM2COL_CONV=1`` the im2col
+conv, ``ADT_FUSED_CONV=all`` the fused norm-act-conv (with the residual in
+its epilogue). The attention
 blocks' single head (D = 512 at the mid-block) goes to the flash forward.
 """
 
@@ -26,13 +30,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import no_tf32
 from ..ops import resolve_use_fused_conv
 from ..ops.flash_attention import multihead_attention
 from .nn import Conv3x3, GroupNorm32, conv2d
 
 __all__ = ["SD_SCALE_FACTOR", "VAEResnetBlock", "VAEAttnBlock",
            "VAEUpsample", "VAEDownsample", "Encoder", "Decoder",
-           "AutoencoderKL", "vae_group_norm"]
+           "AutoencoderKL", "VectorQuantizer", "VQModelInterface",
+           "vae_group_norm"]
 
 SD_SCALE_FACTOR = 0.18215
 
@@ -151,7 +157,7 @@ class Encoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_at_ds: Sequence[int] = (),
                  in_channels: int = 3, z_channels: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 double_z: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
@@ -171,8 +177,9 @@ class Encoder(nn.Module):
                 ds *= 2
         self.mid = _Mid(c)
         self.norm_out = vae_group_norm(c)
-        # double_z: the moments' mean and log-variance
-        self.conv_out = nn.Conv2d(c, 2 * z_channels, 3, padding=1)
+        # double_z: the moments' mean and log-variance (KL); one latent (VQ)
+        self.conv_out = nn.Conv2d(c, (2 if double_z else 1) * z_channels, 3,
+                                  padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = conv2d(self.conv_in, x.to(self.dtype))
@@ -248,3 +255,67 @@ class AutoencoderKL(nn.Module):
     def forward(self, x: torch.Tensor):
         mean, logvar = self.encode(x)
         return self.decode(mean), mean, logvar
+
+
+class VectorQuantizer(nn.Module):
+    """Nearest-codebook lookup, the inference path of taming's
+    VectorQuantizer2 (autoencoder.py:6,39-41): the argmin over squared
+    distances |z|^2 + |e|^2 - 2 z e^T to the embedding rows, in float32
+    with TF32 off (a rounded product flips codes), then the row itself, in
+    z's dtype. ``embedding.weight`` is CompVis's
+    ``quantize.embedding.weight``."""
+
+    def __init__(self, n_embed: int, embed_dim: int):
+        super().__init__()
+        self.embedding = nn.Embedding(n_embed, embed_dim)
+
+    def codes(self, z: torch.Tensor) -> torch.Tensor:
+        """[B, C, H, W] -> the [B, H, W] codebook indices."""
+        b, c, h, w = z.shape
+        flat = z.permute(0, 2, 3, 1).reshape(-1, c).float()
+        emb = self.embedding.weight.float()
+        with no_tf32():
+            d = ((flat * flat).sum(-1, keepdim=True) + (emb * emb).sum(-1)
+                 - 2.0 * flat @ emb.T)
+        return d.argmin(-1).reshape(b, h, w)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        q = self.embedding.weight.float()[self.codes(z)]       # [B, H, W, C]
+        return q.permute(0, 3, 1, 2).to(z.dtype)
+
+
+class VQModelInterface(nn.Module):
+    """The VQ first stage of the LDM configs (vq-f4 / vq-f8: celebahq-,
+    ffhq-, lsun_bedrooms-ldm-vq-4, cin-ldm-vq-f8, inpainting_big):
+    encode(x) is the pre-quantization latent (Encoder + quant_conv, as
+    ldm's VQModelInterface returns it), decode(h) quantizes it (unless
+    ``force_not_quantize``), then post_quant_conv and the Decoder, to x in
+    [-1, 1] (float32 NCHW). The encoder and decoder compute in ``dtype``;
+    quant_conv, post_quant_conv and the quantizer in float32."""
+
+    def __init__(self, ch: int = 128, out_ch: int = 3,
+                 ch_mult: Sequence[int] = (1, 2, 4), num_res_blocks: int = 2,
+                 attn_at_ds: Sequence[int] = (), z_channels: int = 3,
+                 embed_dim: int = 3, n_embed: int = 8192,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = Encoder(ch, ch_mult, num_res_blocks, attn_at_ds,
+                               out_ch, z_channels, double_z=False,
+                               dtype=dtype)
+        self.decoder = Decoder(ch, out_ch, ch_mult, num_res_blocks,
+                               attn_at_ds, z_channels, dtype)
+        self.quantize = VectorQuantizer(n_embed, embed_dim)
+        self.quant_conv = nn.Conv2d(z_channels, embed_dim, 1)
+        self.post_quant_conv = nn.Conv2d(embed_dim, z_channels, 1)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(self.quant_conv, self.encoder(x).float())
+
+    def decode(self, h: torch.Tensor,
+               force_not_quantize: bool = False) -> torch.Tensor:
+        h = h.float()
+        quant = h if force_not_quantize else self.quantize(h)
+        return self.decoder(conv2d(self.post_quant_conv, quant))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))

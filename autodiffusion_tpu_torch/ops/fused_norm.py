@@ -39,14 +39,19 @@ __all__ = ["fused_group_norm", "group_norm_reference", "fused_norm_available",
            "group_norm_fwd_plain", "group_norm_bwd_plain"]
 
 
-def fused_norm_available(x_shape, num_groups: int = 32) -> bool:
-    """True when GroupNorm32 takes the fused kernels: ``ADT_FUSED_NORM=1``
-    in the environment (off by default), channels divisible into groups and
-    at least two positions per sample. x_shape is [B, C, ...]. The JAX
-    gate's TPU-backend test and VMEM cap on one sample's slab have no
-    counterpart here: the kernels stream a (sample, group) run of any
-    length."""
-    if os.environ.get("ADT_FUSED_NORM", "0") != "1":
+def fused_norm_available(x_shape, num_groups: int = 32,
+                         device_type: str = "cpu") -> bool:
+    """True when GroupNorm32 takes the fused kernels: by default for CUDA
+    tensors (``device_type`` "cuda"), where ``ADT_FUSED_NORM=0`` turns
+    them off for the A/B's "off" arm, and for CPU tensors (where the
+    wrappers compute their plain twins) only under ``ADT_FUSED_NORM=1``,
+    with which the tests drive the fused route on the CPU; and then only
+    for channels divisible into groups and at least two positions per
+    sample. x_shape is [B, C, ...]. The JAX gate's TPU-backend test and
+    VMEM cap on one sample's slab have no counterpart here: the kernels
+    stream a (sample, group) run of any length."""
+    default = "1" if device_type == "cuda" else "0"
+    if os.environ.get("ADT_FUSED_NORM", default) != "1":
         return False
     c = x_shape[1]
     n = prod(x_shape[2:])

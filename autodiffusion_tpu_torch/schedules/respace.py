@@ -18,7 +18,7 @@ from typing import Iterable, List, Sequence, Set, Union
 
 import numpy as np
 
-__all__ = ["space_timesteps", "respaced_betas"]
+__all__ = ["space_timesteps", "respaced_betas", "make_ddim_timesteps"]
 
 
 def space_timesteps(num_timesteps: int, section_counts: Union[str, Sequence[int]]) -> Set[int]:
@@ -59,6 +59,27 @@ def space_timesteps(num_timesteps: int, section_counts: Union[str, Sequence[int]
             cur += frac_stride
         start += size
     return taken
+
+
+def make_ddim_timesteps(method: str, num_ddim_steps: int,
+                        num_train_steps: int) -> np.ndarray:
+    """Stable-Diffusion-style DDIM grids with the historical +1 offset
+    (ldm/modules/diffusionmodules/util.py:46-57).
+
+    ``uniform``: range(0, T, round(T / num_ddim)) + 1; the stride is
+        rounded and the range not truncated, so the count can differ from
+        the request when num_ddim does not divide T (30 steps of 1000 give
+        31).
+    ``quad``: round(linspace(0, sqrt(0.8 T), num_ddim)^2) + 1."""
+    if method == "uniform":
+        c = round(num_train_steps / num_ddim_steps)
+        steps = np.asarray(list(range(0, num_train_steps, c)))
+    elif method == "quad":
+        steps = (np.linspace(0, np.sqrt(num_train_steps * 0.8),
+                             num_ddim_steps) ** 2).astype(int)
+    else:
+        raise ValueError(f"unknown ddim discretization method: {method!r}")
+    return steps + 1
 
 
 def respaced_betas(base_alphas_cumprod: np.ndarray,

@@ -32,8 +32,9 @@ import torch
 from ..schedules import ScheduleTables, build_base_tables, build_tables
 from ..utils import logger
 from ..utils.checkpoint import (find_latest_checkpoint, flax_state_dict,
-                                load_checkpoint, parse_step_from_filename,
-                                save_checkpoint)
+                                load_checkpoint, load_msgpack,
+                                parse_step_from_filename, save_checkpoint,
+                                state_dict_from_flax_tree)
 from .resample import UniformSampler
 from .state import TrainState
 
@@ -77,8 +78,9 @@ def resume_train_state(state: TrainState, path_or_dir: str) -> TrainState:
     if not os.path.exists(opt_path):
         logger.log(f"warning: {opt_path} not found, keeping fresh optimizer")
     elif ext == ".msgpack":
-        logger.log(f"warning: {opt_path} holds optax's state, which is not "
-                   "mapped; keeping fresh optimizer")
+        state.load_optax_state(
+            load_msgpack(opt_path),
+            lambda tree: state_dict_from_flax_tree(tree, model))
     else:
         state.optimizer.load_state_dict(load_checkpoint(opt_path))
 

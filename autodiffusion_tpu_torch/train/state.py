@@ -8,7 +8,8 @@ optax's ``linear_schedule(lr, 0, steps)`` anneal on the optimizer's own
 update count, optax's global-norm clipping, and one float32 EMA copy of
 the parameters per rate, updated as e r + p (1 - r) after every update.
 Microbatch gradients are averaged, as the JAX package's ``lax.scan``
-averages them. The step trains the module in whatever mode its caller
+averages them. :meth:`TrainState.load_optax_state` takes over the state
+of ``adt train``'s optimizer from its ``opt{step}.msgpack``. The step trains the module in whatever mode its caller
 set (``model.train()`` for dropout).
 """
 
@@ -108,6 +109,49 @@ class TrainState:
     def ema_state_dict(self, k: int) -> Dict[str, torch.Tensor]:
         """The k-th EMA copy under the module's parameter names."""
         return dict(zip(self.names, self.ema_params[k]))
+
+    @torch.no_grad()
+    def load_optax_state(self, tree, state_dict_fn: Callable) -> None:
+        """AdamW's state from the JAX package's optax state tree (the
+        ``opt{step}.msgpack`` of ``adt train``, as flax writes it: each
+        tuple and namedtuple a map of its fields, so ``chain(clip?,
+        adamw(schedule))`` is ``{"0": {"0": {"count", "mu", "nu"}, "1": {},
+        "2": {"count"}}}``, one level deeper behind the clip's ``{}``).
+        ScaleByAdamState's ``mu`` and ``nu`` become each parameter's
+        ``exp_avg`` and ``exp_avg_sq`` through ``state_dict_fn`` (the flax
+        param tree -> state dict mapping the model weights take), its
+        ``count`` AdamW's ``step``; the schedule's own ``count``, which the
+        anneal reads, must equal it."""
+        counts, adam = [], []
+
+        def walk(node):
+            if not isinstance(node, dict):
+                return
+            if {"count", "mu", "nu"} <= set(node):
+                adam.append(node)
+                return
+            if set(node) == {"count"}:
+                counts.append(int(node["count"]))
+            for v in node.values():
+                walk(v)
+
+        walk(tree)
+        if len(adam) != 1:
+            raise ValueError(f"the optax state holds {len(adam)} "
+                             "ScaleByAdamState entries, not one")
+        count = int(adam[0]["count"])
+        if any(c != count for c in counts):
+            raise ValueError(f"the schedule's count {counts} differs from "
+                             f"Adam's {count}")
+        mu, nu = (state_dict_fn(adam[0][k]) for k in ("mu", "nu"))
+        missing = set(self.names) - set(mu) - set(nu)
+        if missing:
+            raise KeyError(f"the optax state lacks {sorted(missing)[:5]}")
+        for name, p in zip(self.names, self.params):
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[name].to(p.device, p.dtype),
+                "exp_avg_sq": nu[name].to(p.device, p.dtype)}
 
     @torch.no_grad()
     def load_ema_state_dict(self, k: int, sd: Dict[str, torch.Tensor]

@@ -45,15 +45,17 @@ Phases, each of which raises on failure:
 4. parity: two guided DDIM steps and two guided ancestral steps (the same
    x_T and per-step noise) of the full-width ADM-64 UNet and classifier
    (float32, seeded random weights) on the GPU against the same runs on
-   the CPU, where every kernel is its plain twin: once with the switches
-   off, once with all three on;
+   the CPU, where every kernel is its plain twin: once on the default
+   path (the switches unset: the fused GroupNorm on the card, the plain
+   chain on the CPU), once with all three on;
 5. profile: one guided DDIM-4 run at batch 32 in bf16 under
    ``torch.profiler``: device time by kernel, the flash kernels' share
    (the forward's, the dQ kernel's and the dK/dV kernel's own lines) and
    the device's idle share (``chiprun_out/chip_smoke_profile.txt``);
-6. A/B: the same guided DDIM-4 run with the switches off, each alone, the
-   fused norm with the fused conv, and all three on, one round (three
-   rounds of each are in PERF.md): wall time per step, device-busy time
+6. A/B: the same guided DDIM-4 run with the switches off
+   (``ADT_FUSED_NORM=0``), each alone (the fused norm alone is the
+   default), the fused norm with the fused conv, and all three on, one
+   round: wall time per step, device-busy time
    per step (profiler), idle share, the GroupNorm forward's and
    backward's kernels, the dK/dV kernel and weight- and input-gradient
    conv time of every run (the guided models frozen, as the search
@@ -67,8 +69,9 @@ Phases, each of which raises on failure:
    candidate, population 4, one epoch) with seeded random UNet, classifier
    and Inception weights written as checkpoint files, and reference
    statistics from the port's own Inception features of 64 seeded images;
-   run twice, with the switches off (the default path: the flash kernels
-   only, none of the new ones) and with all three on (all seven kernels).
+   run twice, on the default path (the flash kernels and the fused
+   GroupNorm: every GroupNorm32 of the UNet and the classifier forward,
+   the classifier's backward) and with all three on (all seven kernels).
    Every FID must be finite and >= 0, and each run's launch counters,
    set to 0 just before it, must show every kernel of its path ran as
    many times as its guided steps need;
@@ -97,17 +100,22 @@ Phases, each of which raises on failure:
 11. SD parity: CLIP on two prompts, two PLMS steps of the UNet with
     classifier-free guidance at batch 1, one VAE decode, and DPM-Solver-2
     over three steps from the same latent, full width, float32, seeded
-    random weights, GPU against the CPU twins, switches off and on;
+    random weights, GPU against the CPU twins, on the default path and
+    with the switches on; on the default path also txt2img's DDIM-2 with
+    a --prompt_mask and img2img's encode, posterior draw, q_sample and
+    DDIM-2 at 128 x 128;
 12. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler,
-    switches off and on (``chiprun_out/chip_smoke_profile_sd.txt``,
-    ``chip_smoke_profile_sd_fused.txt``), with the packed and D = 80
+    on the default path, switches off and on (the fused GroupNorm's A/B
+    in the UNet call and the decode; ``chip_smoke_profile_sd.txt``,
+    ``_sd_off.txt``, ``chip_smoke_profile_sd_fused.txt``), with the
+    packed and D = 80
     forwards' lines of a UNet call, the wide forward's line of the decode
     and the GroupNorm forward's time in each;
 13. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
     scale 7.5, 512 x 512, chunk 2 x batch 4, 8 samples per candidate,
     population 4, one epoch) from a seeded random-weight CompVis-layout
     ``.ckpt``, a synthesized byte-level vocabulary and COCO captions file,
-    twice (switches off, on), each FID finite and >= 0 and each kernel's
+    twice (default, switches on), each FID finite and >= 0 and each kernel's
     launches equal to its per-call count from the models times the UNet
     calls and decodes; then ``--sampler dpm_solver`` (five time knots,
     DPM-Solver-2, the smallest population the EA takes) twice, with the
@@ -118,26 +126,52 @@ Phases, each of which raises on failure:
     1000 classes, 4 steps with a save at step 2, then a
     ``--resume_checkpoint`` of the save directory for 2 more (the resumed
     model and EMA equal to the saved ones, the step counter going on),
-    switches off and on: finite losses, the command's step time, peak
+    default and switches on: finite losses, the command's step time, peak
     memory, and each kernel's launches a step (the flash kernels 22 a
-    microbatch; on, one GroupNorm backward a forward and the fused conv at
-    the in-norms only, dropout keeping the out-norm out of it);
+    microbatch; by default every GroupNorm32 forward and backward; on,
+    one GroupNorm backward a forward and the fused conv at the in-norms
+    only, dropout keeping the out-norm out of it);
 15. train profile: the same training step driven directly on
-    device-resident data, switches off and on: wall and device-busy ms a
-    step, idle share, samples/s, peak memory, and the GroupNorm backward
-    in its every-gradient form (one batch sum a call)
-    (``chiprun_out/chip_smoke_profile_train_{off,on}.txt``);
+    device-resident data, switches off, default (the fused norm alone)
+    and all on: wall and device-busy ms a step, idle share, samples/s,
+    peak memory, and the GroupNorm backward in its every-gradient form
+    (one batch sum a call)
+    (``chip_smoke_profile_train_{off,default,on}.txt``);
 16. ``adt-torch train-classifier`` at its defaults (width 128, depth 2)
-    over a folder of 32 seeded PNGs, batch 16, 3 steps, switches off and
-    on: finite losses, launches a step;
+    over a folder of 32 seeded PNGs, batch 16, 3 steps, default and
+    switches on: finite losses, launches a step;
 17. ``adt-torch nll`` of the trained EMA checkpoint, one batch of 2 over
     the 1000-step bound: bits/dim finite, seconds;
 18. ``adt-torch sample`` of the trained EMA checkpoint, 16 images;
 19. train parity: two AdamW + EMA steps of the full-width UNet in float32
     (dropout 0, the same weights, batch, t and noise) on the GPU against
-    the CPU twins, switches off and on: losses, gradient norms, the first
-    step's gradients and every parameter and EMA value after the steps
-    within 1e-3 of their scale.
+    the CPU twins, default and switches on: losses, gradient norms, the
+    first step's gradients and every parameter and EMA value after the
+    steps within 1e-3 of their scale;
+20. generation kernels: the attention and GroupNorm kernels against their
+    twins (bf16 and fp32, sabotaged runs) at every new site of the
+    generation commands' default path, read from the models on the meta
+    device: the LDM UNets' ADM-layout D = 32 attention, cin's token-major
+    D = 32 self-attention and its cross-attention over one class token
+    (S = 1), the VQ-f4 mid-block's D = 512 at T 4096 and 16384, SD's
+    encoder, and every GroupNorm of those models;
+21. LDM parity: ldm-sample's two eta-1 DDIM steps and VQ-f4 decode
+    (unconditional and on cin's class token) and inpaint's condition, two
+    DDIM steps, decode and composite, full width, float32, 32 x 32 latent,
+    GPU against the CPU twins, draws injected, within 1e-3 x scale;
+22. ``adt-torch txt2img`` at SD v1 width, 512 x 512, four prompts in one
+    batch: PLMS over a searched 4-step --timesteps, DPM-Solver over five
+    knots, PLMS with a --prompt_mask; ``convert --preset sd`` and the PLMS
+    run again from the params directory, which must give the same images;
+23. ``adt-torch img2img`` on a synthesized 512 x 512 PNG, strength 0.75;
+24. ``adt-torch ldm-sample`` at celebahq-ldm-vq-4's defaults and with
+    ``--num_classes 1000`` at cin256-v2's UNet widths, 10 DDIM steps;
+25. ``adt-torch inpaint`` at inpainting_big's defaults on a synthesized
+    512 x 512 image and mask pair, 10 DDIM steps. Each of 22-25 runs on
+    the default path with its launch counters set to 0 just before and
+    read just after (each equal to the per-call counts of the models times
+    the command's UNet calls, encodes and decodes), its output's format,
+    images/s and peak memory.
 
 The last lines of standard output are a ``kernels`` JSON line, the
 ``nvidia-smi`` name / power-limit line and ``{"ok": true, "device": ...}``.
@@ -205,7 +239,7 @@ KERNEL_INFO.update({
 })
 NEW_KERNELS = ("group_norm_fwd", "group_norm_bwd", "conv3x3",
                "conv3x3_fused")
-# launches per guided DDIM step on the default path: 22 UNet + 13
+# launches per guided DDIM step with every switch off: 22 UNet + 13
 # classifier attention blocks forward, 13 classifier blocks backward
 PER_STEP = {"flash_fwd": 35, "flash_bwd_dq": 13, "flash_bwd_dkv": 13,
             "group_norm_fwd": 0, "group_norm_bwd": 0, "conv3x3": 0,
@@ -218,18 +252,27 @@ ADM_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") + NEW_KERNELS
 # blocks' in-convs, 6 + 3; every other ResBlock conv, 66 + 39
 PER_STEP_FUSED = dict(PER_STEP, group_norm_fwd=46, group_norm_bwd=17,
                       conv3x3=9, conv3x3_fused=105)
-SWITCHES_OFF = {"ADT_FUSED_NORM": "0", "ADT_IM2COL_CONV": "0",
-                "ADT_FUSED_CONV": "0"}
+# the environment a user runs with: every switch unset, so GroupNorm32
+# takes the fused GroupNorm kernels on CUDA tensors and the convs are
+# PyTorch's
+DEFAULT = {"ADT_FUSED_NORM": None, "ADT_IM2COL_CONV": None,
+           "ADT_FUSED_CONV": None}
+# the A/B's "off" arm: the float32 GroupNorm chain, no conv kernel
+ALL_OFF = {"ADT_FUSED_NORM": "0", "ADT_IM2COL_CONV": "0",
+           "ADT_FUSED_CONV": "0"}
+# the default path's routes forced where the default does not reach them:
+# on the meta device (sites are read there) and on CPU tensors
+FUSED_NORM_ALONE = dict(ALL_OFF, ADT_FUSED_NORM="1")
 SWITCHES_ON = {"ADT_FUSED_NORM": "1", "ADT_IM2COL_CONV": "1",
                "ADT_FUSED_CONV": "all"}
-# the A/B phase's configurations: the switches off, each alone, the fused
-# norm with the fused conv, all three
+# the A/B phase's configurations: the switches off, each alone (the fused
+# norm alone is the default), the fused norm with the fused conv, all three
 AB_CONFIGS = [
-    ("off", SWITCHES_OFF),
-    ("fused_norm", dict(SWITCHES_OFF, ADT_FUSED_NORM="1")),
-    ("im2col", dict(SWITCHES_OFF, ADT_IM2COL_CONV="1")),
-    ("fused_conv", dict(SWITCHES_OFF, ADT_FUSED_CONV="all")),
-    ("fused_norm+fused_conv", dict(SWITCHES_OFF, ADT_FUSED_NORM="1",
+    ("off", ALL_OFF),
+    ("fused_norm (default)", DEFAULT),
+    ("im2col", dict(ALL_OFF, ADT_IM2COL_CONV="1")),
+    ("fused_conv", dict(ALL_OFF, ADT_FUSED_CONV="all")),
+    ("fused_norm+fused_conv", dict(ALL_OFF, ADT_FUSED_NORM="1",
                                    ADT_FUSED_CONV="all")),
     ("all", SWITCHES_ON),
 ]
@@ -303,9 +346,14 @@ def bound(kernel: str, n: int, t: int, s: int, d: int, dtype: str):
 
 @contextlib.contextmanager
 def switches(env):
-    """Set the kernel switches of ``env`` for the block, then restore."""
+    """Set the kernel switches of ``env`` for the block (None: unset),
+    then restore."""
     old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -1429,13 +1477,14 @@ SAMPLE_TIMESTEPS = "[94, 834, 217, 944]"
 SAMPLE_SKIPS = "[[0, 3], [], [10, 57], [5]]"
 
 
-def phase_sample(paths):
+def phase_sample(paths, per_step):
     """``adt-torch sample`` at full ADM-64 width (bf16, classifier guidance,
-    32 samples at batch 16) twice: ancestral (--use_ddim False) with the
-    4-step --use_timestep, then DDIM with a 4-entry --skip_layers. The
-    launch counters, set to 0 just before each run and read just after,
-    must show the flash forward, dQ and dK/dV each ``PER_STEP`` times a
-    guided step (8 steps) and nothing else; the .npz must hold uint8
+    32 samples at batch 16, the default path) twice: ancestral
+    (--use_ddim False) with the 4-step --use_timestep, then DDIM with a
+    4-entry --skip_layers. The launch counters, set to 0 just before each
+    run and read just after, must show each kernel ``per_step`` times a
+    guided step (8 steps: the flash forward, dQ, dK/dV and the GroupNorm
+    forward and backward) and nothing else; the .npz must hold uint8
     [32, 64, 64, 3] images and labels in [0, 1000). Returns {run: dict}."""
     import io
 
@@ -1448,7 +1497,7 @@ def phase_sample(paths):
             "ddim_skip": ["--use_ddim", "True", "--skip_layers",
                           SAMPLE_SKIPS]}
     steps = 2 * 4                      # two batches of DDIM-4 / ancestral-4
-    want = {k: v * steps for k, v in PER_STEP.items()}
+    want = {k: v * steps for k, v in per_step.items()}
     out = {}
     for label, extra in runs.items():
         npz = os.path.join(WORK, f"samples_{label}.npz")
@@ -1457,7 +1506,7 @@ def phase_sample(paths):
                 SAMPLE_TIMESTEPS, "--num_samples", "32", "--batch_size", "16",
                 "--seed", "0", "--out", npz] + extra
         buf = io.StringIO()
-        with switches(SWITCHES_OFF), contextlib.redirect_stdout(buf):
+        with switches(DEFAULT), contextlib.redirect_stdout(buf):
             reset_launch_counts()
             t0 = time.time()
             rc = adt_torch(argv)
@@ -1477,8 +1526,8 @@ def phase_sample(paths):
             raise AssertionError(f"sample ({label}): labels {labels}")
         log(f"sample ({label}): {steps} guided steps at batch 16, launches "
             f"{launches} (expected {want}), wall {wall:.1f} s")
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            if not launches[name]:
+        for name, count in want.items():
+            if count and not launches[name]:
                 raise AssertionError(f"kernel {name} never launched by "
                                      f"sample ({label})")
         if launches != want:
@@ -1579,21 +1628,22 @@ KERNEL_INFO.update({
 })
 
 
-def sd_sites():
-    """{"unet" | "decode": {kernel: {site: calls}}} of one SD v1 UNet
-    forward and one AutoencoderKL decode at full width, all three switches
-    on, read from the models on the meta device (shapes only), each
-    wrapper replaced by a recorder. Attention sites are (T, S, heads, D);
-    GroupNorm sites (C, HW, act, FiLM, eps); conv sites as adm64_sites()'s.
-    The switches-off path runs the attention sites alone."""
+def record_sites(run, env):
+    """{kernel: {site: calls}} of the model forwards ``run`` makes on the
+    meta device (shapes only) under the switches of ``env``, each kernel
+    wrapper replaced by a recorder. Attention sites are (T, S, heads, D,
+    lead): ``lead`` the leading dim a call hands the kernel at batch 1
+    (1 on the token-major layout, the heads on the ADM blocks' [B H, T,
+    D] and the wide kernel's heads-first layout); GroupNorm sites (C, HW,
+    act, FiLM, eps); conv sites as adm64_sites()'s."""
     import sys as _sys
 
     import torch
-    from autodiffusion_tpu_torch.models import create_sd_models
     from autodiffusion_tpu_torch.models import nn as port_nn
+    from autodiffusion_tpu_torch.models import unet as port_unet
 
     fa = _sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
-    out, cur = {}, {}
+    cur = {}
 
     def add(kernel, key):
         cur.setdefault(kernel, {})
@@ -1619,73 +1669,101 @@ def sd_sites():
 
     def packed(q, k, v, heads, **kw):
         add("flash_fwd_packed", (q.shape[1], k.shape[1], heads,
-                                 q.shape[2] // heads))
+                                 q.shape[2] // heads, q.shape[0]))
         return torch.empty_like(q), None
 
     def fwd(q, k, v, heads=1):
         add("flash_fwd_wide" if q.shape[-1] == 512 else "flash_fwd",
-            (q.shape[1], k.shape[1], heads, q.shape[2] // heads))
+            (q.shape[1], k.shape[1], heads, q.shape[2] // heads,
+             q.shape[0]))
         return torch.empty_like(q), None
+
+    def adm_attention(q, k, v):
+        # the ADM blocks' flash_attention: FlashAttentionFunction's
+        # flash_fwd on [B H, T, D]
+        fwd(q, k, v)
+        return torch.empty_like(q)
 
     saved = {n: getattr(port_nn, n)
              for n in ("fused_group_norm", "conv3x3", "conv3x3_fused")}
     saved_fa = (fa.flash_fwd_packed, fa.flash_fwd)
+    saved_unet = port_unet.flash_attention
     port_nn.fused_group_norm, port_nn.conv3x3 = gn, conv
     port_nn.conv3x3_fused = fused
     fa.flash_fwd_packed, fa.flash_fwd = packed, fwd
+    port_unet.flash_attention = adm_attention
     try:
-        with switches(SWITCHES_ON), torch.device("meta"):
-            unet, vae, _ = create_sd_models(device="meta")
-            unet(torch.empty(1, 4, 64, 64), torch.zeros(1),
-                 torch.empty(1, 77, 768))
-            out["unet"], cur = cur, {}
-            vae.decode(torch.empty(1, 4, 64, 64))
-            out["decode"] = cur
+        with switches(env), torch.device("meta"):
+            run()
     finally:
         for n, fn in saved.items():
             setattr(port_nn, n, fn)
         fa.flash_fwd_packed, fa.flash_fwd = saved_fa
-    for part in out.values():
-        for kernel in SD_KERNELS:
-            part.setdefault(kernel, {})
-    return out
+        port_unet.flash_attention = saved_unet
+    for kernel in SD_KERNELS:
+        cur.setdefault(kernel, {})
+    return cur
 
 
-def per_call(sites, switched_on: bool):
-    """{kernel: launches per call} of one tower's sites; with the switches
-    off only the attention kernels run."""
-    return {k: sum(v.values()) if switched_on or k.startswith("flash")
-            else 0 for k, v in sites.items()}
+def sd_sites(env=SWITCHES_ON):
+    """{"unet" | "decode" | "encode": {kernel: {site: calls}}} of one SD v1
+    UNet forward, one AutoencoderKL decode and one encode of a 512 x 512
+    image (img2img's) at full width under the switches of ``env``, read
+    from the models on the meta device (record_sites). The default path's
+    routes are FUSED_NORM_ALONE's there; with every switch off the
+    attention sites run alone."""
+    import torch
+    from autodiffusion_tpu_torch.models import create_sd_models
+
+    unet, vae, _ = create_sd_models(device="meta")
+    return {"unet": record_sites(lambda: unet(
+        torch.empty(1, 4, 64, 64), torch.zeros(1), torch.empty(1, 77, 768)),
+        env),
+        "decode": record_sites(lambda: vae.decode(torch.empty(1, 4, 64, 64)),
+                               env),
+        "encode": record_sites(lambda: vae.encode(
+            torch.empty(1, 3, 512, 512)), env)}
 
 
-def phase_sd_attention(sites):
-    """flash_fwd_packed (D = 40: the SD 64x64 level's self-attention over
-    4096 tokens and cross-attention over 77, plus a ragged T), flash_fwd at
-    D = 80 (the 32x32 level, self- and cross-attention) and flash_fwd_wide
-    at D = 512 (the VAE mid-block), all on the token-major [B, L, H * D]
-    layout the models hand them, against their twins at the search's device
-    batch (the UNet's doubled by guidance), bf16 and fp32, within the
-    kernel limits; runs with one 64-key tile left out, with the heads
-    shifted by one (a wrong head offset; where there are several) and for
-    the packed kernel with the D = 40 padding read from memory instead of
-    zeroed, must break them. Every other head's values are eight times
-    larger, so that reading a neighbour shows. Each timed beside its twin,
-    its bound and F.scaled_dot_product_attention."""
+def per_call(sites):
+    """{kernel: launches per call} of one tower's sites (recorded under the
+    switches of the run they count)."""
+    return {k: sum(v.values()) for k, v in sites.items()}
+
+
+SD_ATTN_PARTS = (("flash_fwd_packed", "unet", SD_UNET_BATCH),
+                 ("flash_fwd", "unet", SD_UNET_BATCH),
+                 ("flash_fwd_wide", "decode", SD_BATCH))
+# a ragged query length for the packed kernel, self and cross
+SD_RAGGED = (("flash_fwd_packed", 1000, 1000, 8, 40, SD_UNET_BATCH, 0),
+             ("flash_fwd_packed", 1000, 77, 8, 40, SD_UNET_BATCH, 0))
+
+
+def phase_attention(sites, parts=SD_ATTN_PARTS, extra=SD_RAGGED):
+    """The attention kernels at every site of ``parts`` ((kernel, part,
+    batch): the SD v1 UNet's packed (D = 40: the 64x64 level's
+    self-attention over 4096 tokens and cross-attention over 77) and D = 80
+    forwards, the VAE mid-block's D = 512; or the LDM models' sites), on
+    the layout the models hand them (token-major [B, L, H * D], or the ADM
+    blocks' and the wide kernel's [B H, L, D], a site's ``lead`` times the
+    batch), plus ``extra`` shapes (a ragged T), against their twins at the
+    commands' device batch (the SD UNet's doubled by guidance), bf16 and
+    fp32, within the kernel limits; runs with one 64-key tile left out,
+    with the heads shifted by one (a wrong head offset; where there are
+    several) and for the packed kernel with the D = 40 padding read from
+    memory instead of zeroed, must break them. Every other head's values
+    are eight times larger, so that reading a neighbour shows. Each timed
+    beside its twin, its bound and F.scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
     from autodiffusion_tpu_torch.ops.flash_attention import (
         flash_fwd, flash_fwd_packed, flash_fwd_packed_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    shapes = []   # (kernel, T, S, heads, D, batch, calls per UNet call/decode)
-    for kernel, part, batch in (("flash_fwd_packed", "unet", SD_UNET_BATCH),
-                                ("flash_fwd", "unet", SD_UNET_BATCH),
-                                ("flash_fwd_wide", "decode", SD_BATCH)):
-        for (t, s_len, heads, d), count in sites[part][kernel].items():
-            shapes.append((kernel, t, s_len, heads, d, batch, count))
-    # a ragged query length for the packed kernel, self and cross
-    shapes += [("flash_fwd_packed", 1000, 1000, 8, 40, SD_UNET_BATCH, 0),
-               ("flash_fwd_packed", 1000, 77, 8, 40, SD_UNET_BATCH, 0)]
+    shapes = list(extra)   # (kernel, T, S, heads, D, batch, calls a call)
+    for kernel, part, batch in parts:
+        for (t, s_len, heads, d, lead), count in sites[part][kernel].items():
+            shapes.append((kernel, t, s_len, heads, d, batch * lead, count))
     rows, failures = [], []
     for kernel, t, s_len, heads, d, batch, count in shapes:
         for dt in (torch.bfloat16, torch.float32):
@@ -1750,7 +1828,7 @@ def phase_sd_attention(sites):
             del q, k, v, q4, k4, v4
             torch.cuda.empty_cache()
     if failures:
-        raise AssertionError(f"SD attention kernels disagree with their "
+        raise AssertionError(f"attention kernels disagree with their "
                              f"twins: {failures}")
     return rows
 
@@ -1784,23 +1862,30 @@ def sd_towers(weights, use_bf16: bool, device: str):
     return tuple(m.to(device) for m in towers)
 
 
-def phase_sd_parity(weights, envs, dpm_label: str = "switches off"):
+def phase_sd_parity(weights, envs, dpm_label: str = "default"):
     """The SD towers at full width in float32 with seeded random weights,
     GPU (the kernels) against CPU (their twins), under the switches of each
     of ``envs`` ({label: env}): CLIP on two prompts' ids, two PLMS steps of
     the UNet with classifier-free guidance (scale 7.5) at batch 1 (three
-    UNet calls at the doubled batch 2), one VAE decode of the result, and,
-    under the switches of ``dpm_label`` (the solver's arithmetic is the
-    same under either), DPM-Solver-2 from the same latent over three steps
-    (three guided UNet calls; the middle step second order, the last first
-    order as lower_order_final makes it). Each output within 1e-3 x its
-    scale. Returns {label: ({output: max abs error}, GPU launches)}."""
+    UNet calls at the doubled batch 2: ``txt2img``'s and ``search-sd``'s
+    PLMS), one VAE decode of the result, and, under the switches of
+    ``dpm_label`` (the solvers' arithmetic is the same under either),
+    DPM-Solver-2 from the same latent over three steps (three guided UNet
+    calls; the middle step second order, the last first order as
+    lower_order_final makes it), and at 128 x 128 (latent 16 x 16) two DDIM
+    steps of ``txt2img`` with a --prompt_mask of [1, 0] and ``img2img``'s
+    path (encode, a posterior draw, q_sample at index t_enc = 2 of three,
+    two DDIM steps, decode) with the draws injected. Each output within
+    1e-3 x its scale. Returns {label: ({output: max abs error}, GPU
+    launches)}."""
     import numpy as np
     import torch
+    from autodiffusion_tpu_torch.cli.main import img2img_latents
     from autodiffusion_tpu_torch.models import SD_SCALE_FACTOR
     from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from autodiffusion_tpu_torch.samplers import (DiscreteNoiseSchedule,
-                                                  cfg_eps_fn,
+                                                  ModelVarType, cfg_eps_fn,
+                                                  ddim_sample_loop,
                                                   dpm_solver_sample_loop,
                                                   plms_sample_loop)
     from autodiffusion_tpu_torch.schedules import (build_sd_tables,
@@ -1812,6 +1897,11 @@ def phase_sd_parity(weights, envs, dpm_label: str = "switches off"):
     ids = torch.randint(0, 49408, (2, 77), generator=gen)
     ids[:, 0], ids[:, 20:] = 49406, 49407
     z_t = torch.randn(1, 4, 64, 64, generator=gen)
+    # txt2img's masked DDIM and img2img at 128 x 128 (the CPU's time)
+    z16 = torch.randn(1, 4, 16, 16, generator=gen)
+    x128 = torch.rand(1, 3, 128, 128, generator=gen) * 2 - 1
+    post, qn = (torch.randn(1, 4, 16, 16, generator=gen) for _ in range(2))
+    tables3 = build_sd_tables([1, 334, 667])
     tables = build_sd_tables([301, 801])
     sched = DiscreteNoiseSchedule.from_betas(
         make_beta_schedule("sqrt_linear", 1000))
@@ -1839,6 +1929,22 @@ def phase_sd_parity(weights, envs, dpm_label: str = "switches off"):
                                 guided, (1, 4, 64, 64), sched.to(dev),
                                 times.to(dev), device=dev, order=2,
                                 noise=z_t).cpu()
+                        masked = cfg_eps_fn(
+                            unet, ctx[1:], ctx[0], 7.5,
+                            prompt_mask=torch.tensor([1.0, 0.0], device=dev))
+                        outs[label][dev]["txt2img_ddim2_mask"] = \
+                            ddim_sample_loop(
+                                masked, (1, 4, 16, 16), tables.to(dev),
+                                device=dev, clip_denoised=False,
+                                var_type=ModelVarType.FIXED_SMALL,
+                                noise=z16.to(dev)).cpu()
+                        z_i = img2img_latents(
+                            guided, vae, x128.to(dev), tables3.to(dev), 0.75,
+                            1, posterior_noise=post.to(dev),
+                            noise=qn.to(dev))
+                        outs[label][dev]["img2img2"] = z_i.cpu()
+                        outs[label][dev]["img2img_decode"] = vae.decode(
+                            z_i / SD_SCALE_FACTOR).cpu()
                 launches[label] = dict(LAUNCHES)
                 log(f"SD parity ({label}) on {dev}: {time.time() - t0:.1f} s")
             del unet, vae, clip
@@ -1866,15 +1972,16 @@ def phase_sd_parity(weights, envs, dpm_label: str = "switches off"):
     return result
 
 
-def phase_sd_profile(weights, label: str = "switches off"):
+def phase_sd_profile(weights, label: str = "default"):
     """One PLMS-4 fitness batch of the search in bf16 (5 UNet calls at
     batch 16 with guidance, then the VAE decode of 8 latents) under the
     switches in force: host-clock time of an unprofiled run, then each part
     under torch.profiler: device busy and idle per UNet call, the top
     kernels, the attention kernels' and the GroupNorm forward's share, and
-    the decode's share of the batch's device time
-    (``chiprun_out/chip_smoke_profile_sd.txt``, or ``..._sd_fused.txt``
-    with the switches on)."""
+    the decode's share of the batch's device time (in the output
+    directory: ``chip_smoke_profile_sd.txt`` on the default path,
+    ``..._sd_off.txt`` with the switches off, ``..._sd_fused.txt`` with
+    them on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from autodiffusion_tpu_torch.models import SD_SCALE_FACTOR
@@ -1928,8 +2035,9 @@ def phase_sd_profile(weights, label: str = "switches off"):
                   for ks, n in ((k_u, calls), (k_d, 1)))
     lines_u, lines_d = profile_lines(k_u, calls), profile_lines(k_d, 1)
     os.makedirs(OUT, exist_ok=True)
-    fname = "chip_smoke_profile_sd" + (
-        "_fused" if label != "switches off" else "") + ".txt"
+    fname = "chip_smoke_profile_sd" + {
+        "default": "", "switches on": "_fused", "switches off": "_off"}.get(
+        label, "_" + re.sub(r"\W+", "_", label)) + ".txt"
     with open(os.path.join(OUT, fname), "w") as f:
         f.write(f"{smi_line()}\nSD v1 PLMS-4 fitness batch, bf16, {label}, "
                 f"UNet at batch {SD_UNET_BATCH} (guidance), decode of "
@@ -2018,14 +2126,13 @@ def phase_sd_search(paths, env, sites, label: str, sampler: str = "plms",
     PLMS-4 or DPM-Solver-2 over five knots; scale 7.5, 512 x 512, chunk 2 x
     batch 4, 8 samples per candidate, ``population`` candidates, one
     epoch), its launch counters set to 0 just before and read just after:
-    each must equal the per-call counts derived from the models times the
-    UNet calls (5 per dispatch for PLMS-4, 4 for DPM-Solver over 4 steps)
-    and the decodes (1)."""
+    each must equal the per-call counts derived from the models (``sites``,
+    recorded under the same routes) times the UNet calls (5 per dispatch
+    for PLMS-4, 4 for DPM-Solver over 4 steps) and the decodes (1)."""
     import torch
     from autodiffusion_tpu_torch.cli.main import main as adt_torch
     from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
-    on = env is SWITCHES_ON
     save_dir = os.path.join(WORK, f"search_sd_{label}")
     argv = ["search-sd", "--device", "cuda", "--ckpt", paths["ckpt"],
             "--clip_vocab", paths["vocab"], "--clip_merges", paths["merges"],
@@ -2060,7 +2167,7 @@ def phase_sd_search(paths, env, sites, label: str, sampler: str = "plms",
     decodes = dispatches
     want = {k: 0 for k in LAUNCHES}
     for part, n in (("unet", unet_calls), ("decode", decodes)):
-        for k, c in per_call(sites[part], on).items():
+        for k, c in per_call(sites[part]).items():
             want[k] += c * n
     log(f"search-sd ({label}): {len(fids)} candidates, FIDs {fids}")
     log(f"search-sd ({label}): {len(phases)} chunks, {unet_calls} UNet "
@@ -2094,7 +2201,43 @@ def phase_sd_search(paths, env, sites, label: str, sampler: str = "plms",
 TRAIN_BATCH, TRAIN_MICRO = 16, 8
 MICROBATCHES = TRAIN_BATCH // TRAIN_MICRO
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-TRAIN_KERNELS_ON = TRAIN_KERNELS + NEW_KERNELS
+
+
+def train_kernels(env):
+    """The kernels a training step launches on the card under the
+    switches of ``env``: the flash forward and backward, the GroupNorm
+    forward and backward unless ADT_FUSED_NORM=0, each conv kernel under
+    its switch."""
+    out = list(TRAIN_KERNELS)
+    if env.get("ADT_FUSED_NORM") != "0":
+        out += ["group_norm_fwd", "group_norm_bwd"]
+    if env.get("ADT_IM2COL_CONV") == "1":
+        out.append("conv3x3")
+    if env.get("ADT_FUSED_CONV") == "all":
+        out.append("conv3x3_fused")
+    return tuple(out)
+
+
+def gn_modules(model) -> int:
+    """The GroupNorm32 modules of ``model``: each runs once a forward."""
+    from autodiffusion_tpu_torch.models.nn import GroupNorm32
+
+    return sum(isinstance(m, GroupNorm32) for m in model.modules())
+
+
+def adm_gn_counts():
+    """(UNet, classifier) GroupNorm32 counts of ADM-64 (read from the
+    models on the meta device)."""
+    import torch
+    from autodiffusion_tpu_torch.models import (ClassifierConfig,
+                                                ModelConfig,
+                                                create_classifier,
+                                                create_model)
+
+    with torch.device("meta"):
+        return (gn_modules(create_model(ModelConfig.adm64(), device="meta")),
+                gn_modules(create_classifier(ClassifierConfig.adm64(),
+                                             device="meta")))
 
 
 def train_files():
@@ -2227,7 +2370,8 @@ def phase_train(files, env, label: str):
                              f"{per} then {runs['resumed']['per_step']}")
     want_flash = 22 * MICROBATCHES
     on = env is SWITCHES_ON
-    for k in TRAIN_KERNELS_ON if on else TRAIN_KERNELS:
+    routed = train_kernels(env)
+    for k in routed:
         if not per[k]:
             raise AssertionError(f"train {label}: {k} never launched")
     for k in TRAIN_KERNELS:
@@ -2243,8 +2387,16 @@ def phase_train(files, env, label: str):
                 f"forwards, {per['group_norm_bwd']} backwards and "
                 f"{per['conv3x3_fused']} fused convs (want one backward a "
                 f"forward, {fused} fused convs: the in-norms only)")
-    elif any(per[k] for k in NEW_KERNELS):
-        raise AssertionError(f"train {label}: switched-off kernels ran {per}")
+    elif "group_norm_fwd" in routed:
+        # the fused norm alone: every GroupNorm32 of the UNet forward and
+        # backward, a microbatch
+        want_gn = adm_gn_counts()[0] * MICROBATCHES
+        if not per["group_norm_fwd"] == per["group_norm_bwd"] == want_gn:
+            raise AssertionError(
+                f"train {label}: {per['group_norm_fwd']} GroupNorm forwards "
+                f"and {per['group_norm_bwd']} backwards a step, want {want_gn}")
+    if any(per[k] for k in NEW_KERNELS if k not in routed):
+        raise AssertionError(f"train {label}: kernels off its path ran {per}")
     # the command's own step time (host clock, data and logging included),
     # after the first step of each run
     step_s = sorted(r["step_time"] for r in rows
@@ -2267,8 +2419,8 @@ def phase_train_profile(env, label: str, steps: int = 3):
     driven directly on device-resident data: host-clock ms a step after
     two warm-up steps, device-busy ms a step under torch.profiler, the idle
     share, peak memory, the kernels' launches a step and the GroupNorm
-    backward's form (with the switches on every call must launch its
-    batch sum: the every-gradient form)."""
+    backward's form (wherever it runs, every call must launch its batch
+    sum: the every-gradient form)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from autodiffusion_tpu_torch.models import ModelConfig, create_model
@@ -2320,8 +2472,8 @@ def phase_train_profile(env, label: str, steps: int = 3):
     gn_calls, batch_sums = (sum(e.count for e in kernels if tag in e.key)
                             / steps for tag in ("group_norm_bwd_kernel",
                                                 "group_norm_batch_sum"))
-    if env is SWITCHES_ON and not (
-            gn_calls == batch_sums == per["group_norm_bwd"] > 0):
+    if per["group_norm_bwd"] and not (
+            gn_calls == batch_sums == per["group_norm_bwd"]):
         raise AssertionError(
             f"train profile {label}: {gn_calls:g} GroupNorm backward kernels"
             f" and {batch_sums:g} batch sums a step for "
@@ -2391,7 +2543,7 @@ def phase_train_classifier(files, env, label: str, steps: int = 3):
     if len(rows) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train-classifier ({label}): {rows}")
     per = _per_step(launches, steps, f"train-classifier {label}")
-    for k in TRAIN_KERNELS_ON if env is SWITCHES_ON else TRAIN_KERNELS:
+    for k in train_kernels(env):
         if not per[k]:
             raise AssertionError(f"train-classifier ({label}): {k} never "
                                  "launched")
@@ -2414,7 +2566,7 @@ def phase_nll(files, ema_path):
 
     buf = io.StringIO()
     t0 = time.time()
-    with switches(SWITCHES_OFF), contextlib.redirect_stdout(buf):
+    with switches(DEFAULT), contextlib.redirect_stdout(buf):
         rc = adt_torch(["nll", "--device", "cuda", "--model_path", ema_path,
                         "--data_dir", files["pngs"], "--num_samples", "2",
                         "--batch_size", "2"])
@@ -2441,7 +2593,7 @@ def phase_sample_trained(ema_path):
 
     npz = os.path.join(WORK, "samples_trained.npz")
     t0 = time.time()
-    with switches(SWITCHES_OFF):
+    with switches(DEFAULT):
         rc = adt_torch(["sample", "--device", "cuda", "--model_path",
                         ema_path, "--use_timestep", SAMPLE_TIMESTEPS,
                         "--num_samples", "16", "--batch_size", "16",
@@ -2541,8 +2693,7 @@ def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
             if not e <= 1e-3 * max(float(c.abs().max()), 1.0):
                 raise AssertionError(f"train parity ({label}): {part} {n} "
                                      f"{e:.3e} apart")
-    missing = [k for k in (TRAIN_KERNELS_ON if env is SWITCHES_ON
-                           else TRAIN_KERNELS) if not gpu["launches"][k]]
+    missing = [k for k in train_kernels(env) if not gpu["launches"][k]]
     if missing:
         raise AssertionError(f"train parity ({label}): GPU launched no "
                              f"{missing}")
@@ -2556,6 +2707,501 @@ def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
         f"GPU launches {gpu['launches']}")
     return dict(errs=errs, gpu_metrics=gpu["metrics"],
                 cpu_metrics=cpu["metrics"], launches=gpu["launches"])
+
+
+# ------------------------------------------- SD and LDM generation commands
+
+GEN_PROMPTS = ["a photo of a red car on the street", "a bowl of fruit",
+               "a man riding a horse in the snow", "the cat on the sofa"]
+# a searched 4-step schedule (phase_sd_profile's) and five DPM-Solver
+# knots; --steps of img2img (8) and of the LDM commands (10), cut from the
+# CLI's 50 (depth)
+TXT2IMG_TIMESTEPS = "[129, 543, 764, 976]"
+TXT2IMG_KNOTS = "[1.0, 0.75, 0.5, 0.25, 0.001]"
+IMG2IMG_STEPS, LDM_STEPS = 8, 10
+LDM_SAMPLES = 4
+# the CLI defaults' models: celebahq-ldm-vq-4 (ldm-sample), cin256-v2's
+# UNet (ldm-sample --num_classes 1000), inpainting_big (inpaint); each
+# with the VQ-f4 first stage (8192 codes of 3 channels)
+LDM_MODELS = {
+    "ldm": dict(in_channels=3, num_channels=224, channel_mult=(1, 2, 3, 4)),
+    "cin": dict(in_channels=3, num_channels=192, channel_mult=(1, 2, 3, 5),
+                num_classes=1000, context_dim=512),
+    "inpaint": dict(in_channels=7, num_channels=256,
+                    channel_mult=(1, 2, 3, 4)),
+}
+LDM_COMMON = dict(latent_channels=3, num_res_blocks=2, attention_ds=(8, 4, 2),
+                  num_head_channels=32)
+VQ_F4 = dict(ch=128, ch_mult=(1, 2, 4), num_res_blocks=2, attn_at_ds=(),
+             latent_channels=3, embed_dim=3, n_embed=8192)
+# the inpainting mask's box: edges off the VQ-f4 grid's multiples of 4
+MASK_BOX = (83, 301, 121, 405)
+
+
+def _ldm_unet(name, device, use_bf16=True):
+    from autodiffusion_tpu_torch.models import create_ldm_unet
+
+    kw = dict(LDM_COMMON, **LDM_MODELS[name])
+    kw.setdefault("context_dim", 512)
+    return create_ldm_unet(latent_channels=kw.pop("latent_channels"),
+                           use_bf16=use_bf16, device=device, **kw)
+
+
+def _vq(device, use_bf16=True):
+    from autodiffusion_tpu_torch.models import create_ldm_first_stage
+
+    return create_ldm_first_stage("vq", use_bf16=use_bf16, device=device,
+                                  **VQ_F4)
+
+
+def ldm_weights():
+    """Seeded random state dicts of the three LDM UNets, the VQ-f4 first
+    stage and cin's class embedding (1001 rows: cin256-v2 keeps an
+    unconditional one), float32, built on the CPU."""
+    import torch
+    from autodiffusion_tpu_torch.models import random_init_
+
+    out = {}
+    for seed, name in enumerate(LDM_MODELS):
+        with torch.device("cpu"):
+            m = random_init_(_ldm_unet(name, "cpu"), 20 + seed)
+        out[name] = m.state_dict()
+        log(f"LDM {name} UNet: {sum(p.numel() for p in m.parameters())} "
+            "params")
+    out["vq"] = random_init_(_vq("cpu"), 23).state_dict()
+    out["embedding"] = torch.randn(
+        1001, 512, generator=torch.Generator().manual_seed(24)) / 512 ** 0.5
+    return out
+
+
+def gen_files(paths, ldm):
+    """The generation commands' inputs: a prompts file of four prompts, a
+    seeded 512 x 512 PNG for img2img, a 512 x 512 image and mask pair for
+    inpaint, and a CompVis-layout LDM checkpoint (float16) for each of the
+    three models."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    out = dict(paths, prompts=os.path.join(WORK, "prompts.txt"),
+               init=os.path.join(WORK, "init.png"),
+               image=os.path.join(WORK, "scene.png"),
+               mask=os.path.join(WORK, "scene_mask.png"))
+    with open(out["prompts"], "w") as f:
+        f.write("\n".join(GEN_PROMPTS) + "\n")
+    rng = np.random.RandomState(16)
+    # smooth colour fields plus noise, so the encoders see structure
+    yy, xx = np.mgrid[0:512, 0:512] / 512.0
+    for key in ("init", "image"):
+        base = np.stack([np.sin(6 * xx + rng.rand() * 6),
+                         np.cos(5 * yy + rng.rand() * 6),
+                         np.sin(4 * (xx + yy))], -1)
+        img = (127.5 * (base + 1) * 0.8 + rng.rand(512, 512, 3) * 50)
+        Image.fromarray(img.clip(0, 255).astype(np.uint8)).save(out[key])
+    mask = np.zeros((512, 512), np.uint8)
+    r0, r1, c0, c1 = MASK_BOX
+    mask[r0:r1, c0:c1] = 255
+    Image.fromarray(mask).save(out["mask"])
+    half = {k: v.half() for k, v in ldm["vq"].items()}
+    for name in LDM_MODELS:
+        sd = {f"model.diffusion_model.{k}": v.half()
+              for k, v in ldm[name].items()}
+        sd.update({f"first_stage_model.{k}": v for k, v in half.items()})
+        if name == "cin":
+            sd["cond_stage_model.embedding.weight"] = ldm["embedding"].half()
+        out[f"{name}_ckpt"] = os.path.join(WORK, f"{name}.ckpt")
+        torch.save({"state_dict": sd}, out[f"{name}_ckpt"])
+    return out
+
+
+def ldm_sites(env=FUSED_NORM_ALONE):
+    """record_sites of the LDM commands' model calls at the CLI defaults'
+    sizes, under the default path's routes: the unconditional and cin
+    UNets at a 64 x 64 latent (the cin UNet on one class token of 512),
+    the VQ-f4 decode of a 64 x 64 latent (ldm-sample), and for inpaint at
+    512 x 512 the VQ-f4 encode, the UNet at the 128 x 128 latent and the
+    decode of it."""
+    import torch
+
+    with torch.device("meta"):
+        unets = {name: _ldm_unet(name, "meta") for name in LDM_MODELS}
+        vq = _vq("meta")
+
+    def t():
+        return torch.zeros(1)
+
+    return {
+        "ldm_unet": record_sites(lambda: unets["ldm"](
+            torch.empty(1, 3, 64, 64), t()), env),
+        "cin_unet": record_sites(lambda: unets["cin"](
+            torch.empty(1, 3, 64, 64), t(), torch.empty(1, 1, 512)), env),
+        "ldm_decode": record_sites(lambda: vq.decode(
+            torch.empty(1, 3, 64, 64), force_not_quantize=True), env),
+        "inpaint_encode": record_sites(lambda: vq.encode(
+            torch.empty(1, 3, 512, 512)), env),
+        "inpaint_unet": record_sites(lambda: unets["inpaint"](
+            torch.empty(1, 7, 128, 128), t()), env),
+        "inpaint_decode": record_sites(lambda: vq.decode(
+            torch.empty(1, 3, 128, 128), force_not_quantize=True), env),
+    }
+
+
+# (kernel, part, batch) of the new commands' attention sites, at the
+# commands' device batches: ldm-sample's 4 samples, img2img's encode of one
+# image, inpaint's one pair
+GEN_ATTN_PARTS = (
+    ("flash_fwd", "ldm_unet", LDM_SAMPLES),
+    ("flash_fwd", "cin_unet", LDM_SAMPLES),
+    ("flash_fwd_wide", "ldm_decode", LDM_SAMPLES),
+    ("flash_fwd", "inpaint_unet", 1),
+    ("flash_fwd_wide", "inpaint_encode", 1),
+    ("flash_fwd_wide", "inpaint_decode", 1),
+    ("flash_fwd_wide", "sd_encode", 1),
+)
+# ... and of their GroupNorms, merged by batch (a site in several parts is
+# checked once)
+GEN_GN_PARTS = {LDM_SAMPLES: ("ldm_unet", "cin_unet", "ldm_decode"),
+                1: ("inpaint_encode", "inpaint_unet", "inpaint_decode",
+                    "sd_encode")}
+
+
+def phase_gen_kernels(sites):
+    """The attention and GroupNorm kernels at every site the generation
+    commands' default path gives them that no earlier phase ran: the LDM
+    UNets' ADM-layout D = 32 attention (T 1024 / 256 / 64 with 14 / 21 /
+    28 heads; inpaint's T 4096 / 1024 / 256 with 16 / 24 / 32), cin's
+    token-major D = 32 self-attention and its cross-attention over one
+    class token (S = 1), the VQ-f4 mid-block's D = 512 at T 4096 and 16384
+    and SD's encoder's; the GroupNorms of the LDM UNets and the VQ-f4
+    encoder and decoder (C 128 at 256^2 and 512^2 among them) and of SD's
+    encoder. Returns (attention rows, GroupNorm rows)."""
+    attn = phase_attention(sites, GEN_ATTN_PARTS, extra=())
+    gn_rows = []
+    for batch, parts in GEN_GN_PARTS.items():
+        merged = {}
+        for part in parts:
+            for key, n in sites[part]["group_norm_fwd"].items():
+                merged[key] = merged.get(key, 0) + n
+        gn_rows += phase_new_kernels(
+            {"group_norm_fwd": merged, "group_norm_bwd": {}, "conv3x3": {},
+             "conv3x3_fused": {}}, batch, reps=3)
+    return attn, gn_rows
+
+
+def _run_command(argv, label: str, want: dict):
+    """``adt-torch`` ``argv`` on the default path, its launch counters set
+    to 0 just before and read just after (each must equal ``want``, and a
+    kernel of ``want`` may not be missing), its standard output echoed and
+    returned, with wall seconds and peak memory."""
+    import io
+
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    buf = io.StringIO()
+    with switches(DEFAULT), contextlib.redirect_stdout(buf):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        rc = adt_torch(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"adt-torch {label} returned {rc}")
+    full = {k: want.get(k, 0) for k in launches}
+    for name, count in full.items():
+        if count and not launches[name]:
+            raise AssertionError(f"kernel {name} never launched by {label}")
+    if launches != full:
+        raise AssertionError(f"{label} launch counts {launches} != {full}")
+    return dict(text=text, wall_s=wall, launches=launches,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _expected(sites, calls):
+    """{kernel: launches} of ``calls`` ({part: number of calls})."""
+    out = {}
+    for part, n in calls.items():
+        for k, c in per_call(sites[part]).items():
+            out[k] = out.get(k, 0) + c * n
+    return out
+
+
+def _images_per_s(text, label):
+    """Images a second from the command's "created N samples (t s)" /
+    "... (t s)" log lines: the samples of its last line over the seconds
+    since its sampling began."""
+    found = re.findall(r"created (\d+) samples \(([\d.]+) s\)", text)
+    if not found:
+        raise AssertionError(f"{label}: no timing line in its output")
+    n, secs = found[-1]
+    return int(n) / float(secs)
+
+
+def _per_call_line(sites, parts):
+    return "; ".join(f"{part} {dict((k, v) for k, v in per_call(sites[part]).items() if v)}"
+                     for part in parts)
+
+
+def phase_txt2img(paths, sites):
+    """``adt-torch txt2img`` at SD v1 width, 512 x 512, four prompts in one
+    batch of 4 (the UNet at batch 8 under guidance), bf16: PLMS over the
+    searched 4-step --timesteps (5 UNet calls), DPM-Solver over five knots
+    (4 calls) and PLMS with a --prompt_mask (5 calls), one decode of 4
+    each; then ``convert --preset sd`` of the checkpoint and the PLMS run
+    again from the params directory, which must give the same images.
+    Each run's launches equal the per-call counts of the models times its
+    calls; uint8 [4, 512, 512, 3] images; images/s and peak memory."""
+    import numpy as np
+
+    base = ["txt2img", "--device", "cuda", "--clip_vocab", paths["vocab"],
+            "--clip_merges", paths["merges"], "--from_file",
+            paths["prompts"], "--n_samples", "4", "--seed", "42"]
+    runs = {"plms": (["--sampler", "plms", "--timesteps",
+                      TXT2IMG_TIMESTEPS], 5),
+            "dpm_solver": (["--sampler", "dpm_solver", "--timesteps",
+                            TXT2IMG_KNOTS], 4),
+            "prompt_mask": (["--sampler", "plms", "--timesteps",
+                             TXT2IMG_TIMESTEPS, "--prompt_mask",
+                             "[1, 1, 0, 1]"], 5)}
+    out = {}
+    for label, (extra, calls) in runs.items():
+        npz = os.path.join(WORK, f"txt2img_{label}.npz")
+        want = _expected(sites, {"unet": calls, "decode": 1})
+        r = _run_command(base + ["--ckpt", paths["ckpt"], "--out", npz]
+                         + extra, f"txt2img ({label})", want)
+        with np.load(npz) as z:
+            arr = z["arr_0"]
+        if arr.dtype != np.uint8 or arr.shape != (4, 512, 512, 3):
+            raise AssertionError(f"txt2img ({label}): {arr.dtype} "
+                                 f"{arr.shape}")
+        r.update(images_per_s=_images_per_s(r.pop("text"), label), npz=npz,
+                 unet_calls=calls)
+        log(f"txt2img ({label}): {calls} UNet calls at batch 8 and a decode"
+            f" of 4, launches {r['launches']}; a call "
+            f"{_per_call_line(sites, ('unet', 'decode'))}; images/s "
+            f"{r['images_per_s']:.3f} (sampling + decode), peak memory "
+            f"{r['peak_gb']:.2f} GB, wall {r['wall_s']:.1f} s")
+        out[label] = r
+    params = os.path.join(WORK, "sd_params")
+    t0 = time.time()
+    _run_command(["convert", "--device", "cuda", "--preset", "sd",
+                  "--torch_path", paths["ckpt"], "--out", params],
+                 "convert --preset sd", {})
+    sizes = {f: os.path.getsize(os.path.join(params, f))
+             for f in sorted(os.listdir(params))}
+    log(f"convert --preset sd: {sizes} bytes, {time.time() - t0:.1f} s")
+    npz = os.path.join(WORK, "txt2img_from_dir.npz")
+    r = _run_command(base + ["--ckpt", params, "--out", npz]
+                     + runs["plms"][0], "txt2img (params directory)",
+                     _expected(sites, {"unet": 5, "decode": 1}))
+    with np.load(npz) as a, np.load(out["plms"]["npz"]) as b:
+        same = np.array_equal(a["arr_0"], b["arr_0"])
+        diff = int(np.abs(a["arr_0"].astype(int)
+                          - b["arr_0"].astype(int)).max())
+    log(f"txt2img from the params directory: images equal to the "
+        f"checkpoint file's: {same} (max |diff| {diff}), wall "
+        f"{r['wall_s']:.1f} s")
+    if not same:
+        raise AssertionError(f"txt2img from {params} differs from the .ckpt "
+                             f"run by up to {diff}")
+    out["convert"] = dict(sizes=sizes, seconds=time.time() - t0,
+                          from_dir_launches=r["launches"])
+    return out
+
+
+def phase_img2img(paths, sites):
+    """``adt-torch img2img`` at SD v1 width on the synthesized 512 x 512
+    PNG, strength 0.75 of an 8-step schedule (6 DDIM steps: the UNet at
+    batch 4 for 2 samples under guidance), bf16: one encode of the image,
+    6 UNet calls, one decode of 2."""
+    import numpy as np
+
+    npz = os.path.join(WORK, "img2img.npz")
+    calls = int(0.75 * IMG2IMG_STEPS)
+    r = _run_command(
+        ["img2img", "--device", "cuda", "--ckpt", paths["ckpt"],
+         "--clip_vocab", paths["vocab"], "--clip_merges", paths["merges"],
+         "--init_img", paths["init"], "--prompt", GEN_PROMPTS[0],
+         "--strength", "0.75", "--steps", str(IMG2IMG_STEPS), "--out", npz],
+        "img2img", _expected(sites, {"encode": 1, "unet": calls,
+                                     "decode": 1}))
+    with np.load(npz) as z:
+        arr = z["arr_0"]
+    if arr.dtype != np.uint8 or arr.shape != (2, 512, 512, 3):
+        raise AssertionError(f"img2img: {arr.dtype} {arr.shape}")
+    r["images_per_s"] = _images_per_s(r.pop("text"), "img2img")
+    log(f"img2img: an encode, {calls} UNet calls at batch 4, a decode of 2, "
+        f"launches {r['launches']}; a call "
+        f"{_per_call_line(sites, ('encode', 'unet', 'decode'))}; images/s "
+        f"{r['images_per_s']:.3f}, peak memory {r['peak_gb']:.2f} GB, wall "
+        f"{r['wall_s']:.1f} s")
+    return r
+
+
+def phase_ldm_sample(paths, sites):
+    """``adt-torch ldm-sample`` at the CLI's defaults (celebahq-ldm-vq-4:
+    latent 64 x 64, eta 1, 4 samples) and with --num_classes 1000 at
+    cin256-v2's UNet widths (labels drawn), bf16, 10 DDIM steps each: 10
+    UNet calls at batch 4 and one VQ-f4 decode of 4; uint8 [4, 256, 256,
+    3] images."""
+    import numpy as np
+
+    out = {}
+    for label, extra, part in (
+            ("unconditional", [], "ldm_unet"),
+            ("cin", ["--num_classes", "1000", "--num_channels", "192",
+                     "--channel_mult", "1,2,3,5"], "cin_unet")):
+        npz = os.path.join(WORK, f"ldm_{label}.npz")
+        ckpt = paths["cin_ckpt" if label == "cin" else "ldm_ckpt"]
+        r = _run_command(["ldm-sample", "--device", "cuda", "--ckpt", ckpt,
+                          "--steps", str(LDM_STEPS), "--n_samples",
+                          str(LDM_SAMPLES), "--out", npz] + extra,
+                         f"ldm-sample ({label})",
+                         _expected(sites, {part: LDM_STEPS,
+                                           "ldm_decode": 1}))
+        with np.load(npz) as z:
+            arr = z["arr_0"]
+        if arr.dtype != np.uint8 or arr.shape != (LDM_SAMPLES, 256, 256, 3):
+            raise AssertionError(f"ldm-sample ({label}): {arr.dtype} "
+                                 f"{arr.shape}")
+        r["images_per_s"] = _images_per_s(r.pop("text"), label)
+        log(f"ldm-sample ({label}): {LDM_STEPS} UNet calls at batch "
+            f"{LDM_SAMPLES} and a decode, launches {r['launches']}; a call "
+            f"{_per_call_line(sites, (part, 'ldm_decode'))}; images/s "
+            f"{r['images_per_s']:.3f}, peak memory {r['peak_gb']:.2f} GB, "
+            f"wall {r['wall_s']:.1f} s")
+        out[label] = r
+    return out
+
+
+def phase_inpaint(paths, sites):
+    """``adt-torch inpaint`` at the CLI's defaults (inpainting_big: UNet 256
+    channels on the 2 x 3 + 1 channel input) on the synthesized 512 x 512
+    image and mask pair, bf16, 10 DDIM steps: one VQ-f4 encode of the
+    masked image, 10 UNet calls at the 128 x 128 latent, one decode; the
+    PNG keeps every pixel outside the mask."""
+    import numpy as np
+    from PIL import Image
+
+    outdir = os.path.join(WORK, "inpaint_out")
+    r = _run_command(["inpaint", "--device", "cuda", "--ckpt",
+                      paths["inpaint_ckpt"], "--image", paths["image"],
+                      "--mask", paths["mask"], "--outdir", outdir,
+                      "--steps", str(LDM_STEPS)], "inpaint",
+                     _expected(sites, {"inpaint_encode": 1,
+                                       "inpaint_unet": LDM_STEPS,
+                                       "inpaint_decode": 1}))
+    got = np.asarray(Image.open(os.path.join(outdir, "scene.png")))
+    src = np.asarray(Image.open(paths["image"]).convert("RGB"))
+    keep = np.asarray(Image.open(paths["mask"])) < 128
+    if got.shape != (512, 512, 3) or not np.array_equal(got[keep],
+                                                        src[keep]):
+        raise AssertionError("inpaint: the output differs from the image "
+                             "outside the mask")
+    r["images_per_s"] = _images_per_s(r.pop("text"), "inpaint")
+    log(f"inpaint: an encode, {LDM_STEPS} UNet calls, a decode, launches "
+        f"{r['launches']}; a call "
+        f"{_per_call_line(sites, ('inpaint_encode', 'inpaint_unet', 'inpaint_decode'))}"
+        f"; images/s {r['images_per_s']:.3f}, peak memory "
+        f"{r['peak_gb']:.2f} GB, wall {r['wall_s']:.1f} s")
+    return r
+
+
+def phase_ldm_parity(ldm):
+    """The LDM commands' paths at full width in float32, seeded random
+    weights, GPU (the kernels, default path) against CPU (their twins), at
+    a 32 x 32 latent (128 x 128 images), TF32 off: ldm-sample's two DDIM
+    steps with eta 1 and the last step's noise (x_T and each z injected)
+    and the VQ-f4 decode, unconditional and on cin's class token; inpaint's
+    condition (the masked image's VQ encode beside the half-pixel-centre
+    mask resize), two DDIM steps of the concat-conditioned UNet and the
+    decode. Each output within 1e-3 x its scale. Returns {output: max abs
+    error}."""
+    import numpy as np
+    import torch
+    from autodiffusion_tpu_torch.cli.main import (inpaint_composite,
+                                                  inpaint_condition)
+    from autodiffusion_tpu_torch.models import ClassEmbedder
+    from autodiffusion_tpu_torch.samplers import (ModelVarType,
+                                                  ddim_sample_loop)
+    from autodiffusion_tpu_torch.schedules import build_sd_tables
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(17)
+    x_t = torch.randn(1, 3, 32, 32, generator=gen)
+    step_noise = torch.randn(2, 1, 3, 32, 32, generator=gen)
+    tables = build_sd_tables([1, 501], linear_start=0.0015,
+                             linear_end=0.0195)
+    rng = np.random.RandomState(18)
+    img01 = rng.rand(128, 128, 3).astype(np.float32)
+    mask01 = np.zeros((128, 128), np.float32)
+    mask01[21:75, 30:101] = 1.0
+    outs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            t0 = time.time()
+            res = outs[dev] = {}
+            with switches(DEFAULT), torch.no_grad():
+                vq = _vq(dev, use_bf16=False)
+                vq.load_state_dict(ldm["vq"])
+                for name in LDM_MODELS:
+                    unet = _ldm_unet(name, dev, use_bf16=False)
+                    unet.load_state_dict(ldm[name])
+                    kw = dict(device=dev, clip_denoised=False,
+                              var_type=ModelVarType.FIXED_SMALL)
+                    if name == "inpaint":
+                        cond = inpaint_condition(vq, img01, mask01, dev)
+                        z = ddim_sample_loop(
+                            lambda x, t, i: unet(torch.cat([x, cond], 1), t),
+                            (1, 3, 32, 32), tables.to(dev),
+                            noise=x_t.to(dev), **kw)
+                        res["inpaint_condition"] = cond.cpu()
+                    else:
+                        if name == "cin":
+                            emb = ClassEmbedder(512, 1001).to(dev)
+                            emb.embedding.weight.copy_(ldm["embedding"])
+                            ctx = emb(torch.tensor([7], device=dev))
+
+                            def fn(x, t, i):
+                                return unet(x, t, ctx)
+                        else:
+                            def fn(x, t, i):
+                                return unet(x, t)
+                        z = ddim_sample_loop(
+                            fn, (1, 3, 32, 32), tables.to(dev), eta=1.0,
+                            final_step_noise=True, noise=x_t.to(dev),
+                            step_noise=step_noise.to(dev), **kw)
+                    res[f"{name}_ddim2"] = z.cpu()
+                    res[f"{name}_decode"] = vq.decode(z).cpu()
+                    del unet
+                pred = res["inpaint_decode"][0].numpy()
+                res["inpaint_composite"] = torch.from_numpy(
+                    inpaint_composite(pred, img01, mask01).astype(np.float32))
+            log(f"LDM parity on {dev}: {time.time() - t0:.1f} s")
+            del vq
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    errs = {}
+    for name, want in outs["cpu"].items():
+        got = outs["cuda"][name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"LDM parity: non-finite {name} on the GPU")
+        errs[name] = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        # the composite's uint8 pixels: the decode's rounding may move one
+        tol = 1.0 if name == "inpaint_composite" else 1e-3 * max(scale, 1.0)
+        log(f"LDM parity: {name} GPU vs CPU max abs err {errs[name]:.3e} "
+            f"(output max {scale:.3f}, tol {tol:.3g})")
+        if not errs[name] <= tol:
+            raise AssertionError(f"LDM {name} on the GPU disagrees with the "
+                                 f"CPU twin: {errs[name]}")
+    return errs
 
 
 def main() -> int:
@@ -2610,8 +3256,7 @@ def main() -> int:
             f"params ({unet.layer_num} layers), classifier "
             f"{sum(p.numel() for p in cls.parameters())} params")
         del unet, cls
-        parity_err, _ = phase_parity(unet_sd, cls_sd, SWITCHES_OFF,
-                                     "switches off")
+        parity_err, _ = phase_parity(unet_sd, cls_sd, DEFAULT, "default")
         parity_on_err, parity_on_launches = phase_parity(
             unet_sd, cls_sd, SWITCHES_ON, "switches on")
         mark("ADM parity")
@@ -2619,88 +3264,129 @@ def main() -> int:
         if missing:
             raise AssertionError(f"the switches-on parity run launched no "
                                  f"{missing}")
-        with switches(SWITCHES_OFF):
+        n_unet_gn, n_cls_gn = adm_gn_counts()
+        # the default path's guided step: every GroupNorm32 of the UNet
+        # and the classifier forward, the classifier's backward (dx alone)
+        per_step_default = dict(PER_STEP, group_norm_fwd=n_unet_gn + n_cls_gn,
+                                group_norm_bwd=n_cls_gn)
+        with switches(DEFAULT):
             prof = phase_profile(unet_sd, cls_sd)
         mark("ADM profile")
         ab = phase_ab(unet_sd, cls_sd)
         mark("ADM A/B")
         paths = search_files(unet_sd, cls_sd)
-        search = phase_search(paths, SWITCHES_OFF, PER_STEP, "default")
+        search = phase_search(paths, DEFAULT, per_step_default, "default")
         search_on = phase_search(paths, SWITCHES_ON, PER_STEP_FUSED,
                                  "switches on")
         mark("ADM searches")
-        sample = phase_sample(paths)
+        sample = phase_sample(paths, per_step_default)
         mark("sample")
         fid_cmds = phase_fid_commands(paths, sample["ancestral"]["npz"])
         mark("ref-stats and evaluate")
         log(f"ADM phases done at {time.time() - t_start:.1f} s")
 
-        # the training slice: train (switches off, on), the training step
-        # profiled, train-classifier, nll and sample of the trained
-        # checkpoint, GPU-vs-CPU training parity
+        # the training slice: train (default, switches on), the training
+        # step profiled (switches off, default = the fused norm alone, on),
+        # train-classifier, nll and sample of the trained checkpoint,
+        # GPU-vs-CPU training parity
         files = train_files()
         train = {label: phase_train(files, env, label)
-                 for label, env in (("off", SWITCHES_OFF),
+                 for label, env in (("default", DEFAULT),
                                     ("on", SWITCHES_ON))}
         mark("train")
-        train_prof = {label: phase_train_profile(env, label)
-                      for label, env in (("off", SWITCHES_OFF),
+        train_prof = {label: phase_train_profile(env, label, steps=2)
+                      for label, env in (("off", ALL_OFF),
+                                         ("default", DEFAULT),
                                          ("on", SWITCHES_ON))}
         mark("train profile")
         train_cls = {label: phase_train_classifier(files, env, label)
-                     for label, env in (("off", SWITCHES_OFF),
+                     for label, env in (("default", DEFAULT),
                                         ("on", SWITCHES_ON))}
         mark("train-classifier")
-        ema_path = os.path.join(train["off"]["save_dir"],
+        ema_path = os.path.join(train["default"]["save_dir"],
                                 "ema_0.9999_000006.pt")
         nll = phase_nll(files, ema_path)
         mark("nll")
         sample_trained = phase_sample_trained(ema_path)
         mark("sample of the trained checkpoint")
         train_parity = {label: phase_train_parity(unet_sd, env, label)
-                        for label, env in (("switches off", SWITCHES_OFF),
+                        for label, env in (("default", DEFAULT),
                                            ("switches on", SWITCHES_ON))}
         mark("train parity")
 
         # the Stable Diffusion slice: search-sd's kernels at every SD site,
-        # parity of the full-width towers, a profile and two searches
-        sd = sd_sites()
-        sd_attn_rows = phase_sd_attention(sd)
+        # parity of the full-width towers, profiles and the searches; the
+        # sites of the default path (the fused GroupNorm alone) and of the
+        # switches on, read on the meta device
+        sd = sd_sites(SWITCHES_ON)
+        sd_default = sd_sites(FUSED_NORM_ALONE)
+        sd_attn_rows = phase_attention(sd)
         mark("SD attention kernels")
         sd_rows, sd_ms = [], {}
         for part, batch in (("unet", SD_UNET_BATCH), ("decode", SD_BATCH)):
+            # the GroupNorm forward at the default path's sites (every
+            # GroupNorm32), the convs at the switched-on ones
             part_rows = phase_new_kernels(
-                {k: sd[part].get(k, {}) for k in NEW_KERNELS}, batch, reps=5)
+                dict({k: sd[part].get(k, {}) for k in NEW_KERNELS},
+                     group_norm_fwd=sd_default[part]["group_norm_fwd"]),
+                batch, reps=5)
             sd_ms[part] = new_kernels_per_step(
                 part_rows, f"SD {part} call (batch {batch}")
             sd_rows += part_rows
         mark("SD GroupNorm and conv kernels")
         weights = sd_weights()
-        sd_parity = phase_sd_parity(weights, {"switches off": SWITCHES_OFF,
+        sd_parity = phase_sd_parity(weights, {"default": DEFAULT,
                                               "switches on": SWITCHES_ON})
         mark("SD parity")
-        missing = [k for k in SD_KERNELS
-                   if not sd_parity["switches on"][1][k]]
-        if missing:
-            raise AssertionError(f"the SD switches-on parity run launched no "
-                                 f"{missing}")
-        with switches(SWITCHES_OFF):
-            sd_prof = phase_sd_profile(weights)
-        with switches(SWITCHES_ON):
-            sd_prof_on = phase_sd_profile(weights, "switches on")
+        for label, kernels in (("switches on", SD_KERNELS),
+                               ("default", ("flash_fwd_packed", "flash_fwd",
+                                            "flash_fwd_wide",
+                                            "group_norm_fwd"))):
+            missing = [k for k in kernels if not sd_parity[label][1][k]]
+            if missing:
+                raise AssertionError(f"the SD {label} parity run launched "
+                                     f"no {missing}")
+        sd_prof = {}
+        for label, env in (("default", DEFAULT), ("switches off", ALL_OFF),
+                           ("switches on", SWITCHES_ON)):
+            with switches(env):
+                sd_prof[label] = phase_sd_profile(weights, label)
         mark("SD profiles")
         paths = sd_search_files(weights, paths)
         del weights
-        sd_search = phase_sd_search(paths, SWITCHES_OFF, sd, "default")
+        sd_search = phase_sd_search(paths, DEFAULT, sd_default, "default")
         sd_search_on = phase_sd_search(paths, SWITCHES_ON, sd, "switches on")
         mark("SD PLMS searches")
         # DPM-Solver: the smallest population the EA takes
-        sd_dpm = phase_sd_search(paths, SWITCHES_OFF, sd, "dpm_solver",
+        sd_dpm = phase_sd_search(paths, DEFAULT, sd_default, "dpm_solver",
                                  "dpm_solver", population=2)
         sd_dpm_on = phase_sd_search(paths, SWITCHES_ON, sd,
                                     "dpm_solver switches on", "dpm_solver",
                                     population=2)
         mark("SD DPM-Solver searches")
+
+        # the generation commands on the default path: txt2img, convert,
+        # img2img at SD v1 width; ldm-sample (both kinds) and inpaint at
+        # the CLI's LDM widths; their new kernel sites and GPU-vs-CPU
+        # parity of the LDM paths (SD's are in the SD parity phase)
+        ldm = ldm_weights()
+        gen_sites = dict(ldm_sites(), sd_encode=sd_default["encode"],
+                         unet=sd_default["unet"], decode=sd_default["decode"],
+                         encode=sd_default["encode"])
+        gen_attn_rows, gen_gn_rows = phase_gen_kernels(gen_sites)
+        mark("generation kernels")
+        ldm_parity = phase_ldm_parity(ldm)
+        mark("LDM parity")
+        paths = gen_files(paths, ldm)
+        del ldm
+        txt2img = phase_txt2img(paths, gen_sites)
+        mark("txt2img and convert")
+        img2img = phase_img2img(paths, gen_sites)
+        mark("img2img")
+        ldm_sample = phase_ldm_sample(paths, gen_sites)
+        mark("ldm-sample")
+        inpaint = phase_inpaint(paths, gen_sites)
+        mark("inpaint")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2710,24 +3396,15 @@ def main() -> int:
     head.update({r["name"]: r for r in sd_attn_rows
                  if r["name"] != "flash_fwd" and r["dtype"] == "bfloat16"
                  and (r["T"], r["S"]) == (4096, 4096)})
-    # each kernel's launches on the main paths: the flash kernels on the
-    # default searches, the GroupNorm and conv kernels on the searches with
-    # the switches on (ADM and SD each)
-    launches = {k: search["launches"][k] + sd_search["launches"][k]
-                + sd_dpm["launches"][k]
-                + sum(r["launches"][k] for r in sample.values())
-                for k in KERNEL_INFO}
-    for k in NEW_KERNELS:
-        launches[k] = (search_on["launches"][k] + sd_search_on["launches"][k]
-                       + sd_dpm_on["launches"][k])
-    # ... and the training commands: the flash kernels switched off, every
-    # ADM kernel switched on
-    for k in KERNEL_INFO:
-        launches[k] += (train["on"]["launches"][k]
-                        + train_cls["on"]["launches"][k])
-        if k not in NEW_KERNELS:
-            launches[k] += (train["off"]["launches"][k]
-                            + train_cls["off"]["launches"][k])
+    # each kernel's launches on the main paths: the searches, sample, the
+    # training commands and the generation commands, on the default path
+    # and with the switches on
+    runs = ([search, search_on, sd_search, sd_search_on, sd_dpm, sd_dpm_on]
+            + list(sample.values()) + list(train.values())
+            + list(train_cls.values())
+            + [r for k, r in txt2img.items() if k != "convert"]
+            + [img2img, inpaint] + list(ldm_sample.values()))
+    launches = {k: sum(r["launches"][k] for r in runs) for k in KERNEL_INFO}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1],
@@ -2761,7 +3438,7 @@ def main() -> int:
                    "sd_attention_rows": sd_attn_rows, "sd_kernel_rows": sd_rows,
                    "sd_new_kernels_ms_per_call": sd_ms,
                    "sd_parity": {k: v[0] for k, v in sd_parity.items()},
-                   "sd_profile": sd_prof, "sd_profile_switches_on": sd_prof_on,
+                   "sd_profile": sd_prof,
                    "sd_search": sd_search, "sd_search_switches_on":
                        sd_search_on, "sd_dpm_search": sd_dpm,
                    "sd_dpm_search_switches_on": sd_dpm_on,
@@ -2769,6 +3446,14 @@ def main() -> int:
                    "train_classifier": train_cls, "nll": nll,
                    "sample_trained": sample_trained,
                    "train_parity": train_parity,
+                   "gen_sites": {part: {k: {str(s): n for s, n in v.items()}
+                                        for k, v in d.items()}
+                                 for part, d in gen_sites.items()},
+                   "gen_attention_rows": gen_attn_rows,
+                   "gen_group_norm_rows": gen_gn_rows,
+                   "ldm_parity": ldm_parity, "txt2img": txt2img,
+                   "img2img": img2img, "ldm_sample": ldm_sample,
+                   "inpaint": inpaint,
                    "phase_marks": marks, "ptxas_pipelined": ptxas,
                    "kernels_line": line,
                    "total_s": time.time() - t_start}, f, indent=1)

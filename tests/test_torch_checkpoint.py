@@ -19,15 +19,17 @@ import pytest
 import torch
 
 from autodiffusion_tpu.models.convert import convert_unet, load_torch_state_dict
-from autodiffusion_tpu.utils.checkpoint import save_tree
+from autodiffusion_tpu.utils.checkpoint import load_tree, save_tree
 from autodiffusion_tpu_torch.models.unet import EncoderUNetModel, UNetModel
 from autodiffusion_tpu_torch.train import create_train_state, resume_train_state
 from autodiffusion_tpu_torch.utils import logger
 from autodiffusion_tpu_torch.utils.checkpoint import (
     MsgpackDecodeError, find_latest_checkpoint, flax_state_dict,
-    load_msgpack, parse_step_from_filename, save_checkpoint)
+    load_msgpack, msgpack_bytes, parse_step_from_filename, save_checkpoint,
+    save_msgpack)
 from test_torch_models import (COMMON, IMG, TOL, _classifier_pair, _inputs,
                                _jax_unet, _port_unet, _unet_pair)
+from autodiffusion_tpu_torch.utils import checkpoint as ckpt_mod
 from test_torch_package import one_torch_thread  # noqa: F401
 
 
@@ -99,6 +101,60 @@ def test_msgpack_reader_decodes_what_flax_writes(tmp_path, small_chunks):
     assert got["bf16"].dtype == np.float32
 
 
+def _writer_tree():
+    """Every form the writer takes: arrays of several dtypes and ranks
+    (0-d, empty, non-contiguous, one over the test's chunk size), numpy
+    scalars, ints at every msgpack width, floats, bools, None, strings
+    past 31 and 255 bytes, lists, a map past 15 keys, keys out of order."""
+    rng = np.random.RandomState(0)
+    return {"params": {
+        "w": rng.randn(3, 100).astype(np.float32),
+        "wt": rng.randn(4, 6).astype(np.float32).T,
+        "i": np.arange(5, dtype=np.int64), "u8": np.arange(7, dtype=np.uint8),
+        "h": np.linspace(-2, 2, 7).astype(np.float16),
+        "d": rng.randn(2, 2), "zero_d": np.array(3, np.int32),
+        "empty": np.zeros((0, 3), np.float32),
+        "many": {f"k{j}": np.float32(j) for j in range(20)}},
+        "count": np.int32(7),
+        "scalars": {"ints": [0, 127, 128, 255, 256, 65535, 65536,
+                             2 ** 32 - 1, 2 ** 32, 2 ** 63, -1, -32, -33,
+                             -128, -129, -32768, -32769, -2 ** 31 - 1],
+                    "f": 0.1, "t": True, "f0": False, "none": None,
+                    "s": "x" * 40, "s2": "y" * 300, "tuple": (1, "a")},
+        "b_last": {"z": 1, "a": 2}}
+
+
+def test_msgpack_writer_is_flax_to_bytes(monkeypatch):
+    """The port's bytes are the JAX package's ``save_tree``'s for the same
+    tree, chunked arrays included (a 256-byte chunk size on both
+    sides)."""
+    monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 256)
+    monkeypatch.setattr(ckpt_mod, "MAX_CHUNK_SIZE", 256)
+    tree = _writer_tree()
+    # save_tree's encoding: flax's to_bytes of the device-fetched tree
+    want = flax.serialization.to_bytes(jax.device_get(tree))
+    got = msgpack_bytes(tree)
+    assert b"__msgpack_chunked_array__" in got
+    assert got == want
+
+
+def test_port_writes_what_jax_load_tree_reads(tmp_path, monkeypatch):
+    """A UNet param tree written by the port loads with the JAX package's
+    load_tree, bit for bit, and the port's reader gives it back."""
+    monkeypatch.setattr(ckpt_mod, "MAX_CHUNK_SIZE", 4096)
+    _, params, _ = _unet_pair(seed=8)
+    tree = jax.device_get(params)
+    path = str(tmp_path / "m.msgpack")
+    save_msgpack(path, tree)
+    with open(path, "rb") as f:
+        assert b"__msgpack_chunked_array__" in f.read()
+    template = jax.tree_util.tree_map(np.zeros_like, tree)
+    for got in (load_tree(path, template), load_msgpack(path)):
+        jax.tree_util.tree_map(
+            lambda a, b: np.testing.assert_array_equal(np.asarray(a), b),
+            got, tree)
+
+
 @pytest.mark.parametrize("data,match", [
     (b"\xc1", "starts no msgpack object"),
     (b"\x81\xa1a", "truncated"),
@@ -145,23 +201,43 @@ def test_find_latest_checkpoint_over_both_formats(tmp_path):
 def test_resume_from_a_jax_checkpoint_directory(tmp_path, capsys):
     """``adt train``'s directory (model / ema / opt msgpack): the model and
     the EMA copy load through the converters, the step comes from the file
-    name, and the optimizer stays fresh with a warning."""
+    name, and AdamW takes optax's state (the moments, the update count and
+    with it the anneal's position); without the opt file the optimizer
+    stays fresh with a warning."""
+    from autodiffusion_tpu.train.state import create_train_state as jax_state
+
     _, params, _ = _unet_pair(seed=5)
     _, ema, _ = _unet_pair(seed=6)
     save_tree(str(tmp_path / "model000003.msgpack"), params)
     save_tree(str(tmp_path / "ema_0.9999_000003.msgpack"), ema)
-    save_tree(str(tmp_path / "opt000003.msgpack"), {"count": np.int32(3)})
+    # optax's state three updates in: counts 3, both moments 0.5
+    opt = jax.tree_util.tree_map(
+        lambda a: a + 3 if a.dtype == jnp.int32 else a + 0.5,
+        jax_state(params, lr=1e-4, lr_anneal_steps=10).opt_state)
+    save_tree(str(tmp_path / "opt000003.msgpack"), opt)
     logger.Logger.CURRENT = None
     pm = _fresh_unet()
-    state = create_train_state(pm, ema_rates=(0.9999,))
+    state = create_train_state(pm, lr=1e-4, ema_rates=(0.9999,),
+                               lr_anneal_steps=10)
     resume_train_state(state, str(tmp_path))
     out = capsys.readouterr().out
     assert state.step == 3
-    assert "opt000003.msgpack holds optax's state" in out
-    assert state.updates() == 0 and not state.optimizer.state
+    assert "opt000003" not in out
+    assert state.updates() == 3
+    assert state.current_lr() == pytest.approx(1e-4 * (1 - 3 / 10))
+    for p in state.params:
+        st = state.optimizer.state[p]
+        assert float(st["step"]) == 3.0
+        assert (st["exp_avg"] == 0.5).all() and (st["exp_avg_sq"] == 0.5).all()
     want = _unet_pair(seed=5)[2].state_dict()
     for k, v in pm.state_dict().items():
         torch.testing.assert_close(v, want[k], rtol=0, atol=0)
     want_ema = _unet_pair(seed=6)[2].state_dict()
     for k, v in state.ema_state_dict(0).items():
         torch.testing.assert_close(v, want_ema[k], rtol=0, atol=0)
+    os.remove(tmp_path / "opt000003.msgpack")
+    state = create_train_state(_fresh_unet(), ema_rates=(0.9999,))
+    resume_train_state(state, str(tmp_path))
+    assert "opt000003.msgpack not found, keeping fresh optimizer" in \
+        capsys.readouterr().out
+    assert state.updates() == 0 and not state.optimizer.state

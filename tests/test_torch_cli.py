@@ -46,7 +46,12 @@ def _fresh_port_logger():
                                     ("train", "cmd_train"),
                                     ("train-classifier",
                                      "cmd_train_classifier"),
-                                    ("nll", "cmd_nll")])
+                                    ("nll", "cmd_nll"),
+                                    ("txt2img", "cmd_txt2img"),
+                                    ("img2img", "cmd_img2img"),
+                                    ("ldm-sample", "cmd_ldm_sample"),
+                                    ("inpaint", "cmd_inpaint"),
+                                    ("convert", "cmd_convert")])
 def test_defaults_equal_the_jax_cli(monkeypatch, cmd, fn):
     seen = {}
     monkeypatch.setattr(jax_cli, fn, lambda args: seen.update(vars(args)) or 0)

@@ -230,6 +230,29 @@ def test_forward_new_head_dims_match_twin(cuda_device, dtype, t, s, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,t", [(56, 1024), (84, 256), (112, 64),
+                                 (16, 4096), (24, 1024), (32, 256)])
+def test_ldm_adm_layout_sites_match_twin(cuda_device, dtype, n, t):
+    """flash_fwd on the ADM blocks' [B H, T, D] layout at the LDM UNets'
+    D = 32 sites: ldm-sample's 4 samples at T 1024 / 256 / 64 with 14 /
+    21 / 28 heads, inpaint's one at T 4096 / 1024 / 256 with 16 / 24 / 32;
+    a run with one 64-key tile left out breaks the limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v = (_randn(gen, cuda_device, dtype, n, t, 32) for _ in range(3))
+    reset_launch_counts()
+    o, lse = flash_fwd(q, k, v)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(flash_fwd=1)
+    _assert_within_limit(o, o_ref, dtype, "o")
+    _assert_within_limit(lse, lse_ref, torch.float32, "lse")
+    if t > 64:
+        dropped = flash_fwd(q, k[:, 64:], v[:, 64:])[0]
+        assert _limit_ratio(dropped, o_ref, dtype) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_forward_at_the_vae_site(cuda_device, dtype):
     """flash_fwd_wide at the VAE mid-block's T = S = 4096 (batch 1): every
     key tile and both consumers' halves of the contraction; a run with one
@@ -306,7 +329,11 @@ def test_packed_forward_matches_twin(cuda_device, dtype, b, heads, d, t, s):
     # layout) at the ring's edges: one key tile, S = 1000, ragged T
     (2, 5, 64, 100, 70), (1, 4, 32, 64, 64), (2, 2, 16, 50, 40),
     (2, 8, 16, 1000, 1000), (2, 3, 16, 257, 77), (2, 4, 32, 1000, 77),
-    (2, 4, 32, 333, 1000), (3, 5, 64, 333, 1000), (2, 5, 64, 1000, 77)])
+    (2, 4, 32, 333, 1000), (3, 5, 64, 333, 1000), (2, 5, 64, 1000, 77),
+    # the class-conditional LDM's D = 32 sites: cross-attention over one
+    # class token (S = 1) and over 77, and its self-attention
+    (4, 6, 32, 1024, 1), (4, 18, 32, 256, 1), (4, 30, 32, 64, 1),
+    (4, 12, 32, 1024, 77), (4, 6, 32, 1024, 1024)])
 def test_forward_token_major_matches_twin(cuda_device, dtype, b, heads, d, t,
                                           s):
     """flash_fwd on the token-major [B, T, H * D] layout (the SD D = 80
@@ -412,7 +439,9 @@ def test_group_norm_kernels_match_twins(cuda_device, dtype, shape, groups,
 @pytest.mark.parametrize("shape,groups,film,silu", [
     ((2, 128, 512, 512), 32, False, True), ((1, 320, 64, 64), 32, True, False),
     ((2, 64, 33, 31), 32, True, True), ((3, 40, 5, 7), 8, False, True),
-    ((2, 96, 7), 32, True, False), ((2, 64, 129, 255), 16, False, True)])
+    ((2, 96, 7), 32, True, False), ((2, 64, 129, 255), 16, False, True),
+    # the VQ-f4 decoder's top level: C 128 at 256 x 256 (ldm-sample)
+    ((4, 128, 256, 256), 32, False, True)])
 def test_group_norm_forward_long_and_odd_runs(cuda_device, dtype, shape,
                                               groups, film, silu):
     """The GroupNorm forward where runs are too long for shared memory and

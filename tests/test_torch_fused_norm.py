@@ -306,6 +306,29 @@ def test_gate_reads_environment(monkeypatch):
     assert not fused_norm_available((2, 64, 1, 1), 32)   # one position
 
 
+def test_gate_defaults_on_for_cuda_tensors(monkeypatch):
+    """GroupNorm32's CUDA path is the fused kernels unless
+    ADT_FUSED_NORM=0 (the A/B's off arm); CPU tensors keep the plain
+    chain unless ADT_FUSED_NORM=1."""
+    monkeypatch.delenv("ADT_FUSED_NORM", raising=False)
+    assert fused_norm_available((2, 64, 8, 8), 32, "cuda")
+    assert not fused_norm_available((2, 64, 8, 8), 32, "cpu")
+    assert not fused_norm_available((2, 48, 8, 8), 32, "cuda")
+    monkeypatch.setenv("ADT_FUSED_NORM", "0")
+    assert not fused_norm_available((2, 64, 8, 8), 32, "cuda")
+    monkeypatch.setenv("ADT_FUSED_NORM", "1")
+    assert fused_norm_available((2, 64, 8, 8), 32, "cuda")
+    assert fused_norm_available((2, 64, 8, 8), 32, "cpu")
+
+
+def test_groupnorm32_asks_the_gate_with_its_device(monkeypatch):
+    seen = []
+    monkeypatch.setattr(port_nn, "fused_norm_available",
+                        lambda shape, g, dev: seen.append(dev) or False)
+    port_nn.GroupNorm32(64)(torch.randn(2, 64, 4, 4))
+    assert seen == ["cpu"]
+
+
 def test_cpu_wrappers_run_twins_without_counting():
     reset_launch_counts()
     x, gamma, beta, scale, shift, g = _inputs((2, 9, 64), 6)

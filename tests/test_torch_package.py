@@ -154,6 +154,18 @@ def _entry_points():
                                          "missing_dir"),
         "cli.main nll": cli("nll", "--model_path", "m.pt", "--data_dir",
                             "missing_dir"),
+        "cli.main txt2img": cli("txt2img", "--ckpt", "sd.ckpt", "--prompt",
+                                "a cat", "--clip_vocab", "v.json",
+                                "--clip_merges", "m.txt"),
+        "cli.main img2img": cli("img2img", "--ckpt", "sd.ckpt", "--prompt",
+                                "a cat", "--init_img", "i.png"),
+        "cli.main ldm-sample": cli("ldm-sample", "--ckpt", "ldm.ckpt"),
+        "cli.main ldm-sample cin": cli("ldm-sample", "--ckpt", "ldm.ckpt",
+                                       "--num_classes", "1000"),
+        "cli.main inpaint": cli("inpaint", "--ckpt", "ldm.ckpt", "--image",
+                                "i.png", "--mask", "i_mask.png"),
+        "cli.main convert": cli("convert", "--torch_path", "sd.ckpt",
+                                "--out", "sd_dir", "--preset", "sd"),
     }
 
 
@@ -164,7 +176,10 @@ def _entry_points():
                                   "cli.main sample", "cli.main evaluate",
                                   "cli.main ref-stats", "cli.main train",
                                   "cli.main train-classifier",
-                                  "cli.main nll"])
+                                  "cli.main nll", "cli.main txt2img",
+                                  "cli.main img2img", "cli.main ldm-sample",
+                                  "cli.main ldm-sample cin",
+                                  "cli.main inpaint", "cli.main convert"])
 def test_entry_points_raise_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -185,7 +200,8 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
     with pytest.raises(FileNotFoundError):
         eps["cli.main search-sd"](device="cpu")
     for cmd in ("sample", "evaluate", "ref-stats", "train",
-                "train-classifier", "nll"):
+                "train-classifier", "nll", "txt2img", "img2img",
+                "ldm-sample", "ldm-sample cin", "inpaint", "convert"):
         with pytest.raises(FileNotFoundError):
             eps[f"cli.main {cmd}"](device="cpu")
 

@@ -20,6 +20,7 @@ Tolerances:
   * the draws of the t-samplers and the OFA table functions: equal.
 """
 
+import os
 import random
 
 import jax
@@ -328,6 +329,81 @@ def test_train_step_matches_jax(unet_pair):
                 for a, b in zip(jax.tree_util.tree_leaves(start),
                                 jax.tree_util.tree_leaves(jstate.params)))
     assert moved > 100 * tol
+
+
+@pytest.mark.parametrize("grad_clip", [None, 1.0])
+def test_resume_from_adt_train_files_continues_jax(unet_pair, tmp_path,
+                                                   grad_clip):
+    """One JAX update (lr anneal over 4, weight decay, EMA, microbatches
+    2; optionally optax's clipping), saved by the JAX TrainLoop.save as
+    ``adt train`` writes it (model, ema and opt .msgpack); the port
+    resumes from the directory, with AdamW's moments and step equal to
+    optax's mu, nu and count and the learning rate one step into the
+    anneal, and its next update equals JAX's next (the train step's
+    tolerances above)."""
+    from autodiffusion_tpu.train.loop import TrainLoop as JaxTrainLoop
+    from autodiffusion_tpu_torch.train import resume_train_state
+
+    jm, params = unet_pair
+    lr, anneal, rates = 1e-3, 4, (0.9,)
+    jstate = jax_state(params, lr=lr, weight_decay=0.05, ema_rates=rates,
+                       grad_clip=grad_clip, lr_anneal_steps=anneal)
+    jstep = jax.jit(jax_train_step(jm.apply, microbatches=2,
+                                   class_cond=True))
+    tj, tp = jax_base_tables("cosine", 1000), build_base_tables("cosine",
+                                                                1000)
+
+    def batch(k):
+        x, y, t, w = _batch(20 + k, 4)
+        key = jax.random.key(100 + k)
+        noise = np.concatenate([
+            _nchw(jax.random.normal(r, (2, IMG, IMG, 3)))
+            for r in jax.random.split(key, 2)])
+        return x, y, t, w, key, noise
+
+    x, y, t, w, key, _ = batch(0)
+    jstate, _ = jstep(jstate, tj, {"x": _nhwc(x), "y": jnp.asarray(y)},
+                      jnp.asarray(t), jnp.asarray(w), key)
+    JaxTrainLoop(state=jstate, step_fn=jstep, data=iter(()), batch_size=4,
+                 save_dir=str(tmp_path)).save()
+    assert sorted(os.listdir(tmp_path)) == [
+        "ema_0.9_000001.msgpack", "model000001.msgpack",
+        "opt000001.msgpack"]
+    pm = _port_unet(params)
+    pstate = create_train_state(pm, lr=lr, weight_decay=0.05,
+                                ema_rates=rates, grad_clip=grad_clip,
+                                lr_anneal_steps=anneal)
+    resume_train_state(pstate, str(tmp_path))
+    assert pstate.step == pstate.updates() == 1
+    assert pstate.current_lr() == pytest.approx(lr * (1 - 1 / anneal))
+    adam = jax.tree_util.tree_leaves(
+        jstate.opt_state, is_leaf=lambda n: hasattr(n, "mu"))
+    adam = [n for n in adam if hasattr(n, "mu")][0]
+    for field, name in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        got = convert_unet({n: pstate.optimizer.state[p][name].numpy()
+                            for n, p in pm.named_parameters()}, jm)
+        jax.tree_util.tree_map(
+            lambda a, b: np.testing.assert_array_equal(a, np.asarray(b)),
+            got, getattr(adam, field))
+    x, y, t, w, key, noise = batch(1)
+    jstate, jm_metrics = jstep(
+        jstate, tj, {"x": _nhwc(x), "y": jnp.asarray(y)}, jnp.asarray(t),
+        jnp.asarray(w), key)
+    _, pm_metrics = make_train_step(pm, microbatches=2, class_cond=True)(
+        pstate, tp, {"x": torch.from_numpy(x), "y": torch.from_numpy(y)},
+        torch.from_numpy(t), torch.from_numpy(w),
+        noise=torch.from_numpy(noise))
+    for name, v in jm_metrics.items():
+        np.testing.assert_allclose(pm_metrics[name].numpy(), np.asarray(v),
+                                   rtol=2e-4, atol=1e-6, err_msg=name)
+    assert pstate.step == int(jstate.step) == 2
+    assert pstate.current_lr() == pytest.approx(lr * (1 - 2 / anneal))
+    sd = {n: p.detach().numpy() for n, p in pm.named_parameters()}
+    for got, want in ((convert_unet(sd, jm), jstate.params),
+                      (convert_unet({n: e.numpy() for n, e in
+                                     pstate.ema_state_dict(0).items()}, jm),
+                       jstate.ema_params[0])):
+        _assert_params_close(got, want, 2e-3 * lr, lr)
 
 
 def test_train_step_refuses_a_ragged_microbatch(unet_pair):
