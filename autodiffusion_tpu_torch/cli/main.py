@@ -26,11 +26,17 @@ raises unless ``--device cpu`` is given):
               inpaint.py)
   convert     a torch checkpoint -> the JAX package's msgpack params
               (a CompVis SD .ckpt -> the three-tower params directory)
+  sr-sample   super-resolution sampling of low-res base samples
+              (scripts/super_res_sample.py)
   train       train or fine-tune an ADM UNet (train_util.py TrainLoop and
-              its OFA variants)
+              its OFA variants), or with --sr_small_size a SuperResModel
+              on (low, high) pairs (scripts/super_res_train.py)
   train-classifier  the noisy guidance classifier
               (scripts/classifier_train.py)
   nll         bits/dim over a dataset (scripts/image_nll.py)
+  selftest    the FID pipeline's checks against a pytorch_fid Inception
+              ``.pth`` (digest, strict loads, features against an
+              independent torch mirror, FID against float64 numpy / scipy)
 
 Checkpoints are guided-diffusion ``.pt`` state dicts (what ``train``
 writes), the JAX package's ``.msgpack`` param trees (what ``adt train``
@@ -59,7 +65,8 @@ from ..utils import logger
 from ..utils.config import add_dict_to_argparser
 
 __all__ = ["main", "cmd_search", "cmd_sample", "cmd_evaluate",
-           "cmd_ref_stats", "cmd_search_sd", "cmd_train",
+           "cmd_ref_stats", "cmd_search_sd", "cmd_train", "cmd_sr_sample",
+           "cmd_selftest",
            "cmd_train_classifier", "cmd_nll", "cmd_txt2img", "cmd_img2img",
            "cmd_ldm_sample", "cmd_inpaint", "cmd_convert",
            "img2img_latents", "inpaint_condition", "inpaint_composite"]
@@ -315,6 +322,87 @@ def cmd_sample(args) -> int:
     return 0
 
 
+def _sr_sample_defaults():
+    # the JAX CLI's sr-sample flags (autodiffusion_tpu/cli/main.py:1235-1241)
+    return dict(
+        model_path="", base_samples="", large_size=256, small_size=64,
+        num_channels=192, num_res_blocks=2, channel_mult="", learn_sigma=True,
+        noise_schedule="linear", class_cond=True, use_ddim=True,
+        num_samples=16, batch_size=16, seed=0, out="", use_bf16=True,
+        device="cuda",
+    )
+
+
+def cmd_sr_sample(args) -> int:
+    """Super-resolution sampling (scripts/super_res_sample.py): each
+    batch of --batch_size low-res base samples (the first array of
+    --base_samples, uint8 [N, h, w, 3]; labels from its arr_1, else class
+    0) conditions a SuperResModel at --large_size over the model's full
+    schedule, DDIM or ancestral; writes arr_0 uint8 [N, L, L, 3] to --out.
+    The weights come from a guided-diffusion ``.pt`` (the plain UNet's
+    keys) or the ``.msgpack`` of ``adt train --sr_small_size``; without
+    --model_path the model keeps its seeded initialisation."""
+    import torch
+
+    from ..models import ModelConfig, create_sr_model, create_tables
+    from ..samplers import ModelVarType, ddim_sample_loop, p_sample_loop
+    from ..search import to_uint8
+
+    dev = resolve_device(args.device)
+    if not args.base_samples:
+        raise ValueError("sr-sample needs --base_samples (an .npz of uint8 "
+                         "[N, h, w, 3] images)")
+    cfg = ModelConfig(image_size=args.large_size,
+                      num_channels=args.num_channels,
+                      num_res_blocks=args.num_res_blocks,
+                      channel_mult=args.channel_mult,
+                      learn_sigma=args.learn_sigma,
+                      noise_schedule=args.noise_schedule,
+                      class_cond=args.class_cond, use_bf16=args.use_bf16)
+    with np.load(args.base_samples) as z:
+        low = z[z.files[0]][: args.num_samples]
+        labels = z["arr_1"] if "arr_1" in z.files else None
+    torch.manual_seed(args.seed)
+    sr = create_sr_model(cfg, large_size=args.large_size,
+                         small_size=args.small_size,
+                         device=dev).requires_grad_(False)
+    if args.model_path:
+        _load_state(sr, args.model_path)
+    n = low.shape[0]
+    low = torch.from_numpy(low.astype(np.float32) / 127.5 - 1.0) \
+        .permute(0, 3, 1, 2).contiguous().to(dev)
+    y = None
+    if cfg.class_cond:
+        y = (torch.from_numpy(np.asarray(labels[:n])).long()
+             if labels is not None else torch.zeros(n, dtype=torch.long))
+        y = y.to(dev)
+    tables = create_tables(cfg).to(dev)
+    loop = ddim_sample_loop if args.use_ddim else p_sample_loop
+    var_type = (ModelVarType.LEARNED_RANGE if cfg.learn_sigma
+                else ModelVarType.FIXED_LARGE)
+    bs = min(args.batch_size, n)
+    outs = []
+    t0 = time.time()
+    for j in range(0, n, bs):
+        low_j = low[j:j + bs]
+        y_j = None if y is None else y[j:j + bs]
+
+        def model_fn(x, t, i, low_j=low_j, y_j=y_j):
+            return sr(x, t, low_j, y_j)
+
+        gen = torch.Generator(device=dev).manual_seed(args.seed + j)
+        x0 = loop(model_fn, (low_j.shape[0], 3, args.large_size,
+                             args.large_size), tables, device=dev,
+                  generator=gen, var_type=var_type)
+        outs.append(to_uint8(x0).cpu().numpy())
+        logger.log(f"super-resolved {j + low_j.shape[0]}/{n} "
+                   f"({time.time() - t0:.3f} s)")
+    out = args.out or "sr_samples.npz"
+    np.savez(out, arr_0=np.concatenate(outs))
+    print(f"saved {n} super-resolved samples to {out}")
+    return 0
+
+
 def _first_array(path: str) -> np.ndarray:
     with np.load(path) as z:
         return z[z.files[0]]
@@ -457,18 +545,39 @@ def cmd_search_sd(args) -> int:
     return 0
 
 
+def _derive_low_res(it, scale: int):
+    """SR conditioning by exact area downsampling of each batch (upstream
+    guided-diffusion's load_superres_data F.interpolate(mode="area"), a
+    block mean at an integer scale): adds "low_res" [B, H / scale, W /
+    scale, C] to each numpy batch."""
+    for b in it:
+        x = b["x"]
+        n, h, w, c = x.shape
+        b = dict(b)
+        b["low_res"] = x.reshape(n, h // scale, scale,
+                                 w // scale, scale, c).mean(axis=(2, 4))
+        yield b
+
+
 def _train_data_iter(data_dir: str, *, batch_size: int, image_size: int,
-                     class_cond: bool, seed: int = 0):
+                     class_cond: bool, seed: int = 0, lq_dir=None,
+                     small_size=None):
     """Training batches (numpy [B, H, W, C] in [-1, 1]) from an image
-    folder (data/images.py ``load_data``) or from a uint8 [N, H, W, C]
-    ``.npy`` served by the C++ loader (data/native_loader.py), whose class
-    labels for a class-conditional run come from a sibling
+    folder (data/images.py ``load_data``, with ``lq_dir`` its low-res
+    partners as "low_res" [B, small_size, small_size, C]) or from a uint8
+    [N, H, W, C] ``.npy`` served by the C++ loader (data/native_loader.py),
+    whose class labels for a class-conditional run come from a sibling
     ``<stem>_labels.npy``."""
     from ..data import load_data
 
     if not data_dir:
         raise ValueError("unspecified data directory (--data_dir)")
     if data_dir.endswith(".npy"):
+        if lq_dir:
+            raise ValueError("--lq_dir pairs need an image folder "
+                             "--data_dir (the npy bulk loader has no "
+                             "paired-file mode; omit --lq_dir to derive "
+                             "low_res by area downsampling)")
         from ..data.native_loader import NativeNpyLoader
 
         labels = data_dir[:-len(".npy")] + "_labels.npy"
@@ -480,7 +589,8 @@ def _train_data_iter(data_dir: str, *, batch_size: int, image_size: int,
                                batch_size=batch_size, crop=image_size,
                                seed=seed)
     return load_data(data_dir=data_dir, batch_size=batch_size,
-                     image_size=image_size, class_cond=class_cond, seed=seed)
+                     image_size=image_size, class_cond=class_cond, seed=seed,
+                     lq_dir=lq_dir, small_size=small_size)
 
 
 def _train_defaults():
@@ -499,14 +609,42 @@ def _train_defaults():
     )
 
 
-def cmd_train(args) -> int:
-    """Train or fine-tune an ADM UNet (scripts/image_train.py and
-    train_util.py's TrainLoop, with the OFA respacing curricula). The
-    model trains in train mode (dropout on); bf16 compute over float32
-    parameters under --use_bf16."""
+def _seed_sr_from_base(model, path: str) -> bool:
+    """super_res_train.py:38-49: a base model's ``.pt`` (3 input channels)
+    seeds a SuperResModel, its input conv zero-padded to the 6 channels
+    and a 6-channel output head cut to 3 where the SR model does not learn
+    sigma. True when ``path`` was such a file (then loaded), False for a
+    SuperResModel checkpoint of its own (left to the resume)."""
     import torch
 
-    from ..models import create_model, create_tables
+    from ..utils.checkpoint import load_checkpoint
+
+    sd = load_checkpoint(path)
+    w = sd.get("input_blocks.0.0.weight")
+    if w is None or w.shape[1] != 3:
+        return False
+    sd["input_blocks.0.0.weight"] = torch.cat([w, torch.zeros_like(w)], 1)
+    logger.log("input shape change: "
+               f"{tuple(sd['input_blocks.0.0.weight'].shape)}")
+    out = model.out[2].weight.shape[0]
+    if sd["out.2.weight"].shape[0] != out:
+        sd["out.2.weight"] = sd["out.2.weight"][:out]
+        sd["out.2.bias"] = sd["out.2.bias"][:out]
+    model.load_state_dict(sd, strict=True)
+    return True
+
+
+def cmd_train(args) -> int:
+    """Train or fine-tune an ADM UNet (scripts/image_train.py and
+    train_util.py's TrainLoop, with the OFA respacing curricula), or with
+    --sr_small_size a SuperResModel at --image_size on (low, high) pairs
+    (scripts/super_res_train.py): low_res from --lq_dir partner files, or
+    derived from each batch by area downsampling. The model trains in
+    train mode (dropout on); bf16 compute over float32 parameters under
+    --use_bf16."""
+    import torch
+
+    from ..models import create_model, create_sr_model, create_tables
     from ..samplers import ModelVarType
     from ..train import (TrainLoop, create_named_schedule_sampler,
                          create_train_state, make_train_step,
@@ -514,25 +652,37 @@ def cmd_train(args) -> int:
                          resume_train_state)
 
     dev = resolve_device(args.device)
-    if args.sr_small_size > 0:
-        raise ValueError("--sr_small_size trains a SuperResModel, which the "
-                         "port does not have yet (ROADMAP queue 1 item 11)")
     if args.ofa_mode not in ("", "random_section", "random_select"):
         raise ValueError(f"unknown --ofa_mode {args.ofa_mode!r} (random_"
                          "section or random_select)")
     cfg = _model_config(args, dropout=args.dropout)
-    data = _train_data_iter(args.data_dir, batch_size=args.batch_size,
-                            image_size=cfg.image_size,
-                            class_cond=cfg.class_cond, seed=args.seed)
+    sr_mode = args.sr_small_size > 0
+    if sr_mode and cfg.image_size % args.sr_small_size:
+        raise ValueError(
+            f"--image_size {cfg.image_size} must be a multiple of "
+            f"--sr_small_size {args.sr_small_size}")
+    data = _train_data_iter(
+        args.data_dir, batch_size=args.batch_size, image_size=cfg.image_size,
+        class_cond=cfg.class_cond, seed=args.seed,
+        lq_dir=(args.lq_dir or None) if sr_mode else None,
+        small_size=args.sr_small_size if sr_mode else None)
+    if sr_mode and not args.lq_dir:
+        data = _derive_low_res(data, cfg.image_size // args.sr_small_size)
     logger.configure(args.save_dir or None)
     torch.manual_seed(args.seed)
-    model = create_model(cfg, device=dev).train()
+    model = (create_sr_model(cfg, large_size=cfg.image_size,
+                             small_size=args.sr_small_size, device=dev)
+             if sr_mode else create_model(cfg, device=dev)).train()
+    ckpt = args.resume_checkpoint
+    # a base model's .pt seeds an SR model (before the EMA copies are made)
+    seeded = bool(sr_mode and ckpt.endswith(".pt")
+                  and _seed_sr_from_base(model, ckpt))
     state = create_train_state(
         model, lr=args.lr, weight_decay=args.weight_decay,
         ema_rates=tuple(float(r) for r in str(args.ema_rate).split(",")),
         lr_anneal_steps=args.lr_anneal_steps)
-    if args.resume_checkpoint:
-        resume_train_state(state, args.resume_checkpoint)
+    if ckpt and not seeded:
+        resume_train_state(state, ckpt)
     # learn_sigma False -> FIXED_LARGE, the reference default
     # (script_util.py:415-453 create_gaussian_diffusion)
     var_type = (ModelVarType.LEARNED_RANGE if cfg.learn_sigma
@@ -1114,6 +1264,22 @@ def cmd_inpaint(args) -> int:
     return 0
 
 
+def cmd_selftest(args) -> int:
+    """The FID pipeline's checks against a pytorch_fid Inception ``.pth``
+    (fid/selftest.py): one JSON line; exit 0 iff every consistency check
+    passed ("certified" also needs the genuine file's digest)."""
+    from ..fid.selftest import run_selftest
+
+    out = run_selftest(
+        args.inception_path, ref_batch=args.ref_batch or None,
+        ref_stats=args.ref_stats or None,
+        expected_fid=None if args.expected_fid < 0 else args.expected_fid,
+        tol=args.tol, batch_size=args.batch_size, n_fixture=args.n_fixture,
+        seed=args.seed, device=resolve_device(args.device))
+    print(json.dumps(out))
+    return 0 if out["passed"] else 1
+
+
 def cmd_convert(args) -> int:
     """A torch checkpoint -> the JAX package's msgpack params (``adt
     convert``'s files, byte for byte): --preset sd a CompVis SD .ckpt ->
@@ -1168,6 +1334,9 @@ def build_parser() -> argparse.ArgumentParser:
                                   spatial_out="", inception_path="",
                                   batch_size=100, device="cuda"))
     p.set_defaults(fn=cmd_ref_stats)
+    p = sub.add_parser("sr-sample", help="super-resolution sampling")
+    add_dict_to_argparser(p, _sr_sample_defaults())
+    p.set_defaults(fn=cmd_sr_sample)
     p = sub.add_parser("search-sd", help="Stable Diffusion latent search")
     add_dict_to_argparser(p, _search_sd_defaults())
     p.set_defaults(fn=cmd_search_sd)
@@ -1199,6 +1368,14 @@ def build_parser() -> argparse.ArgumentParser:
     add_dict_to_argparser(p, dict(torch_path="", out="", preset="adm64",
                                   device="cuda"))
     p.set_defaults(fn=cmd_convert)
+    p = sub.add_parser(
+        "selftest",
+        help="certify the FID pipeline against real pt_inception weights")
+    add_dict_to_argparser(p, dict(inception_path="", ref_batch="",
+                                  ref_stats="", expected_fid=-1.0, tol=0.5,
+                                  batch_size=32, n_fixture=32, seed=0,
+                                  device="cuda"))
+    p.set_defaults(fn=cmd_selftest)
     return parser
 
 

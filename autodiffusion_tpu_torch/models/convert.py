@@ -273,11 +273,19 @@ def clip_text_state_dict_from_flax(params: Mapping) -> StateDict:
 
 
 def classifier_state_dict_from_flax(params: Mapping) -> StateDict:
-    """A JAX ``EncoderUNetModel`` (attention or adaptive pool) -> the
-    port's state dict."""
+    """A JAX ``EncoderUNetModel`` (any of its four pools) -> the port's
+    state dict."""
     p = params.get("params", params)
     sd: StateDict = {}
     _trunk(sd, p)
+    if "out_fc0" in p:                         # the spatial pools
+        _linear(sd, "out.0", p["out_fc0"])
+        if "out_norm" in p:                    # spatial_v2
+            _gn(sd, "out.1", p["out_norm"])
+            _linear(sd, "out.3", p["out_fc1"])
+        else:
+            _linear(sd, "out.2", p["out_fc1"])
+        return sd
     _gn(sd, "out.0", p["out_norm"])
     if "out_conv" in p:                        # the adaptive pool
         _conv(sd, "out.3", p["out_conv"])

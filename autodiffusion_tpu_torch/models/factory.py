@@ -25,10 +25,11 @@ from .. import compute_dtype, resolve_device
 from ..schedules import build_base_tables, build_tables
 from .clip_text import CLIPTextConfig, CLIPTextEncoder
 from .sd_unet import SDUNetModel
-from .unet import EncoderUNetModel, UNetModel
+from .unet import EncoderUNetModel, SuperResModel, UNetModel
 from .vae import AutoencoderKL, VQModelInterface
 
 __all__ = ["ModelConfig", "ClassifierConfig", "create_model",
+           "create_sr_model",
            "create_classifier", "create_tables", "random_init_",
            "parse_channel_mult", "attention_ds", "NUM_CLASSES",
            "SD_V1_UNET", "SD_V1_VAE", "create_sd_models",
@@ -137,6 +138,35 @@ def create_model(cfg: ModelConfig, device=None) -> UNetModel:
             num_heads=cfg.num_heads,
             num_head_channels=cfg.num_head_channels,
             num_heads_upsample=cfg.num_heads_upsample,
+            use_scale_shift_norm=cfg.use_scale_shift_norm,
+            resblock_updown=cfg.resblock_updown,
+            use_new_attention_order=cfg.use_new_attention_order,
+            dtype=compute_dtype(cfg.use_bf16))
+    return model.eval()
+
+
+def create_sr_model(cfg: ModelConfig, large_size: int = 256,
+                    small_size: int = 64, device=None) -> SuperResModel:
+    """The super-resolution UNet of ``cfg`` at ``large_size`` on
+    ``device`` (cuda by default), in eval mode: sr_create_model_and_
+    diffusion's model (script_util.py:298-414) as the JAX package's
+    ``create_sr_model`` builds it, whose input concatenates the upsampled
+    ``small_size`` conditioning (6 input channels). ``num_heads_upsample``
+    is not passed on, as in the JAX factory."""
+    del small_size  # the model takes any low-res size; kept for the API
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = SuperResModel(
+            in_channels=3,
+            model_channels=cfg.num_channels,
+            out_channels=6 if cfg.learn_sigma else 3,
+            num_res_blocks=cfg.num_res_blocks,
+            attention_ds=attention_ds(large_size, cfg.attention_resolutions),
+            dropout=cfg.dropout,
+            channel_mult=parse_channel_mult(large_size, cfg.channel_mult),
+            num_classes=NUM_CLASSES if cfg.class_cond else None,
+            num_heads=cfg.num_heads,
+            num_head_channels=cfg.num_head_channels,
             use_scale_shift_norm=cfg.use_scale_shift_norm,
             resblock_updown=cfg.resblock_updown,
             use_new_attention_order=cfg.use_new_attention_order,

@@ -15,9 +15,11 @@ deploying a searched architecture) leaves those blocks' residual branches
 out altogether: the same output as a zero in the keep mask, without their
 work.
 
-Self-attention goes through ``ops.flash_attention`` at every site: the
-hand-written kernels on the card, their plain twin on the CPU. Every
-GroupNorm32 not folded into a conv takes the fused GroupNorm kernels on
+Self-attention goes through ``ops.flash_attention.routed_attention``,
+which sends each site where ``attention_route`` says: the hand-written
+kernels on the card where the head dim has one and the flash gate keeps
+it, else SDPA; their plain twin on the CPU. Every GroupNorm32 not folded
+into a conv takes the fused GroupNorm kernels on
 CUDA tensors (ops/fused_norm.py; ``ADT_FUSED_NORM=0`` turns them off, the
 A/B's "off" arm, and ``ADT_FUSED_NORM=1`` takes their twins on the CPU).
 Two switches, off by default, route the convs through the port's conv
@@ -35,12 +37,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import flash_attention, resolve_use_fused_conv
+from ..ops import resolve_use_fused_conv
+from ..ops.flash_attention import routed_attention
 from .nn import (Conv3x3, Downsample, GroupNorm32, Upsample, conv1x1,
                  conv2d, linear, timestep_embedding, zero_module)
 
 __all__ = ["ResBlock", "AttentionBlock", "AttentionPool2d", "UNetModel",
-           "EncoderUNetModel", "unet_layer_count"]
+           "SuperResModel", "EncoderUNetModel", "unet_layer_count"]
 
 
 def _apply_keep(h: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
@@ -181,9 +184,8 @@ class AttentionBlock(nn.Module):
             q, k, v = (z.reshape(b * heads, hd, t) for z in qkv.chunk(3, 1))
         else:
             q, k, v = qkv.reshape(b * heads, 3 * hd, t).split(hd, dim=1)
-        # [b*heads, t, hd] contiguous, the kernels' layout
-        q, k, v = (z.transpose(1, 2).contiguous() for z in (q, k, v))
-        a = flash_attention(q, k, v)                               # [bh, t, hd]
+        q, k, v = (z.transpose(1, 2) for z in (q, k, v))          # [bh, t, hd]
+        a = routed_attention(q, k, v, heads)                       # [bh, t, hd]
         a = a.transpose(1, 2).reshape(b, c, t)
         a = conv1x1(self.proj_out, a)
         return x + _apply_keep(a, keep).reshape(x.shape)
@@ -437,11 +439,37 @@ class UNetModel(_Trunk):
         return conv2d(self.out[2], h.float())
 
 
+class SuperResModel(UNetModel):
+    """The super-resolution UNet (guided_diffusion/unet.py:668-682): a
+    UNetModel of ``in_channels`` * 2 inputs whose forward concatenates the
+    bilinear upsampling of ``low_res`` (half-pixel centres,
+    ``align_corners=False``, as ``jax.image.resize``'s "bilinear" at an
+    upsampling) to x. Its parameters are the plain UNet's, so
+    guided-diffusion's upsampler ``.pt`` loads with ``load_state_dict``.
+
+    forward(x [B, C, H, W], timesteps [B], low_res [B, C, h, w], y, ...)
+    -> UNetModel.forward's output."""
+
+    def __init__(self, in_channels: int, *args, **kwargs):
+        super().__init__(in_channels * 2, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                low_res: torch.Tensor, y: Optional[torch.Tensor] = None,
+                **kwargs) -> torch.Tensor:
+        up = F.interpolate(low_res.float(), x.shape[2:], mode="bilinear",
+                           align_corners=False)
+        return super().forward(torch.cat([x.float(), up], dim=1),
+                               timesteps, y, **kwargs)
+
+
 class EncoderUNetModel(_Trunk):
     """Half-UNet noisy classifier (guided_diffusion/unet.py:685-896).
-    ``pool`` is "attention" (the ADM classifier's head) or "adaptive" (a
-    spatial mean and a zero-initialised 1x1 conv). forward(x, timesteps)
-    -> logits [B, out_channels] float32."""
+    ``pool`` is "attention" (the ADM classifier's head), "adaptive" (a
+    spatial mean and a zero-initialised 1x1 conv), "spatial" or
+    "spatial_v2" (the spatial means of every input block's and the middle
+    block's output, concatenated, through Linear(., 2048) -> ReLU ->
+    Linear, or Linear(., 2048) -> GroupNorm32 -> SiLU -> Linear).
+    forward(x, timesteps) -> logits [B, out_channels] float32."""
 
     def __init__(self, image_size: int, in_channels: int,
                  model_channels: int, out_channels: int,
@@ -456,18 +484,25 @@ class EncoderUNetModel(_Trunk):
                  pool: str = "attention",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pool not in ("attention", "adaptive"):
-            raise NotImplementedError(
-                f"pool={pool!r}: the attention and adaptive pools are "
-                "ported")
+        if pool not in ("attention", "adaptive", "spatial", "spatial_v2"):
+            raise ValueError(f"unknown pool {pool!r} (attention, adaptive, "
+                             "spatial or spatial_v2)")
         self.dtype = dtype
         self.pool = pool
-        ch, ds, _ = self._build_trunk(
+        ch, ds, chans = self._build_trunk(
             in_channels, model_channels, num_res_blocks, attention_ds,
             dropout, channel_mult, conv_resample, num_heads,
             num_head_channels, use_scale_shift_norm, resblock_updown,
             use_new_attention_order)
-        if pool == "adaptive":
+        feat = sum(chans) + ch
+        if pool == "spatial":
+            self.out = nn.Sequential(nn.Linear(feat, 2048), nn.ReLU(),
+                                     nn.Linear(2048, out_channels))
+        elif pool == "spatial_v2":
+            self.out = nn.Sequential(nn.Linear(feat, 2048),
+                                     GroupNorm32(2048), nn.SiLU(),
+                                     nn.Linear(2048, out_channels))
+        elif pool == "adaptive":
             self.out = nn.Sequential(
                 GroupNorm32(ch), nn.SiLU(), nn.AdaptiveAvgPool2d((1, 1)),
                 zero_module(nn.Conv2d(ch, out_channels, 1)), nn.Flatten())
@@ -481,9 +516,22 @@ class EncoderUNetModel(_Trunk):
                 ) -> torch.Tensor:
         emb = self._embed(timesteps, self.dtype)
         h = x.to(self.dtype)
+        spatial = self.pool.startswith("spatial")
+        pools = []
         for blk in self.input_blocks:
             h = blk.run(h, emb, None)
+            if spatial:
+                # each input block's mean in x's dtype (unet.py:880-891)
+                pools.append(h.to(x.dtype).mean(dim=(2, 3)))
         h = self.middle_block.run(h, emb, None)
+        if spatial:
+            pools.append(h.float().mean(dim=(2, 3)))
+            h = linear(self.out[0], torch.cat(pools, dim=-1).float())
+            if self.pool == "spatial":
+                h = F.relu(h)
+            else:
+                h = self.out[1](h[:, :, None, None], act="silu")[:, :, 0, 0]
+            return linear(self.out[-1], h)
         h = self.out[0](h, act="silu")
         if self.pool == "adaptive":
             # the mean in the compute dtype, the 1x1 conv in float32

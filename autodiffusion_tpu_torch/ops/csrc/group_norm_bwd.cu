@@ -74,18 +74,28 @@ __device__ __forceinline__ void store_floats(float* p, const float (&f)[N]) {
 // s += (du, du z, du xhat) summed over run elements [lo, hi) by one warp
 // from x and g in device memory (aligned alike modulo 16 bytes); where sx
 // and du are not null (resident runs), x and each element's du are kept in
-// shared memory there (aligned as x modulo 16 bytes of x)
+// shared memory there (aligned as x modulo 16 bytes of x). Each lane sums
+// its elements (hw / 32 of a channel's piece: 1024 at a 256 x 256 run)
+// with Kahan's compensation, so that a long piece's float32 sums stay
+// as close to the exact ones as the twin's tree sums are.
 template <typename T>
 __device__ __forceinline__ void piece_sums(const T* x, const T* gs, T* sx, float* du, int lo,
                                            int hi, float mu, float rstd, const float4& w,
                                            int act_silu, int lane, float (&s)[3]) {
   constexpr int N = Vec<T>::N;
+  float comp[3] = {0.f, 0.f, 0.f};
+  auto acc = [&](int k, float v) {
+    const float y = v - comp[k];
+    const float t = s[k] + y;
+    comp[k] = (t - s[k]) - y;
+    s[k] = t;
+  };
   auto add = [&](float xv, float gv) {
     float d, z, xh;
     grad_terms(xv, gv, mu, rstd, w, act_silu, d, z, xh);
-    s[0] += d;
-    s[1] += d * z;
-    s[2] += d * xh;
+    acc(0, d);
+    acc(1, d * z);
+    acc(2, d * xh);
     return d;
   };
   auto one = [&](int i) {

@@ -37,14 +37,29 @@ Numerics (as the TPU kernels): products of input-dtype operands summed in
 float32, the 1/sqrt(D) scale applied to the float32 logits after the dot,
 float32 softmax state, p (and dS) cast to the input dtype before the second
 product, outputs in the input dtype, lse in float32.
+
+Routing (:func:`routed_attention`, the one dispatch of both attention
+sites of the models, ``AttentionBlock`` and :func:`multihead_attention`,
+asks :func:`attention_route` for each call's route): on the
+card a site goes to its kernel where one exists for its head dim (the
+forward's dims, or the backward's where a gradient is wanted) and the
+flash gate keeps it there; every other site goes to
+``torch.nn.functional.scaled_dot_product_attention``, the library path
+(the JAX package computes the head dims it has no kernel for outside its
+kernels, in plain einsum). The gate is a table of site shapes measured on
+an H100, :data:`FLASH_GATE_SDPA`; ``ADT_FLASH_GATE=0`` keeps every kernel
+on (the A/B's "kernels" arm). On the CPU a site with a kernel takes its
+wrapper (which computes the twin) and every other site the plain twin.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ._build import LAUNCHES, launch, reset_launch_counts
 
@@ -54,7 +69,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_bwd_dkv_plain", "flash_fwd_packed",
            "flash_fwd_packed_plain", "multihead_attention", "LAUNCHES",
            "reset_launch_counts", "SUPPORTED_HEAD_DIMS", "FWD_HEAD_DIMS",
-           "PACKED_HEAD_DIMS", "WIDE_HEAD_DIM"]
+           "PACKED_HEAD_DIMS", "WIDE_HEAD_DIM", "attention_route",
+           "flash_gate_on", "FLASH_GATE_SDPA", "routed_attention"]
 
 # head dims of the backward kernels (and of FlashAttentionFunction)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -64,6 +80,64 @@ WIDE_HEAD_DIM = 512
 # head dims of flash_fwd_packed (the Stable Diffusion 64x64 level; the
 # dims that are multiples of 16 take flash_fwd on the same layout)
 PACKED_HEAD_DIMS = (40,)
+# every head dim some forward kernel takes (the packed kernel's D = 40 on
+# either layout: [N, T, D] is the token-major layout with one head)
+FORWARD_KERNEL_DIMS = FWD_HEAD_DIMS + PACKED_HEAD_DIMS + (WIDE_HEAD_DIM,)
+
+# The flash gate: the attention sites, (T, S, D, heads a sample, gradient
+# wanted), at which SDPA took less device time than the kernels in both
+# rounds of chip_smoke.py's A/B (phase_flash_ab) by more than the rounds'
+# spread, inside the program that owns the site, in two A/B runs on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5, "The flash gate"). A
+# site with a gradient is decided forward and backward together (SDPA's
+# backward needs SDPA's forward). Every other site with a kernel keeps it.
+FLASH_GATE_SDPA = frozenset({
+    # the guided DDIM step: the classifier's three sites (with the input's
+    # gradient), the UNet's 16 x 16 level
+    (64, 64, 64, 8, True), (256, 256, 64, 6, True),
+    (1024, 1024, 64, 4, True), (256, 256, 64, 9, False),
+    # the ADM-64 and SR training steps: every site
+    (64, 64, 64, 12, True), (256, 256, 64, 9, True),
+    (1024, 1024, 64, 6, True), (256, 256, 64, 12, True),
+    # the SD UNet call: the 64 x 64 level's D = 40 self- and
+    # cross-attention, the 32 x 32 level's cross-attention
+    (4096, 4096, 40, 8, False), (4096, 77, 40, 8, False),
+    (1024, 77, 80, 8, False),
+})
+
+
+def flash_gate_on() -> bool:
+    """False under ``ADT_FLASH_GATE=0``: every site with a kernel keeps
+    it (the A/B's "kernels" arm). Read at every call."""
+    return os.environ.get("ADT_FLASH_GATE", "1") != "0"
+
+
+def attention_route(t: int, s: int, d: int, heads: int, grad: bool,
+                    device) -> str:
+    """Where one attention call of T queries, S keys, head dim D and
+    ``heads`` heads a sample runs: "kernel" (the flash wrappers), "sdpa"
+    (``F.scaled_dot_product_attention``) or "twin" (the plain twin).
+
+    A kernel exists for D in the forward kernels' dims, or, where a
+    gradient is wanted, the backward kernels' (SUPPORTED_HEAD_DIMS). On
+    CUDA a site without a kernel takes SDPA, and so does a site in
+    :data:`FLASH_GATE_SDPA` unless ``ADT_FLASH_GATE=0``. On the CPU a site
+    with a kernel takes the wrappers (their twins), any other the twin.
+    The meta device, where the shapes of a run are read, takes the card's
+    routes. A rule on the shape: a kernel that fails to build or launch
+    raises."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"attention runs on cuda (or its plain twins on "
+                         f"cpu), not {dev}")
+    kernel = d in (SUPPORTED_HEAD_DIMS if grad else FORWARD_KERNEL_DIMS)
+    if dev.type == "cpu":
+        return "kernel" if kernel else "twin"
+    if kernel and not (flash_gate_on()
+                       and (t, s, d, heads, grad) in FLASH_GATE_SDPA):
+        return "kernel"
+    return "sdpa"
+
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
@@ -262,28 +336,74 @@ def flash_fwd_packed(q, k, v, heads: int, *, _raw_pad: bool = False
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         heads: int) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v per head, forward only, for token-major
-    q [B, T, H * D] and k, v [B, S, H * D] -> [B, T, H * D]: the attention
-    of the Stable Diffusion models (CrossAttention, VAEAttnBlock). Each head
-    dim goes to its kernel, self- and cross-attention alike and whatever
-    the token count: D = 40 (the SD 64x64 level) to ``flash_fwd_packed``
-    and D in FWD_HEAD_DIMS (the SD 32x32 level's D = 80) to ``flash_fwd``,
-    both on the layout as it is; D = 512 (the VAE mid-block's one head,
-    or several) to ``flash_fwd_wide`` on [B * H, T, D]. Other head dims (the SD 16x16 and
-    8x8 levels' D = 160) are plain PyTorch on [B * H, T, D], as the JAX
-    package computes them outside its kernels. CPU tensors take the
-    twins."""
-    d = _check_packed(q, k, v, heads)
-    if d in PACKED_HEAD_DIMS:
-        return flash_fwd_packed(q, k, v, heads)[0]
-    if d in FWD_HEAD_DIMS:
-        return flash_fwd(q, k, v, heads=heads)[0]
-    qh, kh, vh = (_heads_first(z, heads) for z in (q, k, v))
-    if d == WIDE_HEAD_DIM:
-        o = flash_fwd(qh, kh, vh)[0]
+    """softmax(q k^T / sqrt(D)) v per head for token-major q [B, T, H * D]
+    and k, v [B, S, H * D] -> [B, T, H * D]: the attention of the Stable
+    Diffusion models (CrossAttention, VAEAttnBlock), through
+    :func:`routed_attention`. Forward only, as the models that call it
+    run: the forward kernels refuse inputs that want a gradient."""
+    return routed_attention(q, k, v, heads, tokens_first=True)
+
+
+def routed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     heads: int, tokens_first: bool = False) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v at one attention site of the models, on
+    the route :func:`attention_route` gives the site: the one dispatch of
+    ``AttentionBlock`` (heads first: q [B * heads, T, D] and k, v
+    [B * heads, S, D], any strides; the gradient flows where one is
+    wanted) and :func:`multihead_attention` (``tokens_first``: q
+    [B, T, heads * D] and k, v [B, S, heads * D], forward only).
+
+    The kernel route, heads first: :func:`flash_attention` where a
+    gradient is wanted, else the forward kernel of the head dim. Tokens
+    first: D = 40 (the SD 64x64 level) to ``flash_fwd_packed`` and D in
+    FWD_HEAD_DIMS (the SD 32x32 level's D = 80) to ``flash_fwd``, both on
+    the layout as it is; D = 512 (the VAE mid-block's one head, or
+    several) to ``flash_fwd_wide`` on [B * H, T, D]. SDPA (on the card)
+    and the plain twin (on the CPU) take [B, heads, T, D]: heads first
+    made contiguous, since SDPA's fused kernels want the head dim
+    innermost (3-D or strided inputs send it to its math path)."""
+    if tokens_first:
+        d = _check_packed(q, k, v, heads)
+        grad = False
     else:
-        o = flash_attention_reference(qh, kh, vh)
-    return _tokens_first(o, q.shape[0])
+        d = q.shape[-1]
+        grad = torch.is_grad_enabled() and any(z.requires_grad
+                                               for z in (q, k, v))
+    key = (q.shape[1], k.shape[1], d, heads, grad)
+    return _attend(key, attention_route(*key, q.device), q, k, v,
+                   tokens_first)
+
+
+def _attend(key, route: str, q, k, v, tokens_first: bool) -> torch.Tensor:
+    """The work of one site of :func:`routed_attention` on ``route``."""
+    t, _, d, heads, grad = key
+    if route == "kernel" and not tokens_first:
+        q, k, v = (z.contiguous() for z in (q, k, v))
+        if grad:
+            return flash_attention(q, k, v)
+        if d in PACKED_HEAD_DIMS:
+            return flash_fwd_packed(q, k, v, 1)[0]
+        return flash_fwd(q, k, v)[0]
+    if route == "kernel":
+        if d in PACKED_HEAD_DIMS:
+            return flash_fwd_packed(q, k, v, heads)[0]
+        if d in FWD_HEAD_DIMS:
+            return flash_fwd(q, k, v, heads=heads)[0]
+        qh, kh, vh = (_heads_first(z, heads) for z in (q, k, v))
+        return _tokens_first(flash_fwd(qh, kh, vh)[0], q.shape[0])
+    if tokens_first:
+        b = q.shape[0]
+        q4, k4, v4 = (z.reshape(b, z.shape[1], heads, d).transpose(1, 2)
+                      for z in (q, k, v))
+    else:
+        b = q.shape[0] // heads
+        q4, k4, v4 = (z.contiguous().view(b, heads, z.shape[1], d)
+                      for z in (q, k, v))
+    o = F.scaled_dot_product_attention(q4, k4, v4) if route == "sdpa" \
+        else flash_attention_reference(q4, k4, v4)
+    if tokens_first:
+        return o.transpose(1, 2).reshape(b, t, heads * d)
+    return o.reshape(b * heads, t, d)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:

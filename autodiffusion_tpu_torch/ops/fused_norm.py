@@ -46,16 +46,16 @@ def fused_norm_available(x_shape, num_groups: int = 32,
     them off for the A/B's "off" arm, and for CPU tensors (where the
     wrappers compute their plain twins) only under ``ADT_FUSED_NORM=1``,
     with which the tests drive the fused route on the CPU; and then only
-    for channels divisible into groups and at least two positions per
-    sample. x_shape is [B, C, ...]. The JAX gate's TPU-backend test and
-    VMEM cap on one sample's slab have no counterpart here: the kernels
-    stream a (sample, group) run of any length."""
+    for channels divisible into groups. x_shape is [B, C, ...]. The JAX
+    gate's TPU-backend test, VMEM cap on one sample's slab and
+    two-position minimum have no counterpart here: the kernels stream a
+    (sample, group) run of any length, one position a channel included
+    (the spatial_v2 classifier head's GroupNorm over [B, 2048, 1, 1])."""
     default = "1" if device_type == "cuda" else "0"
     if os.environ.get("ADT_FUSED_NORM", default) != "1":
         return False
     c = x_shape[1]
-    n = prod(x_shape[2:])
-    return c % min(num_groups, c) == 0 and n >= 2
+    return c % min(num_groups, c) == 0
 
 
 # ---------------------------------------------------------------- plain twins

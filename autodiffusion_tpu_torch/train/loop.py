@@ -97,10 +97,12 @@ def resume_train_state(state: TrainState, path_or_dir: str) -> TrainState:
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict:
-    """A loader's numpy batch ({"x": [B, H, W, C] float32, "y": [B]}) as
-    tensors on ``device``: x NCHW, y int64."""
-    out = {"x": torch.from_numpy(np.ascontiguousarray(batch["x"])).to(
-        device).permute(0, 3, 1, 2).contiguous()}
+    """A loader's numpy batch ({"x": [B, H, W, C] float32, "y": [B],
+    optional "low_res": [B, h, w, C] float32}) as tensors on ``device``:
+    x and low_res NCHW, y int64."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(
+        device).permute(0, 3, 1, 2).contiguous()
+        for k in ("x", "low_res") if k in batch}
     if "y" in batch:
         out["y"] = torch.from_numpy(np.asarray(batch["y"])).long().to(device)
     return out

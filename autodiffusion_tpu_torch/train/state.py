@@ -186,7 +186,9 @@ def make_train_step(model: nn.Module, *,
 
     step(state, tables, batch, t, loss_weights, generator=None,
     noise=None) -> (state, metrics): batch {"x": [B, C, H, W], optional
-    "y": [B]}, t the int64 [B] respaced steps, loss_weights [B] the
+    "y": [B], optional "low_res": [B, C, h, w]}, where "low_res" trains a
+    SuperResModel on (low, high) pairs, called as (x_t, t, low_res[, y])
+    (the JAX step's signature), t the int64 [B] respaced steps, loss_weights [B] the
     t-sampler's importance weights, noise [B, C, H, W] or drawn from
     ``generator``. B = microbatches * micro; the microbatches' gradients
     are averaged. metrics: loss (the mean of the microbatches' weighted
@@ -200,7 +202,7 @@ def make_train_step(model: nn.Module, *,
                           generator: Optional[torch.Generator] = None,
                           noise: Optional[torch.Tensor] = None
                           ) -> Tuple[List[torch.Tensor], Dict]:
-        x, y = batch["x"], batch.get("y")
+        x, y, low_res = batch["x"], batch.get("y"), batch.get("low_res")
         b = x.shape[0]
         if b % microbatches:
             raise ValueError(
@@ -215,10 +217,15 @@ def make_train_step(model: nn.Module, *,
         for m in range(microbatches):
             sl = slice(m * micro, (m + 1) * micro)
             ym = None if y is None else y[sl]
+            lm = None if low_res is None else low_res[sl]
 
             def model_fn(x_t, t_orig):
-                return model(x_t, t_orig, ym) if class_cond \
-                    else model(x_t, t_orig)
+                a = [x_t, t_orig]
+                if lm is not None:
+                    a.append(lm)
+                if class_cond:
+                    a.append(ym)
+                return model(*a)
 
             terms = training_losses(
                 tables, model_fn, x[sl], t[sl], generator,

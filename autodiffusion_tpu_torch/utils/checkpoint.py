@@ -358,14 +358,23 @@ def save_msgpack(path: str, tree: Any) -> None:
 
 def state_dict_from_flax_tree(tree: Any, module: torch.nn.Module
                               ) -> Dict[str, torch.Tensor]:
-    """A JAX UNet or classifier param tree (nested dicts of numpy arrays)
-    as the state dict of ``module`` (the port's UNet or classifier)."""
+    """A JAX UNet, SuperResModel or classifier param tree (nested dicts of
+    numpy arrays) as the state dict of ``module`` (the port's UNet,
+    SuperResModel or classifier). A SuperResModel's tree nests the UNet's
+    under "unet" (``{"params": {"unet": ...}}``, what ``adt train
+    --sr_small_size`` writes); its state dict is the plain UNet's."""
     from ..models.convert import (classifier_state_dict_from_flax,
                                   unet_state_dict_from_flax)
-    from ..models.unet import EncoderUNetModel
+    from ..models.unet import EncoderUNetModel, SuperResModel
 
     if isinstance(module, EncoderUNetModel):
         return classifier_state_dict_from_flax(tree)
+    if isinstance(module, SuperResModel):
+        tree = tree.get("params", tree)
+        if set(tree) != {"unet"}:
+            raise ValueError("a SuperResModel's param tree holds one "
+                             f"'unet' entry, not {sorted(tree)[:5]}")
+        tree = tree["unet"]
     return unet_state_dict_from_flax(tree)
 
 

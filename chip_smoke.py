@@ -24,8 +24,9 @@ Phases, each of which raises on failure:
    beside its twin, its bound on the card and
    ``F.scaled_dot_product_attention``, the backward kernels, SDPA's
    backward and the backward's delta = rowsum(dO O) in PyTorch also by
-   their device time (torch.profiler), summed per guided step over the
-   classifier's 13 sites;
+   their device time (CUDA events around calls queued behind a head
+   start: ``device_ms``), summed per guided step over the classifier's 13
+   sites;
 3. the fused GroupNorm forward and backward, the im2col conv and the fused
    norm-act-conv against their twins at every ADM-64 site the three
    switches (``ADT_FUSED_NORM=1 ADT_IM2COL_CONV=1 ADT_FUSED_CONV=all``)
@@ -52,10 +53,10 @@ Phases, each of which raises on failure:
    ``torch.profiler``: device time by kernel, the flash kernels' share
    (the forward's, the dQ kernel's and the dK/dV kernel's own lines) and
    the device's idle share (``chiprun_out/chip_smoke_profile.txt``);
-6. A/B: the same guided DDIM-4 run with the switches off
-   (``ADT_FUSED_NORM=0``), each alone (the fused norm alone is the
-   default), the fused norm with the fused conv, and all three on, one
-   round: wall time per step, device-busy time
+6. A/B: the same guided DDIM-4 run with the switches off, on the default
+   path (the fused norm alone), with each conv switch alone, with the
+   fused norm and the fused conv, and with every kernel on, one round:
+   wall time per step, device-busy time
    per step (profiler), idle share, the GroupNorm forward's and
    backward's kernels, the dK/dV kernel and weight- and input-gradient
    conv time of every run (the guided models frozen, as the search
@@ -79,7 +80,8 @@ Phases, each of which raises on failure:
    guidance, a searched 4-step --use_timestep, 32 samples at batch 16),
    ancestral and then DDIM with a 4-entry --skip_layers: the .npz's
    format, the flash forward's, dQ's and dK/dV's launches per guided step
-   (35 / 13 / 13, and no other kernel), images/s;
+   (as the gate routes the step's 35 sites, 13 with a gradient; the
+   GroupNorm forward and backward; no other kernel), images/s;
 9. FID commands: ``adt-torch ref-stats`` of 64 seeded images on the GPU,
    then ``adt-torch evaluate`` of the ancestral samples against them (FID,
    IS, precision and recall with --ref_batch) on the GPU and on the CPU,
@@ -105,12 +107,11 @@ Phases, each of which raises on failure:
     a --prompt_mask and img2img's encode, posterior draw, q_sample and
     DDIM-2 at 128 x 128;
 12. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler,
-    on the default path, switches off and on (the fused GroupNorm's A/B
-    in the UNet call and the decode; ``chip_smoke_profile_sd.txt``,
-    ``_sd_off.txt``, ``chip_smoke_profile_sd_fused.txt``), with the
-    packed and D = 80
-    forwards' lines of a UNet call, the wide forward's line of the decode
-    and the GroupNorm forward's time in each;
+    on the default path (``chip_smoke_profile_sd.txt``), with the switches
+    off and with them on (the fused GroupNorm's A/B), with
+    the packed and D = 80 forwards' lines of a UNet call where the gate keeps
+    them, the wide forward's line of the decode and the GroupNorm
+    forward's time in each;
 13. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
     scale 7.5, 512 x 512, chunk 2 x batch 4, 8 samples per candidate,
     population 4, one epoch) from a seeded random-weight CompVis-layout
@@ -127,16 +128,17 @@ Phases, each of which raises on failure:
     ``--resume_checkpoint`` of the save directory for 2 more (the resumed
     model and EMA equal to the saved ones, the step counter going on),
     default and switches on: finite losses, the command's step time, peak
-    memory, and each kernel's launches a step (the flash kernels 22 a
-    microbatch; by default every GroupNorm32 forward and backward; on,
+    memory, and each kernel's launches a step (the flash kernels as the
+    gate routes the 22 sites of a microbatch: on, 22 each; by default
+    every GroupNorm32 forward and backward; on,
     one GroupNorm backward a forward and the fused conv at the in-norms
     only, dropout keeping the out-norm out of it);
 15. train profile: the same training step driven directly on
-    device-resident data, switches off, default (the fused norm alone)
-    and all on: wall and device-busy ms a step, idle share, samples/s,
-    peak memory, and the GroupNorm backward in its every-gradient form
-    (one batch sum a call)
-    (``chip_smoke_profile_train_{off,default,on}.txt``);
+    device-resident data, with the switches off, on the default path (the
+    fused norm alone) and with them on: wall and device-busy ms a step,
+    idle share, samples/s, peak memory, and the GroupNorm backward in its
+    every-gradient form (one batch sum a call)
+    (``chip_smoke_profile_train_<arm>.txt``);
 16. ``adt-torch train-classifier`` at its defaults (width 128, depth 2)
     over a folder of 32 seeded PNGs, batch 16, 3 steps, default and
     switches on: finite losses, launches a step;
@@ -171,7 +173,50 @@ Phases, each of which raises on failure:
     the default path with its launch counters set to 0 just before and
     read just after (each equal to the per-call counts of the models times
     the command's UNet calls, encodes and decodes), its output's format,
-    images/s and peak memory.
+    images/s and peak memory;
+26. SR kernels: the flash forward, dQ and dK/dV at the SR training
+    step's attention sites (head dim 64: T 1024 with 6 heads, T 256 and 64
+    with 12, microbatch 2), the GroupNorm forward at every GroupNorm of
+    sr-sample's and the SR training step's UNets and the backward at the
+    training step's (batch 2), the conv kernels at the switched-on SR
+    training step's sites, and the spatial_v2 classifier head's GroupNorm
+    at one position (batch 16), bf16 and fp32, with the sabotaged runs,
+    whatever the gate routes;
+27. SR parity: two DDIM steps of sr-sample's full-width SR UNet (the 256
+    model's widths at 128 x 128), float32, seeded weights, x_T injected,
+    GPU against the CPU twins, within 1e-3 x scale;
+28. ``adt-torch sr-sample`` at its defaults (DDIM over 1000 steps, bf16)
+    on two seeded 64 x 64 base samples: the .npz, launches equal to the
+    UNet call's per-call counts x 1000, images/s, peak memory;
+29. ``adt-torch train --image_size 256 --sr_small_size 64`` (batch 4 in
+    two microbatches, 3 steps) over seeded PNGs, low_res derived and from
+    --lq_dir, on the default path and with every kernel on: finite
+    losses, launches a step, step time, peak memory;
+30. ``adt-torch train-classifier --classifier_pool spatial_v2``, 3 steps;
+31. ``adt-torch selftest`` with a synthesized pytorch_fid ``.pth``:
+    passed true, certified false, seconds.
+
+The flash gate (ops/flash_attention.py ``FLASH_GATE_SDPA``) routes the
+default path's attention sites; "switches on" also turns it off
+(``ADT_FLASH_GATE=0``: every site with a kernel on it), and every launch
+count expected of a run follows the routes of its environment, held with
+the gate off to the literal counts of ``FLASH_ANCHORS``. Every profile is
+taken again when it comes back short of kernels the launch counters saw
+(``profiled``).
+
+Two measurements run alone, not in the smoke run:
+
+    python3 chip_smoke.py --flash-ab      # the flash gate's A/B
+    python3 chip_smoke.py --lost-events   # the profiler's lost kernels
+
+``--flash-ab`` (``phase_flash_ab``): every attention site on its kernel
+against every site on SDPA, two rounds, device time per site shape from
+profiler ranges, inside the guided DDIM step, the SD UNet call (which also
+times its D = 160 sites on the float32 twin), the ADM-64 training step and
+the SR training step; it prints the sites it would send to SDPA beside the
+committed gate. ``--lost-events`` (``phase_lost_events``): how often a
+whole guided run's profile misses kernels. Each writes its record to
+``chiprun_out/`` and exits 0 when it ran to its end.
 
 The last lines of standard output are a ``kernels`` JSON line, the
 ``nvidia-smi`` name / power-limit line and ``{"ok": true, "device": ...}``.
@@ -183,6 +228,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -239,34 +285,34 @@ KERNEL_INFO.update({
 })
 NEW_KERNELS = ("group_norm_fwd", "group_norm_bwd", "conv3x3",
                "conv3x3_fused")
-# launches per guided DDIM step with every switch off: 22 UNet + 13
-# classifier attention blocks forward, 13 classifier blocks backward
-PER_STEP = {"flash_fwd": 35, "flash_bwd_dq": 13, "flash_bwd_dkv": 13,
-            "group_norm_fwd": 0, "group_norm_bwd": 0, "conv3x3": 0,
-            "conv3x3_fused": 0, "flash_fwd_packed": 0, "flash_fwd_wide": 0}
 # the kernels of the ADM-64 path
 ADM_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") + NEW_KERNELS
-# ... and with the three switches on (tests/test_torch_fused_paths.py
-# counts them from the models): GroupNorms not folded into a conv, 29 UNet
-# + 17 classifier forward and the classifier's 17 backward; the up/down
-# blocks' in-convs, 6 + 3; every other ResBlock conv, 66 + 39
-PER_STEP_FUSED = dict(PER_STEP, group_norm_fwd=46, group_norm_bwd=17,
-                      conv3x3=9, conv3x3_fused=105)
+# launches of the GroupNorm and conv kernels per guided DDIM step with the
+# three switches on (tests/test_torch_fused_paths.py counts them from the
+# models): GroupNorms not folded into a conv, 29 UNet + 17 classifier
+# forward and the classifier's 17 backward; the up/down blocks' in-convs,
+# 6 + 3; every other ResBlock conv, 66 + 39. The flash kernels' launches
+# a step follow the gate (per_step)
+PER_STEP_NEW_FUSED = {"group_norm_fwd": 46, "group_norm_bwd": 17,
+                      "conv3x3": 9, "conv3x3_fused": 105}
 # the environment a user runs with: every switch unset, so GroupNorm32
-# takes the fused GroupNorm kernels on CUDA tensors and the convs are
-# PyTorch's
+# takes the fused GroupNorm kernels on CUDA tensors, the convs are
+# PyTorch's and the attention sites go where the flash gate sends them
 DEFAULT = {"ADT_FUSED_NORM": None, "ADT_IM2COL_CONV": None,
-           "ADT_FUSED_CONV": None}
+           "ADT_FUSED_CONV": None, "ADT_FLASH_GATE": None}
 # the A/B's "off" arm: the float32 GroupNorm chain, no conv kernel
 ALL_OFF = {"ADT_FUSED_NORM": "0", "ADT_IM2COL_CONV": "0",
-           "ADT_FUSED_CONV": "0"}
+           "ADT_FUSED_CONV": "0", "ADT_FLASH_GATE": None}
 # the default path's routes forced where the default does not reach them:
 # on the meta device (sites are read there) and on CPU tensors
 FUSED_NORM_ALONE = dict(ALL_OFF, ADT_FUSED_NORM="1")
+# every kernel on: the three switches, and the flash gate off (every
+# attention site with a kernel on it)
 SWITCHES_ON = {"ADT_FUSED_NORM": "1", "ADT_IM2COL_CONV": "1",
-               "ADT_FUSED_CONV": "all"}
-# the A/B phase's configurations: the switches off, each alone (the fused
-# norm alone is the default), the fused norm with the fused conv, all three
+               "ADT_FUSED_CONV": "all", "ADT_FLASH_GATE": "0"}
+# the A/B phase's configurations: the switches off, the default (the fused
+# norm alone), each conv switch alone, the fused norm with the fused conv,
+# and all on (three rounds of each are in PERF.md)
 AB_CONFIGS = [
     ("off", ALL_OFF),
     ("fused_norm (default)", DEFAULT),
@@ -458,37 +504,52 @@ def phase_ptxas():
     return out
 
 
-def device_ms(fn, tag: str = "", reps: int = 10, tries: int = 4) -> float:
-    """Mean device milliseconds a call of ``fn`` spends in the kernels
-    whose name holds ``tag`` (every kernel where ``tag`` is empty), from
-    torch.profiler over ``reps`` calls after a warm-up: the kernels' own
-    time, without the host path around them. A profile that records no
-    such kernel (a profiler run now and then records none of them) is
-    taken again, up to ``tries`` times."""
+def device_ms(fn, kernel: str = "", reps: int = 10, tries: int = 4) -> float:
+    """Mean device milliseconds of one call of ``fn``: ``reps`` calls
+    queued back to back behind a head start (a spin kernel that outlasts
+    the host's launches) between two CUDA events, so that the time is the
+    device's alone (the kernels and the device's own gaps between them),
+    without the host path around them. Where ``kernel`` names a launch
+    counter, the timed calls must have launched that kernel ``reps``
+    times. A run whose launches outlasted the head start is taken again
+    with one four times as long, up to ``tries`` times; then it raises.
+    (torch.profiler, which timed these rows before, drops whole short
+    profiles in a long process: tools/profiler_window_probe.py.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     fn()
     torch.cuda.synchronize()
+    spin = 2_000_000                    # clock cycles, about 1 ms
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and tag in e.key)
-        if total > 0:
-            return total / 1e3 / reps
-    raise AssertionError(f"the profiler saw no kernel named {tag!r}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        reset_launch_counts()
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if kernel and LAUNCHES[kernel] != reps:
+            raise AssertionError(f"device_ms: {reps} calls launched "
+                                 f"{LAUNCHES[kernel]} {kernel}")
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        spin *= 4
+    raise AssertionError(f"device_ms: the host's launches of {reps} calls "
+                         f"({host_ms:.3f} ms) outlasted every head start")
 
 
-def phase_kernels():
+def phase_kernels(shapes=SHAPES, batch: int = BATCH):
     """Each kernel against its twin on the same inputs (the backward
     kernels fed the twin's lse and delta), then the chain the main path
     runs: FlashAttentionFunction, whose backward takes the forward kernel's
-    own lse and output, against the chain of twins. Where a tile can be
+    own lse and output, against the chain of twins, at each (T, heads) of
+    ``shapes`` (head dim 64) at ``batch``. Where a tile can be
     dropped (T > 64), a kernel run with one 64-wide tile left out must fall
     outside the limit, so the limit is shown to catch such a fault."""
     import torch
@@ -499,8 +560,8 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, failures = [], []
-    for t, h in SHAPES:
-        n = BATCH * h
+    for t, h in shapes:
+        n = batch * h
         for dt in (torch.bfloat16, torch.float32):
             dname = str(dt).split(".")[1]
             q, k, v, do = (torch.randn(n, t, HEAD_DIM, device="cuda",
@@ -566,7 +627,7 @@ def phase_kernels():
                                          "lse / delta from rows 64 away "
                                          f"passes the limit ({share:.3g})"))
                 del faults, bad_dk, bad_dv, ring_dk, ring_dv
-            q4, k4, v4, do4 = (z.view(BATCH, h, t, HEAD_DIM)
+            q4, k4, v4, do4 = (z.view(batch, h, t, HEAD_DIM)
                                for z in (q, k, v, do))
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4))
@@ -612,7 +673,7 @@ def phase_kernels():
                 ok = worst <= 1
                 ms, plain_ms, lib_ms = timing[name]
                 b_ms, b_by = bound(name, n, t, t, HEAD_DIM, dname)
-                row = dict(name=name, T=t, S=t, heads=h, batch=BATCH,
+                row = dict(name=name, T=t, S=t, heads=h, batch=batch,
                            head_dim=HEAD_DIM, dtype=dname, max_abs_err=err,
                            err_over_limit=worst, limit=LIMIT_TEXT[dname],
                            dropped_tile_over_limit=dropped.get(name),
@@ -699,8 +760,8 @@ def adm64_sites():
                                                 create_classifier,
                                                 create_model)
     from autodiffusion_tpu_torch.models import nn as port_nn
-    from autodiffusion_tpu_torch.models import unet as port_unet
 
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
     sites = {k: {} for k in NEW_KERNELS}
     model = ["unet"]
 
@@ -729,10 +790,10 @@ def adm64_sites():
 
     saved = {n: getattr(port_nn, n)
              for n in ("fused_group_norm", "conv3x3", "conv3x3_fused")}
-    saved_flash = port_unet.flash_attention
+    saved_flash = fa.flash_attention
     port_nn.fused_group_norm, port_nn.conv3x3 = gn, conv
     port_nn.conv3x3_fused = fused
-    port_unet.flash_attention = lambda q, k, v: torch.empty_like(q)
+    fa.flash_attention = lambda q, k, v: torch.empty_like(q)
     try:
         with switches(SWITCHES_ON), torch.device("meta"):
             m = create_model(ModelConfig.adm64(), device="meta")
@@ -744,9 +805,9 @@ def adm64_sites():
     finally:
         for n, fn in saved.items():
             setattr(port_nn, n, fn)
-        port_unet.flash_attention = saved_flash
+        fa.flash_attention = saved_flash
     per_step = {k: sum(v.values()) for k, v in sites.items()}
-    want = {k: PER_STEP_FUSED[k] for k in NEW_KERNELS}
+    want = dict(PER_STEP_NEW_FUSED)
     if per_step != want:
         raise AssertionError(f"ADM-64 sites per step {per_step} != {want}")
     return sites
@@ -812,6 +873,38 @@ def _gn_wrong_group(x, gamma, beta, mu, rstd, silu, eps=1e-5):
                           silu)[0]
 
 
+def _gn_bwd_sums64(x, dy, gamma, beta, scale, shift, mu, rstd, groups,
+                   silu):
+    """(dscale, dshift, dgamma, dbeta) of the GroupNorm backward in float64
+    from the same inputs (the twin's arithmetic, group_norm_bwd_plain):
+    the exact sums both the kernel's and the twin's float32 sums are
+    measured against."""
+    import torch
+
+    b, c = x.shape[:2]
+    per = c // groups
+    xc = x.double().reshape(b, c, -1)
+    g = dy.double().reshape(b, c, -1)
+    mu_c = mu.double().repeat_interleave(per, dim=1)[..., None]
+    rstd_c = rstd.double().repeat_interleave(per, dim=1)[..., None]
+    film = 1.0 if scale is None else 1.0 + scale.double()[..., None]
+    xhat = (xc - mu_c) * rstd_c
+    z = xhat * gamma.double()[None, :, None] + beta.double()[None, :, None]
+    du = g
+    if silu:
+        u = z * film + (0.0 if shift is None else shift.double()[..., None])
+        sig = torch.sigmoid(u)
+        du = g * (sig * (1.0 + u * (1.0 - sig)))
+    dz = du * film
+    return ((du * z).sum(-1), du.sum(-1), (dz * xhat).sum((0, 2)),
+            dz.sum((0, 2)))
+
+
+def _rel64(got, exact):
+    return float(((got.double() - exact).abs()
+                  / (1 + exact.abs())).max())
+
+
 def _row(rows, failures, name, site, count, dname, errs, sabotage, timing,
          bnd, limit_text, batch=BATCH):
     """Record one kernel row: errs [(max |d|, |d| / limit)], sabotage the
@@ -873,10 +966,14 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
             silu = act == "silu"
             for dt in (torch.bfloat16, torch.float32):
                 dname = str(dt).split(".")[1]
-                # per-channel scales and offsets, so that the groups'
-                # statistics differ and a wrong group's show
-                x = (randn(batch, c, hw) * torch.exp(0.5 * randn(c, 1))
-                     + randn(c, 1)).to(dt)
+                # per-channel scales and offsets, and per-group scales, so
+                # that the groups' statistics differ and a wrong group's
+                # show (with per-channel terms alone, 24 channels a group at
+                # C = 768 average the groups' spreads to one)
+                g_scale = torch.exp(0.5 * randn(GROUPS)).repeat_interleave(
+                    c // GROUPS)[:, None]
+                x = ((randn(batch, c, hw) * torch.exp(0.5 * randn(c, 1))
+                      + randn(c, 1)) * g_scale).to(dt)
                 gamma, beta = 1 + 0.2 * randn(c), 0.1 * randn(c)
                 sc = sh = None
                 if film:
@@ -941,6 +1038,15 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
                         errs += [compare(a, b, "float32", SUM_TOL)
                                  for a, b in zip(got[1:] + chain[1:],
                                                  want[1:] + want[3:])]
+                        exact = _gn_bwd_sums64(*bargs)
+                        log("    sums against float64 (dscale, dshift, "
+                            "dgamma, dbeta), max |d| / (1 + |exact|): "
+                            "kernel " + " ".join(
+                                f"{_rel64(a, e):.2e}"
+                                for a, e in zip(got[1:], exact))
+                            + ", twin " + " ".join(
+                                f"{_rel64(a, e):.2e}"
+                                for a, e in zip(want[1:], exact)))
                     elif any(a is not None for a in got[1:]):
                         failures.append(("group_norm_bwd", key, dname, form,
                                          "gradients nobody asked for"))
@@ -1110,10 +1216,12 @@ def device_busy(prof, steps: int):
 
     # device events less user annotations (the optimizer's
     # ``Optimizer.step#AdamW.step`` range spans kernels counted already)
+    # and less ``profiled``'s pre-roll
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
+               and not e.key.startswith("Optimizer.")
+               and "spin_kernel" not in e.key]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if busy <= 0:
@@ -1127,9 +1235,10 @@ def profile_lines(kernels, steps: int, top: int = 25):
             for e in kernels[:top]]
 
 
-def guided_run(unet_sd, cls_sd):
-    """(run, models): one guided DDIM-4 run at batch 32, full width, bf16,
-    of seeded random weights, as the profile and A/B phases time it."""
+def guided_run(unet_sd, cls_sd, steps: int = 4):
+    """(run, models): one guided DDIM run of ``steps`` steps (4 unless
+    given) at batch 32, full width, bf16, of seeded random weights, as the
+    profile and A/B phases time it."""
     import torch
     from autodiffusion_tpu_torch.models import (ClassifierConfig,
                                                 ModelConfig,
@@ -1149,7 +1258,7 @@ def guided_run(unet_sd, cls_sd):
     c.requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(5)
     y = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
-    tables = build_tables("ddim4", base_schedule="cosine").to("cuda")
+    tables = build_tables(f"ddim{steps}", base_schedule="cosine").to("cuda")
     cond = classifier_cond_fn(c, y, 1.0)
 
     def run():
@@ -1168,9 +1277,6 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
     per step (the next run, profiled) and the idle share 1 - busy / wall.
     Every run's output must be finite."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
     run, _ = guided_run(unet_sd, cls_sd)
     runs = {name: [] for name, _ in AB_CONFIGS}
@@ -1186,12 +1292,8 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
                 wall = (time.time() - t0) * 1e3 / 4
                 if not torch.isfinite(out).all():
                     raise AssertionError(f"A/B {name}: non-finite samples")
-                reset_launch_counts()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    run()
-                    torch.cuda.synchronize()
-                gn_bwd_launches = LAUNCHES["group_norm_bwd"] / 4
+                prof, launched, _ = profiled(run)
+                gn_bwd_launches = launched["group_norm_bwd"] / 4
                 busy, kernels = device_busy(prof, 4)
             # weight- and input-gradient convolutions (cuDNN's wgrad and
             # dgrad kernels): no wgrad where the models are frozen; the
@@ -1225,10 +1327,10 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
                                      "models")
             # one kernel a call of the GroupNorm backward, no batch sum (the
             # classifier frozen: dx alone); with all three switches on, the
-            # 17 calls of PER_STEP_FUSED (the fused norm alone also takes
+            # 17 calls of PER_STEP_NEW_FUSED (the fused norm alone also takes
             # the GroupNorms the fused conv folds)
             want = gn_bwd_launches if name != "all" \
-                else PER_STEP_FUSED["group_norm_bwd"]
+                else PER_STEP_NEW_FUSED["group_norm_bwd"]
             if gn_bwd_calls != gn_bwd_launches or gn_bwd_calls != want \
                     or batch_sums:
                 raise AssertionError(
@@ -1260,12 +1362,607 @@ def phase_ab(unet_sd, cls_sd, rounds: int = 1):
     return summary
 
 
+# the pre-roll of a profiled run: this many empty spin kernels launched
+# inside the window before the run, four times as many on each retake
+PRE_ROLL = 1000
+
+
+def profiled(fn, tries: int = 3, warm: bool = False):
+    """(profile, launches, fn's result) of one run of ``fn`` under
+    torch.profiler, the device synchronised at its end, with 20 ms of idle
+    host time on either side inside the window; with ``warm``, after a
+    warm-up iteration inside the profile whose events are dropped
+    (schedule warmup=1: the A/B arms' first calls). In a long process the
+    profiler drops the first kernels of a window, more of them the older
+    the process (tools/profiler_window_probe.py: a count of launches, not
+    a stretch of time), so the run follows a pre-roll of ``PRE_ROLL``
+    empty spin kernels, which no measurement reads. A profile missing
+    kernels that the launch counters saw (``profile_counts``) is taken
+    again with a pre-roll four times as long, up to ``tries`` times; the
+    last one is returned whatever it holds. The launch counters count the
+    recorded run alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    sched = schedule(wait=0, warmup=1, active=1, repeat=1) if warm else None
+    pre_roll = PRE_ROLL
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            if warm:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+            reset_launch_counts()
+            time.sleep(0.02)
+            for _ in range(pre_roll):
+                torch.cuda._sleep(0)
+            out = fn()
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            time.sleep(0.02)
+            if warm:
+                prof.step()
+        counts = profile_counts(prof)
+        short = {k: (counts[k], launches.get(k, 0)) for k in counts
+                 if counts[k] != launches.get(k, 0)}
+        if not short:
+            break
+        log(f"profile dropped kernels (profiled, launched) {short} after a "
+            f"pre-roll of {pre_roll}: taken again")
+        pre_roll *= 4
+    return prof, launches, out
+
+
+# the bf16 kernels in a profile, by launch counter: each launch runs one
+# of them (a GroupNorm forward either the resident kernel or the split
+# one's apply pass, after its partial sums)
+PROFILE_TAGS = {"flash_fwd": ("flash_fwd_tma_kernel",),
+                "flash_fwd_packed": ("flash_fwd_packed_kernel",),
+                "flash_fwd_wide": ("flash_fwd_wide_kernel",),
+                "flash_bwd_dq": ("flash_bwd_dq_tma_kernel",),
+                "flash_bwd_dkv": ("flash_bwd_dkv_tma_kernel",),
+                "group_norm_fwd": ("group_norm_fwd_resident_kernel",
+                                   "group_norm_fwd_apply_kernel"),
+                "group_norm_bwd": ("group_norm_bwd_kernel",)}
+
+
+def profile_counts(prof):
+    """{launch counter: its kernels in ``prof``} (bf16 runs)."""
+    import torch
+
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(any(tag in e.name for tag in tags) for e in evs)
+            for k, tags in PROFILE_TAGS.items()}
+
+
+def phase_lost_events(unet_sd, cls_sd, tries: int = 1):
+    """The profiler's lost kernels, measured: the guided DDIM-4 run at
+    batch 32 (default path) profiled ``tries`` times with a window opened
+    on the run itself and ``tries`` times with a
+    warm-up iteration and idle time on either side (one try of
+    ``profiled``). For each profile, each kernel's profiled count against
+    its launch counter, the device events recorded, and where in the run
+    they lie (the share of the recorded kernels in each tenth of the span
+    from the first to the last: a stretch lost inside or at an end shows
+    as a thin tenth). Returns the records; raises nothing (the checks that
+    read profiles take a profile again when it drops kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    run, _ = guided_run(unet_sd, cls_sd)
+    run()
+    torch.cuda.synchronize()
+    out = {"bare": [], "warm-up": []}
+    for _ in range(tries):
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        out["bare"].append((prof, dict(LAUNCHES)))
+        prof2, launches, _ = profiled(run, tries=1, warm=True)
+        out["warm-up"].append((prof2, launches))
+    summary = {}
+    for how, profs in out.items():
+        rows = []
+        for prof, launches in profs:
+            counts = profile_counts(prof)
+            evs = sorted((e.time_range.start for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)
+                          and "spin_kernel" not in e.name))
+            lo, hi = evs[0], evs[-1]
+            tenths = [0] * 10
+            for t in evs:
+                tenths[min(9, int(10 * (t - lo) / max(hi - lo, 1)))] += 1
+            missing = {k: launches.get(k, 0) - counts[k] for k in counts
+                       if launches.get(k, 0) != counts[k]}
+            rows.append(dict(missing=missing, n_device_events=len(evs),
+                             span_ms=(hi - lo) / 1e3, tenths=tenths))
+        lost = sum(bool(r["missing"]) for r in rows)
+        summary[how] = dict(profiles=rows, profiles_missing_kernels=lost)
+        log(f"lost events ({how}): {lost} of {len(rows)} profiles miss "
+            "kernels")
+        for r in rows:
+            log(f"  missing {r['missing'] or 'none'}, {r['n_device_events']} "
+                f"device events over {r['span_ms']:.1f} ms, by tenth "
+                f"{r['tenths']}")
+    return summary
+
+
+# ------------------------------------------------------------ the flash gate
+
+FLASH_KERNELS = ("flash_fwd", "flash_fwd_packed", "flash_fwd_wide",
+                 "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def attention_sites(run, grad: bool = False):
+    """{(T, S, D, heads, gradient wanted): calls} of the attention calls
+    ``run`` makes on the meta device (record_sites under the default
+    path's routes): the keys of the flash gate. ``grad`` leaves autograd
+    on (training; guidance's classifier), else the run is under
+    torch.no_grad() as sampling is."""
+    routes = {}
+    record_sites(run, FUSED_NORM_ALONE, grad=grad, routes=routes)
+    return routes
+
+
+def flash_counts(sites):
+    """{flash kernel: launches} of one call of a program with attention
+    ``sites``, as attention_route sends them on the card now (the gate
+    read from the environment): a kernel site launches its forward (the
+    packed kernel at D = 40, the wide one at D = 512) and, where a
+    gradient is wanted, dQ and dK/dV."""
+    from autodiffusion_tpu_torch.ops.flash_attention import (
+        PACKED_HEAD_DIMS, WIDE_HEAD_DIM, attention_route)
+
+    out = dict.fromkeys(FLASH_KERNELS, 0)
+    for (t, s, d, heads, grad), n in sites.items():
+        if attention_route(t, s, d, heads, grad, "cuda") != "kernel":
+            continue
+        fwd = ("flash_fwd_packed" if d in PACKED_HEAD_DIMS else
+               "flash_fwd_wide" if d == WIDE_HEAD_DIM else "flash_fwd")
+        out[fwd] += n
+        if grad:
+            out["flash_bwd_dq"] += n
+            out["flash_bwd_dkv"] += n
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sites_of_programs():
+    return program_sites()
+
+
+# the flash launches of one call of each program with every site on its
+# kernel (ADT_FLASH_GATE=0, the switches-on runs), fixed by the models'
+# widths: a guided DDIM step, the UNet's 22 forward-only sites and the
+# classifier's 13 with their backward; a training microbatch of the ADM-64
+# UNet and of the SR UNet, 22 sites each with their backward (44 an SR
+# step of two microbatches). The counts flash_counts derives from the
+# recorded sites and attention_route must meet them.
+FLASH_ANCHORS = {
+    "guided": {"flash_fwd": 35, "flash_bwd_dq": 13, "flash_bwd_dkv": 13},
+    "adm_train": {"flash_fwd": 22, "flash_bwd_dq": 22, "flash_bwd_dkv": 22},
+    "sr_train": {"flash_fwd": 22, "flash_bwd_dq": 22, "flash_bwd_dkv": 22},
+}
+
+
+def flash_per_call(program: str, env=None):
+    """flash_counts of one call of ``program`` (program_sites) under the
+    switches of ``env`` (the default path's if None); with the gate off,
+    held to the program's FLASH_ANCHORS."""
+    from autodiffusion_tpu_torch.ops.flash_attention import flash_gate_on
+
+    with switches(DEFAULT if env is None else env):
+        out = flash_counts(_sites_of_programs()[program])
+        anchor = FLASH_ANCHORS.get(program, {}) if not flash_gate_on() \
+            else {}
+    wrong = {k: (out[k], n) for k, n in anchor.items() if out[k] != n}
+    if wrong:
+        raise AssertionError(f"{program}: flash launches a call (derived, "
+                             f"literal) {wrong}")
+    return out
+
+
+def per_step(env=None, **new):
+    """{kernel: launches} of one guided DDIM step: the flash kernels as
+    the gate routes the step's sites under ``env``, the GroupNorm and conv
+    kernels as given (0 where not)."""
+    out = dict.fromkeys(KERNEL_INFO, 0)
+    out.update(flash_per_call("guided", env))
+    out.update(new)
+    return out
+
+
+# the SR models of the slice: sr-sample's defaults (the JAX CLI's flags,
+# guided-diffusion's 64 -> 256 upsampler widths; "16,8" with 4 heads: head
+# dim 192) and adt train --image_size 256 --sr_small_size 64's (train's
+# defaults: 3 res blocks, head width 64 at 32, 16 and 8)
+SR_LARGE, SR_SMALL = 256, 64
+SR_TRAIN_BATCH, SR_TRAIN_MICRO = 4, 2
+
+
+def sr_config(kind: str, **over):
+    from autodiffusion_tpu_torch.models import ModelConfig
+
+    if kind == "sample":
+        base = dict(image_size=SR_LARGE, num_channels=192, num_res_blocks=2,
+                    learn_sigma=True, noise_schedule="linear",
+                    class_cond=True, use_bf16=True)
+    else:
+        base = dict(image_size=SR_LARGE, num_channels=192, num_res_blocks=3,
+                    num_head_channels=64, attention_resolutions="32,16,8",
+                    class_cond=True, learn_sigma=True,
+                    noise_schedule="cosine", dropout=0.1,
+                    resblock_updown=True, use_scale_shift_norm=True,
+                    use_new_attention_order=True, use_bf16=True)
+    base.update(over)
+    return ModelConfig(**base)
+
+
+def program_sites():
+    """{program: attention sites of one of its calls}: the guided DDIM
+    step (the UNet without gradient, the classifier with the input's), the
+    SD UNet call, the ADM-64 training step (a microbatch), the classifier's
+    training step (train-classifier's defaults), the SR training step (a
+    microbatch) and the sr-sample UNet call, read on the meta device."""
+    import torch
+    from autodiffusion_tpu_torch.models import (SD_V1_UNET, ClassifierConfig,
+                                                ModelConfig, SDUNetModel,
+                                                create_classifier,
+                                                create_model, create_sr_model)
+
+    with torch.device("meta"):
+        unet = create_model(ModelConfig.adm64(), device="meta")
+        cls = create_classifier(ClassifierConfig.adm64(), device="meta")
+        cls.requires_grad_(False)
+        cls_train = create_classifier(ClassifierConfig(), device="meta")
+        sd_unet = SDUNetModel(**SD_V1_UNET)
+        sr_train = create_sr_model(sr_config("train"), SR_LARGE, SR_SMALL,
+                                   device="meta")
+        sr_sample = create_sr_model(sr_config("sample"), SR_LARGE, SR_SMALL,
+                                    device="meta")
+
+    def t():
+        return torch.zeros(1)
+
+    def y():
+        return torch.zeros(1, dtype=torch.long)
+
+    guided = attention_sites(lambda: unet(torch.empty(1, 3, 64, 64), t(),
+                                          y()))
+    for key, n in attention_sites(lambda: cls(
+            torch.empty(1, 3, 64, 64, requires_grad=True), t()),
+            grad=True).items():
+        guided[key] = guided.get(key, 0) + n
+    low = torch.empty(1, 3, SR_SMALL, SR_SMALL)
+    big = torch.empty(1, 3, SR_LARGE, SR_LARGE)
+    return {
+        "guided": guided,
+        "sd_unet": attention_sites(lambda: sd_unet(
+            torch.empty(1, 4, 64, 64), t(), torch.empty(1, 77, 768))),
+        "adm_train": attention_sites(lambda: unet(
+            torch.empty(1, 3, 64, 64), t(), y()), grad=True),
+        "classifier_train": attention_sites(lambda: cls_train.requires_grad_(
+            True)(torch.empty(1, 3, 64, 64), t()), grad=True),
+        "sr_train": attention_sites(lambda: sr_train(big, t(), low, y()),
+                                    grad=True),
+        "sr_sample": attention_sites(lambda: sr_sample(big, t(), low, y())),
+    }
+
+
+class _EverySite:
+    """A gate table that holds every site: the A/B's "SDPA" arm."""
+
+    def __contains__(self, key):
+        return True
+
+
+@contextlib.contextmanager
+def flash_arm(arm: str):
+    """The attention routes of one arm of the flash A/B: "kernels" every
+    site with a kernel on it (ADT_FLASH_GATE=0), "sdpa" every site on SDPA,
+    "f32_160" the D = 160 sites on the float32 twin (their route before
+    this A/B), every other site as the committed gate sends it."""
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    saved = (fa.FLASH_GATE_SDPA, fa.attention_route)
+    real = fa.attention_route
+
+    def f32_160(t, s, d, heads, grad, device):
+        return "twin" if d == 160 else real(t, s, d, heads, grad, device)
+
+    env = {"ADT_FLASH_GATE": "0" if arm == "kernels" else None}
+    try:
+        if arm == "sdpa":
+            fa.FLASH_GATE_SDPA = _EverySite()
+        elif arm == "f32_160":
+            fa.attention_route = f32_160
+        with switches(env):
+            yield
+    finally:
+        fa.FLASH_GATE_SDPA, fa.attention_route = saved
+
+
+@functools.lru_cache(maxsize=None)
+def _range_edge():
+    """An autograd identity on its tensors whose backward opens
+    (``opening``) or closes a profiler range: placed after a site's output
+    and before its inputs, it brackets the site's backward kernels."""
+    import torch
+
+    class RangeEdge(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, ranges, name, opening, *xs):
+            ctx.ranges, ctx.name, ctx.opening = ranges, name, opening
+            out = tuple(x.view_as(x) for x in xs)
+            return out if len(out) > 1 else out[0]
+
+        @staticmethod
+        def backward(ctx, *grads):
+            if ctx.opening:
+                ctx.ranges.append(torch.profiler.record_function(ctx.name))
+                ctx.ranges[-1].__enter__()
+            elif ctx.ranges:
+                ctx.ranges.pop().__exit__(None, None, None)
+            return (None, None, None) + grads
+
+    return RangeEdge
+
+
+def site_profiled(fn, q, k, v, key, route: str):
+    """``fn(q, k, v)`` inside a profiler range named ``attention T.. S..
+    D.. H.. fwd|grad <route>`` for the site ``key`` (T, S, D, heads,
+    gradient wanted), and its backward inside the same name plus
+    " backward", so that a profile attributes device time to each site
+    shape."""
+    import torch
+
+    t, s, d, heads, grad = key
+    name = (f"attention T{t} S{s} D{d} H{heads} "
+            f"{'grad' if grad else 'fwd'} {route}")
+    ranges = []
+    if grad:
+        q, k, v = _range_edge().apply(ranges, name + " backward", False,
+                                      q, k, v)
+    with torch.profiler.record_function(name):
+        out = fn(q, k, v)
+    if grad and out.requires_grad:
+        out = _range_edge().apply(ranges, name + " backward", True, out)
+    return out
+
+
+@contextlib.contextmanager
+def site_ranges():
+    """Every attention site's work (ops/flash_attention ``_attend``, which
+    ``routed_attention`` calls for both models' sites) inside its
+    ``site_profiled`` ranges."""
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    real = fa._attend
+
+    def ranged(key, route, q, k, v, tokens_first):
+        return site_profiled(
+            lambda q, k, v: real(key, route, q, k, v, tokens_first),
+            q, k, v, key, route)
+
+    fa._attend = ranged
+    try:
+        yield
+    finally:
+        fa._attend = real
+
+
+def site_ms(prof):
+    """{(T, S, D, heads, grad): device ms} of a profile's attention ranges
+    (``site_ranges``: a site's forward and, where a gradient flows, its
+    backward), summed over the site's calls: each
+    range's span on the device (the profiler's GPU-side copy of the range,
+    from its first kernel to its last) holds the kernels of the call alone
+    (one stream), and the site's time is the sum of their durations. (The
+    CPU-side range's device time misses the kernels the port launches
+    through ctypes: the profiler links a kernel to the innermost operator,
+    and a user range is none.)"""
+    import bisect
+
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False)
+                  and "spin_kernel" not in e.name)
+    starts = [k[0] for k in kern]
+    out = {}
+    for e in prof.events():
+        if e.device_type != cuda or not e.name.startswith("attention T"):
+            continue
+        m = re.match(r"attention T(\d+) S(\d+) D(\d+) H(\d+) (fwd|grad)",
+                     e.name)
+        key = (int(m[1]), int(m[2]), int(m[3]), int(m[4]), m[5] == "grad")
+        lo = bisect.bisect_left(starts, e.time_range.start)
+        ms = 0.0
+        for a, b in kern[lo:]:
+            if a > e.time_range.end:
+                break
+            if b <= e.time_range.end:
+                ms += (b - a) / 1e3
+        out[key] = out.get(key, 0.0) + ms
+    return out
+
+
+def flash_programs(unet_sd, cls_sd):
+    """{program: (one run of it on the card, its attention sites' unit)}:
+    a guided DDIM-2 run at batch 32 (ADM-64, bf16), an SD v1 UNet call at
+    batch 16 (bf16, random weights), an ADM-64 training step of one
+    microbatch of 8 and an SR training step of one microbatch of 2 (256
+    from 64), the commands' microbatches, each at full width; the training
+    steps in train mode with dropout."""
+    import torch
+    from autodiffusion_tpu_torch.models import (SD_V1_UNET, ModelConfig,
+                                                SDUNetModel, create_model,
+                                                create_sr_model)
+    from autodiffusion_tpu_torch.schedules import build_base_tables
+    from autodiffusion_tpu_torch.train import (create_train_state,
+                                               make_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    guided, _ = guided_run(unet_sd, cls_sd, steps=2)
+    with torch.device("cuda"):
+        sd_unet = SDUNetModel(**SD_V1_UNET, dtype=torch.bfloat16).eval()
+    sd_unet.requires_grad_(False)
+    sd_x = torch.randn(SD_UNET_BATCH, 4, 64, 64, device="cuda",
+                       generator=gen)
+    sd_t = torch.full((SD_UNET_BATCH,), 500.0, device="cuda")
+    sd_ctx = torch.randn(SD_UNET_BATCH, 77, 768, device="cuda", generator=gen)
+
+    def sd_call():
+        with torch.no_grad():
+            return sd_unet(sd_x, sd_t, sd_ctx)
+
+    def train_step(model, batch, micro):
+        state = create_train_state(model, ema_rates=(0.9999,))
+        step = make_train_step(model, class_cond=True, microbatches=micro)
+        tables = build_base_tables("cosine").to("cuda")
+        n = batch["x"].shape[0]
+        t = torch.randint(0, 1000, (n,), device="cuda", generator=gen)
+        w = torch.ones(n, device="cuda")
+        return lambda: step(state, tables, batch, t, w, gen)[1]["loss"]
+
+    torch.manual_seed(0)
+    adm = create_model(ModelConfig.adm64(), device="cuda").train()
+    adm_batch = {"x": torch.rand(TRAIN_MICRO, 3, 64, 64, device="cuda",
+                                 generator=gen) * 2 - 1,
+                 "y": torch.randint(0, 1000, (TRAIN_MICRO,), device="cuda",
+                                    generator=gen)}
+    sr = create_sr_model(sr_config("train"), SR_LARGE, SR_SMALL,
+                         device="cuda").train()
+    x = torch.rand(SR_TRAIN_MICRO, 3, SR_LARGE, SR_LARGE, device="cuda",
+                   generator=gen) * 2 - 1
+    sr_batch = {"x": x, "low_res": torch.nn.functional.avg_pool2d(
+        x, SR_LARGE // SR_SMALL),
+        "y": torch.randint(0, 1000, (SR_TRAIN_MICRO,), device="cuda",
+                           generator=gen)}
+    return {"guided": (guided, "guided DDIM-2 run (2 steps)"),
+            "sd_unet": (sd_call, "UNet call"),
+            "adm_train": (train_step(adm, adm_batch, 1),
+                          "training step of one microbatch"),
+            "sr_train": (train_step(sr, sr_batch, 1),
+                         "training step of one microbatch")}
+
+
+def phase_flash_ab(unet_sd, cls_sd, sites, rounds: int = 2):
+    """The flash gate's A/B (rule 4), inside each program that owns
+    attention sites: every site on its kernel ("kernels",
+    ADT_FLASH_GATE=0) against every site on SDPA ("sdpa"), and in the SD
+    UNet call the D = 160 sites on the float32 twin ("f32_160"), ``rounds``
+    rounds with the arms in turn; each run profiled (``profiled``), the
+    device time of each site shape read from its profiler ranges (forward
+    and backward together). A site goes to SDPA where its SDPA time is
+    below the kernel's in every round by more than the spread of the
+    rounds (the larger of the two arms' max - min). Also each run's device
+    busy time and the profiled kernels against the launch counters.
+    Returns {program: {...}} and the sites the A/B sends to SDPA."""
+    import torch
+
+    programs = flash_programs(unet_sd, cls_sd)
+    res, gate = {}, set()
+    for name, (fn, unit) in programs.items():
+        arms = ["kernels", "sdpa"] + (["f32_160"] if name == "sd_unet"
+                                      else [])
+        per = {arm: [] for arm in arms}
+        busy = {arm: [] for arm in arms}
+        by_name = {}
+        for rnd in range(rounds):
+            for arm in (arms if rnd % 2 == 0 else arms[::-1]):
+                with flash_arm(arm), site_ranges():
+                    prof, launches, out = profiled(fn, warm=True)
+                if not torch.isfinite(torch.as_tensor(out)).all():
+                    raise AssertionError(f"flash A/B {name} {arm}: "
+                                         "non-finite output")
+                counts = profile_counts(prof)
+                lost = {k: (counts[k], launches[k]) for k in counts
+                        if counts[k] != launches.get(k, 0)}
+                if lost:
+                    raise AssertionError(f"flash A/B {name} {arm}: profiled "
+                                         f"kernels != launches {lost}")
+                ms = site_ms(prof)
+                missing = set(sites[name]) - set(ms)
+                if missing or any(v <= 0 for v in ms.values()):
+                    raise AssertionError(
+                        f"flash A/B {name} {arm}: no device time for sites "
+                        f"{sorted(missing)} ({ms})")
+                per[arm].append(ms)
+                b_ms, kernels = device_busy(prof, 1)
+                busy[arm].append(b_ms)
+                by_name[arm] = {e.key: e.self_device_time_total / 1e3
+                                for e in kernels}
+        rows = []
+        for key in sorted(sites[name]):
+            k_ms = [r[key] for r in per["kernels"]]
+            s_ms = [r[key] for r in per["sdpa"]]
+            spread = max(max(k_ms) - min(k_ms), max(s_ms) - min(s_ms))
+            to_sdpa = all(k - s > spread for k, s in zip(k_ms, s_ms))
+            row = dict(site=list(key), calls=sites[name][key],
+                       kernel_ms=k_ms, sdpa_ms=s_ms, spread_ms=spread,
+                       to_sdpa=to_sdpa)
+            if "f32_160" in per and key[2] == 160:
+                row["f32_twin_ms"] = [r[key] for r in per["f32_160"]]
+            rows.append(row)
+            has_kernel = _gate_off_route(key) == "kernel"
+            if to_sdpa and has_kernel:
+                gate.add(key)
+            twin = ""
+            if "f32_twin_ms" in row:
+                twin = (", float32 twin "
+                        f"{['%.4f' % v for v in row['f32_twin_ms']]} ms")
+            route = ("SDPA (no kernel: by shape)" if not has_kernel
+                     else "SDPA" if to_sdpa else "kernel")
+            log(f"flash A/B {name} {key}: x{sites[name][key]} kernels "
+                f"{['%.4f' % v for v in k_ms]} ms, SDPA "
+                f"{['%.4f' % v for v in s_ms]} ms{twin} (spread "
+                f"{spread:.4f}) -> {route}")
+        # where the arms' device time differs, by kernel (the last round)
+        names = set(by_name["kernels"]) | set(by_name["sdpa"])
+        diff = sorted(((by_name["sdpa"].get(n, 0.0)
+                        - by_name["kernels"].get(n, 0.0), n) for n in names),
+                      key=lambda d: -abs(d[0]))[:8]
+        res[name] = dict(unit=unit, rows=rows,
+                         busy_ms={arm: v for arm, v in busy.items()},
+                         sdpa_minus_kernels_ms=[(round(d, 4), n[:100])
+                                                for d, n in diff])
+        log(f"flash A/B {name}: device busy a {unit}: " + ", ".join(
+            f"{arm} {['%.3f' % v for v in b]} ms" for arm, b in busy.items()))
+        for d, n in diff:
+            log(f"flash A/B {name}: sdpa - kernels {d:+.4f} ms  {n[:110]}")
+    del programs
+    torch.cuda.empty_cache()
+    committed = set(sys.modules[
+        "autodiffusion_tpu_torch.ops.flash_attention"].FLASH_GATE_SDPA)
+    log(f"flash A/B: the sites it sends to SDPA {sorted(gate)}; the "
+        f"committed gate {sorted(committed)} "
+        f"({'the same' if gate == committed else 'differs'})")
+    return res, sorted(gate)
+
+
+def _gate_off_route(key):
+    from autodiffusion_tpu_torch.ops.flash_attention import attention_route
+
+    with switches({"ADT_FLASH_GATE": "0"}):
+        return attention_route(*key, "cuda")
+
+
 def phase_profile(unet_sd, cls_sd):
     """One guided DDIM-4 run at batch 32, full width, bf16: host-clock time
     per step, then the same run under torch.profiler for device time by
     kernel. Device busy share = summed kernel time / unprofiled wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     run, _ = guided_run(unet_sd, cls_sd)
     run()
@@ -1279,10 +1976,7 @@ def phase_profile(unet_sd, cls_sd):
         walls.append((time.time() - t0) * 1e3 / 4)
     step_ms = sorted(walls)[1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof = profiled(run)[0]
     busy_ms, kernels = device_busy(prof, 4)
     flash_ms = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key) / 1e3 / 4
@@ -1301,11 +1995,12 @@ def phase_profile(unet_sd, cls_sd):
     for line in lines[:8]:
         log("profile: " + line)
     own = {}
+    routed = flash_per_call("guided")
     for label, tag in (("flash_fwd", "flash_fwd_tma_kernel"),
                        ("flash_bwd_dq", "flash_bwd_dq_tma_kernel"),
                        ("flash_bwd_dkv", "flash_bwd_dkv_tma_kernel")):
         sel = [e for e in kernels if tag in e.key]
-        if not sel:
+        if not sel and routed[label]:
             raise AssertionError(f"profile: no {tag} in the step")
         for line in profile_lines(sel, 4):
             log(f"profile ({label}): " + line)
@@ -1628,21 +2323,22 @@ KERNEL_INFO.update({
 })
 
 
-def record_sites(run, env):
+def record_sites(run, env, grad: bool = False, routes=None):
     """{kernel: {site: calls}} of the model forwards ``run`` makes on the
     meta device (shapes only) under the switches of ``env``, each kernel
     wrapper replaced by a recorder. Attention sites are (T, S, heads, D,
     lead): ``lead`` the leading dim a call hands the kernel at batch 1
     (1 on the token-major layout, the heads on the ADM blocks' [B H, T,
     D] and the wide kernel's heads-first layout); GroupNorm sites (C, HW,
-    act, FiLM, eps); conv sites as adm64_sites()'s."""
-    import sys as _sys
-
+    act, FiLM, eps); conv sites as adm64_sites()'s. The run is under
+    torch.no_grad() (the commands sample) unless ``grad``. ``routes``, a
+    dict, receives {(T, S, D, heads, gradient wanted): calls} of the
+    attention calls, read where each asks ``attention_route`` for its
+    route (the flash gate's keys)."""
     import torch
     from autodiffusion_tpu_torch.models import nn as port_nn
-    from autodiffusion_tpu_torch.models import unet as port_unet
 
-    fa = _sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
     cur = {}
 
     def add(kernel, key):
@@ -1652,7 +2348,7 @@ def record_sites(run, env):
     def gn(x, gamma, beta, *, scale=None, shift=None, num_groups, eps, act):
         add("group_norm_fwd", (x.shape[1], math.prod(x.shape[2:]), act,
                                scale is not None, eps))
-        return torch.empty_like(x)
+        return x.clone()       # keeps x's gradient: the sites after it ask
 
     def conv_out(x, w):
         return torch.empty((x.shape[0], w.shape[0], *x.shape[2:]),
@@ -1684,22 +2380,31 @@ def record_sites(run, env):
         fwd(q, k, v)
         return torch.empty_like(q)
 
+    real_route = fa.attention_route
+    seen = {} if routes is None else routes
+
+    def route(t, s_len, d, heads, g, device):
+        key = (t, s_len, d, heads, g)
+        seen[key] = seen.get(key, 0) + 1
+        return real_route(t, s_len, d, heads, g, device)
+
     saved = {n: getattr(port_nn, n)
              for n in ("fused_group_norm", "conv3x3", "conv3x3_fused")}
-    saved_fa = (fa.flash_fwd_packed, fa.flash_fwd)
-    saved_unet = port_unet.flash_attention
+    saved_fa = (fa.flash_fwd_packed, fa.flash_fwd, fa.attention_route,
+                fa.flash_attention)
     port_nn.fused_group_norm, port_nn.conv3x3 = gn, conv
     port_nn.conv3x3_fused = fused
     fa.flash_fwd_packed, fa.flash_fwd = packed, fwd
-    port_unet.flash_attention = adm_attention
+    fa.attention_route, fa.flash_attention = route, adm_attention
     try:
-        with switches(env), torch.device("meta"):
+        with switches(env), torch.device("meta"), \
+                torch.set_grad_enabled(grad):
             run()
     finally:
         for n, fn in saved.items():
             setattr(port_nn, n, fn)
-        fa.flash_fwd_packed, fa.flash_fwd = saved_fa
-        port_unet.flash_attention = saved_unet
+        (fa.flash_fwd_packed, fa.flash_fwd, fa.attention_route,
+         fa.flash_attention) = saved_fa
     for kernel in SD_KERNELS:
         cur.setdefault(kernel, {})
     return cur
@@ -1983,7 +2688,6 @@ def phase_sd_profile(weights, label: str = "default"):
     ``..._sd_off.txt`` with the switches off, ``..._sd_fused.txt`` with
     them on)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from autodiffusion_tpu_torch.models import SD_SCALE_FACTOR
     from autodiffusion_tpu_torch.samplers import cfg_eps_fn, plms_sample_loop
     from autodiffusion_tpu_torch.schedules import build_sd_tables
@@ -2016,14 +2720,8 @@ def phase_sd_profile(weights, label: str = "default"):
         if not torch.isfinite(img).all():
             raise AssertionError("SD profile: non-finite decode")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof_u:
-            sample()
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof_d:
-            decode(z)
-            torch.cuda.synchronize()
+        prof_u = profiled(sample)[0]
+        prof_d = profiled(lambda: decode(z))[0]
     calls = 5
     wall_call = (t1 - t0) * 1e3 / calls
     busy_call, k_u = device_busy(prof_u, calls)
@@ -2068,12 +2766,15 @@ def phase_sd_profile(weights, label: str = "default"):
         log("SD profile (UNet): " + line)
     for line in lines_d[:4]:
         log("SD profile (decode): " + line)
-    # the three pipelined forwards' own lines
+    # the three pipelined forwards' own lines, where the gate (read from
+    # the environment) keeps the UNet's sites on them
+    routed = flash_counts(_sites_of_programs()["sd_unet"])
     for part, kernels, steps, name in (("UNet", k_u, calls, "flash_fwd_packed"),
                                        ("UNet", k_u, calls, "flash_fwd_tma"),
                                        ("decode", k_d, 1, "flash_fwd_wide")):
         mine = [e for e in kernels if name + "_kernel" in e.key]
-        if not mine:
+        if not mine and (part == "decode" or routed[
+                name.replace("_tma", "")]):
             raise AssertionError(f"SD profile: no {name} kernel in the {part}")
         for line in profile_lines(mine, steps):
             log(f"SD profile ({part}, {name}): " + line)
@@ -2203,12 +2904,13 @@ MICROBATCHES = TRAIN_BATCH // TRAIN_MICRO
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-def train_kernels(env):
-    """The kernels a training step launches on the card under the
-    switches of ``env``: the flash forward and backward, the GroupNorm
-    forward and backward unless ADT_FUSED_NORM=0, each conv kernel under
-    its switch."""
-    out = list(TRAIN_KERNELS)
+def train_kernels(env, program: str = "adm_train"):
+    """The kernels a training step of ``program`` launches on the card
+    under the switches of ``env``: the flash forward and backward where
+    the gate keeps a site on them, the GroupNorm forward and backward
+    unless ADT_FUSED_NORM=0, each conv kernel under its switch."""
+    flash = flash_per_call(program, env)
+    out = [k for k in TRAIN_KERNELS if flash[k]]
     if env.get("ADT_FUSED_NORM") != "0":
         out += ["group_norm_fwd", "group_norm_bwd"]
     if env.get("ADT_IM2COL_CONV") == "1":
@@ -2296,7 +2998,8 @@ def phase_train(files, env, label: str):
     16 in two microbatches, EMA 0.9999) for 4 steps with a save at step 2,
     then ``--resume_checkpoint`` of the save directory for 2 more: the
     launch counters set to 0 just before each run and read just after
-    (every step the same launches; the flash kernels 22 a microbatch; with
+    (every step the same launches; the flash kernels as the gate routes
+    the 22 sites of a microbatch (switches on: all of them); with
     the switches on the GroupNorm backward once for every GroupNorm
     forward and the fused conv only at the in-norms, the out-norm's
     dropout keeping it out), finite losses, the files, the resumed state
@@ -2368,16 +3071,16 @@ def phase_train(files, env, label: str):
     if per != runs["resumed"]["per_step"]:
         raise AssertionError(f"train {label}: launches a step "
                              f"{per} then {runs['resumed']['per_step']}")
-    want_flash = 22 * MICROBATCHES
+    flash = flash_per_call("adm_train", env)
     on = env is SWITCHES_ON
     routed = train_kernels(env)
     for k in routed:
         if not per[k]:
             raise AssertionError(f"train {label}: {k} never launched")
     for k in TRAIN_KERNELS:
-        if per[k] != want_flash:
+        if per[k] != flash[k] * MICROBATCHES:
             raise AssertionError(f"train {label}: {per[k]} {k} a step, want "
-                                 f"{want_flash}")
+                                 f"{flash[k] * MICROBATCHES}")
     if on:
         fused = _in_norm_sites() * MICROBATCHES
         if per["group_norm_bwd"] != per["group_norm_fwd"] or \
@@ -2422,9 +3125,7 @@ def phase_train_profile(env, label: str, steps: int = 3):
     backward's form (wherever it runs, every call must launch its batch
     sum: the every-gradient form)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from autodiffusion_tpu_torch.models import ModelConfig, create_model
-    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
     from autodiffusion_tpu_torch.schedules import build_base_tables
     from autodiffusion_tpu_torch.train import (create_train_state,
                                                make_train_step)
@@ -2458,13 +3159,12 @@ def phase_train_profile(env, label: str, steps: int = 3):
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3 / steps
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        def many():
             for _ in range(steps):
                 one()
-            torch.cuda.synchronize()
-        per = _per_step(dict(LAUNCHES), steps, f"train profile {label}")
+
+        prof, launched, _ = profiled(many)
+        per = _per_step(launched, steps, f"train profile {label}")
     busy, kernels = device_busy(prof, steps)
     loss = float(metrics["loss"])
     if not math.isfinite(loss):
@@ -2514,10 +3214,12 @@ def phase_train_profile(env, label: str, steps: int = 3):
                 batch_sums=batch_sums, own_ms=own, loss=loss, top=lines)
 
 
-def phase_train_classifier(files, env, label: str, steps: int = 3):
+def phase_train_classifier(files, env, label: str, steps: int = 3,
+                           extra=()):
     """``adt-torch train-classifier`` at its defaults (width 128, depth 2,
-    attention pool, bf16, batch 4 raised to 16) for a few steps: finite
-    losses and the kernels' launches a step."""
+    attention pool, bf16, batch 4 raised to 16; ``extra`` flags after
+    them) for a few steps: finite losses and the kernels' launches a
+    step."""
     import json as _json
 
     import torch
@@ -2531,7 +3233,7 @@ def phase_train_classifier(files, env, label: str, steps: int = 3):
         rc = adt_torch(["train-classifier", "--device", "cuda", "--data_dir",
                         files["pngs"], "--save_dir", save_dir,
                         "--iterations", str(steps), "--batch_size", "16",
-                        "--log_interval", "1"])
+                        "--log_interval", "1"] + list(extra))
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(LAUNCHES)
@@ -2543,7 +3245,7 @@ def phase_train_classifier(files, env, label: str, steps: int = 3):
     if len(rows) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train-classifier ({label}): {rows}")
     per = _per_step(launches, steps, f"train-classifier {label}")
-    for k in train_kernels(env):
+    for k in train_kernels(env, "classifier_train"):
         if not per[k]:
             raise AssertionError(f"train-classifier ({label}): {k} never "
                                  "launched")
@@ -3204,18 +3906,352 @@ def phase_ldm_parity(ldm):
     return errs
 
 
-def main() -> int:
+# ------------------------------------------------------- super-resolution
+
+SR_SAMPLES = 2
+
+
+def sr_sites(env=FUSED_NORM_ALONE):
+    """record_sites of the SR models' calls at full width under the
+    switches of ``env``: sr-sample's UNet call ("sample", batch 1 from a
+    64 x 64 low-res image) and the SR training step's forward ("train",
+    train's defaults, with gradients)."""
+    import torch
+    from autodiffusion_tpu_torch.models import create_sr_model
+
+    with torch.device("meta"):
+        models = {kind: create_sr_model(sr_config(kind), SR_LARGE, SR_SMALL,
+                                        device="meta")
+                  for kind in ("sample", "train")}
+    models["train"].train()
+
+    def call(kind):
+        return lambda: models[kind](
+            torch.empty(1, 3, SR_LARGE, SR_LARGE), torch.zeros(1),
+            torch.empty(1, 3, SR_SMALL, SR_SMALL),
+            torch.zeros(1, dtype=torch.long))
+
+    return {"sample": record_sites(call("sample"), env),
+            "train": record_sites(call("train"), env, grad=True)}
+
+
+# the spatial_v2 classifier head's GroupNorm: 2048 channels, one position
+SPATIAL_V2_GN = (2048, 1, "silu", False)
+
+
+def phase_sr_kernels(sites_on, sites_default):
+    """The flash and GroupNorm kernels (and, at the switched-on training
+    step's sites, the conv kernels) against their twins at every new site
+    of the SR models, bf16 and fp32, with the sabotaged runs: the flash
+    forward, dQ and dK/dV at the SR training step's attention sites (head
+    dim 64: T 1024 with 6 heads, T 256 and 64 with 12) at its microbatch
+    of 2, whatever the gate routes; the GroupNorm forward at every
+    GroupNorm of sr-sample's and the training step's UNets and its
+    backward at the training step's, at batch 2; the spatial_v2 head's
+    GroupNorm at one position, forward and backward, at train-classifier's
+    batch 16. Returns the rows."""
+    with switches({"ADT_FLASH_GATE": "0"}):
+        train_attn = _sites_of_programs()["sr_train"]
+    shapes = sorted({(t, h) for (t, s_len, d, h, g) in train_attn
+                     if d == HEAD_DIM and g}, reverse=True)
+    rows = phase_kernels(shapes, SR_TRAIN_MICRO)
+    gn = dict(sites_default["sample"]["group_norm_fwd"])
+    for key, n in sites_default["train"]["group_norm_fwd"].items():
+        gn[key] = gn.get(key, 0) + n
+    rows += phase_new_kernels(
+        {"group_norm_fwd": gn,
+         "group_norm_bwd": dict(sites_default["train"]["group_norm_fwd"]),
+         "conv3x3": sites_on["train"].get("conv3x3", {}),
+         "conv3x3_fused": sites_on["train"].get("conv3x3_fused", {})},
+        SR_TRAIN_MICRO, reps=3)
+    rows += phase_new_kernels(
+        {"group_norm_fwd": {SPATIAL_V2_GN: 1},
+         "group_norm_bwd": {SPATIAL_V2_GN: 1}, "conv3x3": {},
+         "conv3x3_fused": {}}, 16, reps=5)
+    return rows
+
+
+def _sr_weights(seed: int = 31):
+    """sr-sample's SR UNet at full width with seeded random weights (the
+    state dict: guided-diffusion's plain UNet keys)."""
+    from autodiffusion_tpu_torch.models import create_sr_model, random_init_
+
+    m = random_init_(create_sr_model(sr_config("sample", use_bf16=False),
+                                     SR_LARGE, SR_SMALL, device="cpu"), seed)
+    return m.state_dict()
+
+
+def phase_sr_parity(sr_sd, size: int = 128):
+    """Two DDIM steps (eta 0, linear schedule respaced to 2 steps, x_T
+    injected) of sr-sample's full-width SR UNet in float32 on the GPU (the
+    default path: the fused GroupNorm; SDPA at the head dim 192 that has
+    no kernel) against the CPU twins, TF32 off, conditioned on a seeded
+    low-res image and a label; at ``size`` (128: the 256 model's widths,
+    channel_mult and attention levels, at a quarter of the pixels for the
+    CPU), within 1e-3 x the output's scale. Returns (error, scale,
+    launches on the GPU)."""
+    import torch
+    from autodiffusion_tpu_torch.models import create_sr_model
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.samplers import ddim_sample_loop
+    from autodiffusion_tpu_torch.schedules import build_tables
+
+    gen = torch.Generator().manual_seed(3)
+    x_t = torch.randn(1, 3, size, size, generator=gen)
+    low = torch.rand(1, 3, size // 4, size // 4, generator=gen) * 2 - 1
+    y = torch.tensor([417])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    outs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            t0 = time.time()
+            with switches(DEFAULT):
+                m = create_sr_model(sr_config("sample", use_bf16=False),
+                                    SR_LARGE, SR_SMALL, device=dev)
+                m.load_state_dict(sr_sd)
+                m.requires_grad_(False)
+                tables = build_tables("ddim2",
+                                      base_schedule="linear").to(dev)
+                lo, yy = low.to(dev), y.to(dev)
+                reset_launch_counts()
+                with torch.no_grad():
+                    outs[dev] = ddim_sample_loop(
+                        lambda x, t, i: m(x, t, lo, yy), x_t.shape, tables,
+                        device=dev, noise=x_t.to(dev)).cpu()
+                launches = dict(LAUNCHES)
+            log(f"SR parity on {dev}: {time.time() - t0:.1f} s")
+            del m
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(outs["cpu"].abs().max())
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    if not (torch.isfinite(outs["cuda"]).all() and err <= 1e-3 * scale):
+        raise AssertionError(f"SR parity: GPU and CPU {err:.3e} apart "
+                             f"(scale {scale:.3e})")
+    if not launches["group_norm_fwd"] or any(launches[k] for k in
+                                             FLASH_KERNELS):
+        raise AssertionError(f"SR parity: GPU launches {launches} (want "
+                             "the GroupNorm forward, and SDPA at D = 192)")
+    log(f"SR parity: DDIM-2 of the 256 model's widths at {size} x {size}, "
+        f"float32, GPU vs CPU max |d| {err:.3e} (scale {scale:.3e}, limit "
+        f"1e-3 x scale), GPU launches {launches}")
+    return dict(err=err, scale=scale, size=size, launches=launches)
+
+
+def sr_files(sr_sd):
+    """sr-sample's inputs (the seeded SR weights as a .pt, two seeded
+    64 x 64 base samples with labels) and SR training data: 8 seeded
+    256 x 256 PNGs of two classes and their 64 x 64 partners (block
+    means) for --lq_dir."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    d = os.path.join(WORK, "sr")
+    for sub in ("hi", "lq"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    torch.save(sr_sd, os.path.join(d, "sr.pt"))
+    rng = np.random.RandomState(17)
+    np.savez(os.path.join(d, "base.npz"),
+             arr_0=rng.randint(0, 256, (SR_SAMPLES, SR_SMALL, SR_SMALL, 3),
+                               dtype=np.uint8),
+             arr_1=rng.randint(0, 1000, SR_SAMPLES))
+    f = SR_LARGE // SR_SMALL
+    for i in range(8):
+        low = rng.randint(0, 256, (SR_SMALL, SR_SMALL, 3), dtype=np.uint8)
+        hi = np.repeat(np.repeat(low, f, 0), f, 1)
+        hi = np.clip(hi.astype(np.int32) + rng.randint(-8, 8, hi.shape),
+                     0, 255).astype(np.uint8)
+        name = f"c{i % 2}_{i}.png"
+        Image.fromarray(hi).save(os.path.join(d, "hi", name))
+        Image.fromarray(low).save(os.path.join(d, "lq", name))
+    return dict(pt=os.path.join(d, "sr.pt"),
+                base=os.path.join(d, "base.npz"),
+                hi=os.path.join(d, "hi"), lq=os.path.join(d, "lq"))
+
+
+def phase_sr_sample(files, sites):
+    """``adt-torch sr-sample`` at its defaults (bf16, DDIM over all 1000
+    steps of the linear schedule, class-conditional) on two seeded 64 x 64
+    base samples at batch 2, the default path: the .npz holds uint8
+    [2, 256, 256, 3]; the launch counters, set to 0 just before and read
+    just after, equal the UNet call's per-call counts times 1000 (the
+    GroupNorm forward; no flash kernel: head dim 192 takes SDPA);
+    images/s from the command's own clock, peak memory."""
+    import numpy as np
+
+    out = os.path.join(WORK, "sr", "sr_samples.npz")
+    want = _expected({"sr": sites["sample"]}, {"sr": 1000})
+    res = _run_command(["sr-sample", "--device", "cuda", "--model_path",
+                        files["pt"], "--base_samples", files["base"],
+                        "--num_samples", str(SR_SAMPLES), "--batch_size",
+                        str(SR_SAMPLES), "--out", out], "sr-sample", want)
+    with np.load(out) as z:
+        if z.files != ["arr_0"]:
+            raise AssertionError(f"sr-sample: {z.files}")
+        arr = z["arr_0"]
+    if arr.dtype != np.uint8 or arr.shape != (SR_SAMPLES, SR_LARGE,
+                                              SR_LARGE, 3):
+        raise AssertionError(f"sr-sample: {arr.dtype} {arr.shape}")
+    n, secs = re.findall(r"super-resolved (\d+)/\d+ \(([\d.]+) s\)",
+                         res["text"])[-1]
+    ips = int(n) / float(secs)
+    log(f"sr-sample: {SR_SAMPLES} images 64 -> 256, DDIM-1000, bf16, "
+        f"{ips:.4f} images/s ({float(secs):.1f} s of sampling), peak memory "
+        f"{res['peak_gb']:.2f} GB, launches {res['launches']} (= the UNet "
+        f"call's {per_call(sites['sample'])} x 1000)")
+    return dict(res, images_per_s=ips, sample_s=float(secs))
+
+
+def phase_sr_train(files, env, label: str, lq: bool, steps: int = 3):
+    """``adt-torch train --image_size 256 --sr_small_size 64`` at train's
+    defaults (bf16, dropout 0.1, 3 res blocks, head width 64), batch 4 in
+    two microbatches, ``steps`` steps over the seeded PNGs, low_res
+    derived (area downsampling) or from --lq_dir, no checkpoint written:
+    finite losses, the same launches every step (the counters set to 0
+    just before and read just after), the flash kernels as the gate routes
+    the step's sites, on the default path every GroupNorm32 forward and
+    backward, with the switches on one GroupNorm backward a forward and
+    the fused conv at the in-norms; the command's step time, peak
+    memory."""
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+    from autodiffusion_tpu_torch.models import create_sr_model
+    from autodiffusion_tpu_torch.models.unet import ResBlock
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    save_dir = os.path.join(WORK, f"sr_train_{label}")
+    micro = SR_TRAIN_BATCH // SR_TRAIN_MICRO
+    argv = ["train", "--device", "cuda", "--data_dir", files["hi"],
+            "--save_dir", save_dir, "--image_size", str(SR_LARGE),
+            "--sr_small_size", str(SR_SMALL), "--batch_size",
+            str(SR_TRAIN_BATCH), "--microbatch", str(SR_TRAIN_MICRO),
+            "--max_steps", str(steps), "--log_interval", "1",
+            "--save_interval", "0"] + (["--lq_dir", files["lq"]] if lq
+                                       else [])
+    with switches(env):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        rc = adt_torch(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"SR train ({label}) returned {rc}")
+    rows = _progress(save_dir)
+    losses = [r["loss"] for r in rows]
+    if len(rows) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"SR train ({label}): {rows}")
+    per = _per_step(launches, steps, f"SR train {label}")
+    flash = flash_per_call("sr_train", env)
+    for k in TRAIN_KERNELS:
+        if per[k] != flash[k] * micro:
+            raise AssertionError(f"SR train ({label}): {per[k]} {k} a step, "
+                                 f"want {flash[k] * micro}")
+    for k in train_kernels(env, "sr_train"):
+        if not per[k]:
+            raise AssertionError(f"SR train ({label}): {k} never launched")
+    with torch.device("meta"):
+        m = create_sr_model(sr_config("train"), SR_LARGE, SR_SMALL,
+                            device="meta")
+    if env is SWITCHES_ON:
+        in_norms = sum(isinstance(mod, ResBlock) and not mod.updown
+                       for mod in m.modules())
+        if per["group_norm_bwd"] != per["group_norm_fwd"] or \
+                per["conv3x3_fused"] != in_norms * micro:
+            raise AssertionError(f"SR train ({label}): launches a step {per}")
+    elif per["group_norm_fwd"] != gn_modules(m) * micro or \
+            per["group_norm_bwd"] != per["group_norm_fwd"]:
+        raise AssertionError(f"SR train ({label}): GroupNorm launches a step "
+                             f"{per} (want {gn_modules(m) * micro} each)")
+    step_s = sorted(r["step_time"] for r in rows[1:])
+    step_ms = 1e3 * step_s[len(step_s) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"SR train ({label}, low_res {'--lq_dir' if lq else 'derived'}): "
+        f"losses {[round(v, 4) for v in losses]}, command step time after "
+        f"the first {step_ms:.1f} ms, launches a step {per}, peak memory "
+        f"{peak:.2f} GB, wall {wall:.1f} s")
+    return dict(losses=losses, per_step=per, launches=launches,
+                command_step_ms=step_ms, peak_gb=peak, wall_s=wall)
+
+
+def phase_selftest():
+    """``adt-torch selftest`` on the card with a synthesized pytorch_fid
+    ``.pth`` (n_fixture 8): every consistency check passes (``passed``
+    true) and the digest is not the genuine file's (``certified``
+    false); its seconds. It launches none of the port's kernels."""
+    import torch
+    from autodiffusion_tpu_torch.fid import synthesize_pt_inception
+
+    path = os.path.join(WORK, "pt_inception_selftest.pth")
+    torch.save(synthesize_pt_inception(5), path)
+    res = _run_command(["selftest", "--device", "cuda", "--inception_path",
+                        path, "--n_fixture", "8", "--batch_size", "8"],
+                       "selftest", {})
+    out = json.loads(res["text"].strip().splitlines()[-1])
+    if out["passed"] is not True or out["certified"] is not False:
+        raise AssertionError(f"selftest: {out}")
+    log(f"selftest: passed {out['passed']}, certified {out['certified']}, "
+        f"{res['wall_s']:.1f} s; checks " + json.dumps(
+            {k: v for k, v in out["checks"].items()
+             if k != "weights_sha256"}))
+    return dict(res, result=out)
+
+
+def adm_weights():
+    """Seeded random weights at full ADM-64 width (UNet, classifier), built
+    on the CPU: their state dicts."""
+    from autodiffusion_tpu_torch.models import (ClassifierConfig,
+                                                ModelConfig,
+                                                create_classifier,
+                                                create_model, random_init_)
+
+    unet = random_init_(create_model(ModelConfig.adm64(dropout=0.0),
+                                     device="cpu"), 0)
+    cls = random_init_(create_classifier(ClassifierConfig.adm64(),
+                                         device="cpu"), 1)
+    log(f"models: UNet {sum(p.numel() for p in unet.parameters())} "
+        f"params ({unet.layer_num} layers), classifier "
+        f"{sum(p.numel() for p in cls.parameters())} params")
+    return unet.state_dict(), cls.state_dict()
+
+
+# the measurements run alone (``python3 chip_smoke.py <flag>``)
+MEASUREMENTS = ("--flash-ab", "--lost-events")
+
+
+def measure_alone(flag: str, smi: str) -> int:
+    """Run one measurement of MEASUREMENTS and write its record to
+    ``chiprun_out/chip_smoke_<name>.json``."""
+    unet_sd, cls_sd = adm_weights()
+    if flag == "--flash-ab":
+        res, gate = phase_flash_ab(unet_sd, cls_sd, _sites_of_programs())
+        rec = {"flash_ab": res, "flash_gate_from_ab": gate}
+    else:
+        rec = {"lost_events": phase_lost_events(unet_sd, cls_sd, tries=8)}
+    os.makedirs(OUT, exist_ok=True)
+    name = flag[2:].replace("-", "_")
+    with open(os.path.join(OUT, f"chip_smoke_{name}.json"), "w") as f:
+        json.dump(dict(rec, card=smi), f, indent=1)
+    print(smi)
+    return 0
+
+
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and (len(argv) > 1 or argv[0] not in MEASUREMENTS):
+        print(f"usage: chip_smoke.py [{' | '.join(MEASUREMENTS)}]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from autodiffusion_tpu_torch.models import (ClassifierConfig,
-                                                ModelConfig,
-                                                create_classifier,
-                                                create_model, random_init_)
     from autodiffusion_tpu_torch.ops import _build
 
     t_start = time.time()
@@ -3234,6 +4270,8 @@ def main() -> int:
         f"{_build.last_build_seconds():.1f} s")
     log(_build.ptxas_report())
     ptxas = phase_ptxas()
+    if argv:
+        return measure_alone(argv[0], smi)
 
     mark("build")
     rows = phase_kernels()
@@ -3246,16 +4284,7 @@ def main() -> int:
 
     os.makedirs(WORK, exist_ok=True)
     try:
-        # seeded random weights at full ADM-64 width, built on the CPU
-        unet = random_init_(create_model(ModelConfig.adm64(dropout=0.0),
-                                         device="cpu"), 0)
-        cls = random_init_(create_classifier(ClassifierConfig.adm64(),
-                                             device="cpu"), 1)
-        unet_sd, cls_sd = unet.state_dict(), cls.state_dict()
-        log(f"models: UNet {sum(p.numel() for p in unet.parameters())} "
-            f"params ({unet.layer_num} layers), classifier "
-            f"{sum(p.numel() for p in cls.parameters())} params")
-        del unet, cls
+        unet_sd, cls_sd = adm_weights()
         parity_err, _ = phase_parity(unet_sd, cls_sd, DEFAULT, "default")
         parity_on_err, parity_on_launches = phase_parity(
             unet_sd, cls_sd, SWITCHES_ON, "switches on")
@@ -3267,8 +4296,8 @@ def main() -> int:
         n_unet_gn, n_cls_gn = adm_gn_counts()
         # the default path's guided step: every GroupNorm32 of the UNet
         # and the classifier forward, the classifier's backward (dx alone)
-        per_step_default = dict(PER_STEP, group_norm_fwd=n_unet_gn + n_cls_gn,
-                                group_norm_bwd=n_cls_gn)
+        per_step_default = per_step(None, group_norm_fwd=n_unet_gn + n_cls_gn,
+                                    group_norm_bwd=n_cls_gn)
         with switches(DEFAULT):
             prof = phase_profile(unet_sd, cls_sd)
         mark("ADM profile")
@@ -3276,7 +4305,8 @@ def main() -> int:
         mark("ADM A/B")
         paths = search_files(unet_sd, cls_sd)
         search = phase_search(paths, DEFAULT, per_step_default, "default")
-        search_on = phase_search(paths, SWITCHES_ON, PER_STEP_FUSED,
+        search_on = phase_search(paths, SWITCHES_ON,
+                                 per_step(SWITCHES_ON, **PER_STEP_NEW_FUSED),
                                  "switches on")
         mark("ADM searches")
         sample = phase_sample(paths, per_step_default)
@@ -3338,10 +4368,11 @@ def main() -> int:
         sd_parity = phase_sd_parity(weights, {"default": DEFAULT,
                                               "switches on": SWITCHES_ON})
         mark("SD parity")
+        default_kernels = {k for part in ("unet", "decode")
+                           for k, v in per_call(sd_default[part]).items()
+                           if v}
         for label, kernels in (("switches on", SD_KERNELS),
-                               ("default", ("flash_fwd_packed", "flash_fwd",
-                                            "flash_fwd_wide",
-                                            "group_norm_fwd"))):
+                               ("default", sorted(default_kernels))):
             missing = [k for k in kernels if not sd_parity[label][1][k]]
             if missing:
                 raise AssertionError(f"the SD {label} parity run launched "
@@ -3373,7 +4404,11 @@ def main() -> int:
         gen_sites = dict(ldm_sites(), sd_encode=sd_default["encode"],
                          unet=sd_default["unet"], decode=sd_default["decode"],
                          encode=sd_default["encode"])
-        gen_attn_rows, gen_gn_rows = phase_gen_kernels(gen_sites)
+        # the kernels are held to their twins at every site, whatever the
+        # gate routes: the sites read with the gate off
+        every = dict(FUSED_NORM_ALONE, ADT_FLASH_GATE="0")
+        gen_attn_rows, gen_gn_rows = phase_gen_kernels(dict(
+            ldm_sites(every), sd_encode=sd_sites(every)["encode"]))
         mark("generation kernels")
         ldm_parity = phase_ldm_parity(ldm)
         mark("LDM parity")
@@ -3387,6 +4422,31 @@ def main() -> int:
         mark("ldm-sample")
         inpaint = phase_inpaint(paths, gen_sites)
         mark("inpaint")
+
+        # super-resolution, the classifier's spatial_v2 pool and selftest:
+        # the SR models' kernel sites, GPU-vs-CPU SR parity, sr-sample and
+        # SR training at full width, train-classifier with spatial_v2
+        sr_default, sr_on = sr_sites(FUSED_NORM_ALONE), sr_sites(SWITCHES_ON)
+        sr_rows = phase_sr_kernels(sr_on, sr_default)
+        mark("SR kernels")
+        sr_sd = _sr_weights()
+        sr_parity = phase_sr_parity(sr_sd)
+        mark("SR parity")
+        srf = sr_files(sr_sd)
+        del sr_sd
+        sr_sample = phase_sr_sample(srf, sr_default)
+        mark("sr-sample")
+        sr_train = {label: phase_sr_train(srf, env, label, lq)
+                    for label, env, lq in (("default", DEFAULT, False),
+                                           ("default lq_dir", DEFAULT, True),
+                                           ("on", SWITCHES_ON, False))}
+        mark("SR train")
+        cls_v2 = phase_train_classifier(files, DEFAULT, "spatial_v2",
+                                        extra=["--classifier_pool",
+                                               "spatial_v2"])
+        mark("train-classifier spatial_v2")
+        selftest = phase_selftest()
+        mark("selftest")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3403,7 +4463,8 @@ def main() -> int:
             + list(sample.values()) + list(train.values())
             + list(train_cls.values())
             + [r for k, r in txt2img.items() if k != "convert"]
-            + [img2img, inpaint] + list(ldm_sample.values()))
+            + [img2img, inpaint] + list(ldm_sample.values())
+            + [sr_sample, cls_v2, selftest] + list(sr_train.values()))
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNEL_INFO}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
@@ -3454,6 +4515,15 @@ def main() -> int:
                    "ldm_parity": ldm_parity, "txt2img": txt2img,
                    "img2img": img2img, "ldm_sample": ldm_sample,
                    "inpaint": inpaint,
+                   "sr_sites": {kind: {k: {str(s): n for s, n in v.items()}
+                                       for k, v in d.items()}
+                                for kind, d in sr_default.items()},
+                   "sr_kernel_rows": sr_rows, "sr_parity": sr_parity,
+                   "sr_sample": {k: v for k, v in sr_sample.items()
+                                 if k != "text"},
+                   "sr_train": sr_train, "train_classifier_spatial_v2":
+                       cls_v2, "selftest": selftest["result"],
+                   "selftest_s": selftest["wall_s"],
                    "phase_marks": marks, "ptxas_pipelined": ptxas,
                    "kernels_line": line,
                    "total_s": time.time() - t_start}, f, indent=1)

@@ -51,7 +51,9 @@ def _fresh_port_logger():
                                     ("img2img", "cmd_img2img"),
                                     ("ldm-sample", "cmd_ldm_sample"),
                                     ("inpaint", "cmd_inpaint"),
-                                    ("convert", "cmd_convert")])
+                                    ("convert", "cmd_convert"),
+                                    ("sr-sample", "cmd_sr_sample"),
+                                    ("selftest", "cmd_selftest")])
 def test_defaults_equal_the_jax_cli(monkeypatch, cmd, fn):
     seen = {}
     monkeypatch.setattr(jax_cli, fn, lambda args: seen.update(vars(args)) or 0)
@@ -243,10 +245,29 @@ def test_train_ofa_random_select_sandwich(npy_data, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(npy_data, tmp_path):
-    with pytest.raises(ValueError, match="item 11"):
-        main(_train_argv(npy_data, tmp_path, "--sr_small_size", "16"))
     with pytest.raises(ValueError, match="ofa_mode"):
         main(_train_argv(npy_data, tmp_path, "--ofa_mode", "every_step"))
+
+
+def test_train_sr_small_size_from_npy(npy_data, tmp_path, monkeypatch):
+    """--sr_small_size on the .npy bulk loader (no --lq_dir): low_res is
+    each batch's area downsampling, 32 -> 16, and the SR model trains."""
+    from autodiffusion_tpu_torch.models import SuperResModel
+
+    seen = []
+    real = SuperResModel.forward
+
+    def record(self, x, t, low_res, y=None, **kw):
+        seen.append((tuple(x.shape), tuple(low_res.shape)))
+        return real(self, x, t, low_res, y, **kw)
+
+    monkeypatch.setattr(SuperResModel, "forward", record)
+    out = tmp_path / "sr"
+    assert main(_train_argv(npy_data, out, "--sr_small_size", "16",
+                            "--max_steps", "1")) == 0
+    assert seen == [((2, 3, 32, 32), (2, 3, 16, 16))] * 2
+    sd = torch.load(out / "model000001.pt", weights_only=True)
+    assert sd["input_blocks.0.0.weight"].shape[1] == 6
 
 
 def test_adt_train_checkpoint_samples_in_the_port(tmp_path):

@@ -15,6 +15,7 @@ the decoder 8) and at batch 1. A plan must:
 * where it splits K, give at least 132 blocks (one per SM of an H100).
 """
 
+import importlib
 import math
 
 import pytest
@@ -24,8 +25,11 @@ from autodiffusion_tpu_torch.models import (ClassifierConfig, ModelConfig,
                                             create_classifier, create_model,
                                             create_sd_models)
 from autodiffusion_tpu_torch.models import nn as port_nn
-from autodiffusion_tpu_torch.models import unet as port_unet
 from autodiffusion_tpu_torch.ops.conv_im2col import conv_plan
+
+# the module (the package re-exports a function of the same name)
+_fa_module = importlib.import_module(
+    "autodiffusion_tpu_torch.ops.flash_attention")
 
 SMS = 132
 SMEM_MAX = 232448   # 227 KB
@@ -59,7 +63,7 @@ def _record_sites(monkeypatch, run):
 
 
 def _adm64(monkeypatch):
-    monkeypatch.setattr(port_unet, "flash_attention",
+    monkeypatch.setattr(_fa_module, "flash_attention",
                         lambda q, k, v: torch.empty_like(q))
 
     def run():

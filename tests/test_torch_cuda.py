@@ -893,3 +893,142 @@ def test_training_step_bf16_switches_on_matches_twins(cuda_device,
         assert torch.isfinite(g).all(), name
         if cpu[0][name].abs().max() > 0:
             assert g.abs().max() > 0, f"{name}: no gradient on the card"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads,t", [(96, 4, 256), (160, 8, 64),
+                                       (192, 4, 256), (192, 4, 64)])
+def test_sdpa_route_at_head_dims_without_a_kernel(cuda_device, dtype, d,
+                                                  heads, t):
+    """A head dim without a kernel (D = 96, SD's 160, sr-sample's 192)
+    takes SDPA on the card, forward and backward, with no flash launch:
+    routed_attention on the AttentionBlock's heads-first layout, its
+    output and gradients against the plain twin's autograd, within the
+    gradient limits."""
+    from autodiffusion_tpu_torch.ops.flash_attention import (
+        attention_route, routed_attention)
+
+    for grad in (False, True):
+        assert attention_route(t, t, d, heads, grad, cuda_device) == "sdpa"
+    gen = torch.Generator(device=cuda_device).manual_seed(d + t)
+    q, k, v, g = (_randn(gen, cuda_device, dtype, 2 * heads, t, d)
+                  for _ in range(4))
+    leaves = [z.clone().requires_grad_(True) for z in (q, k, v)]
+    twins = [z.clone().requires_grad_(True) for z in (q, k, v)]
+    reset_launch_counts()
+    out = routed_attention(*leaves, heads)
+    got = torch.autograd.grad(out, leaves, g)
+    ref = flash_attention_reference(*twins)
+    want = torch.autograd.grad(ref, twins, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched()
+    _assert_within_limit(out.detach(), ref.detach(), dtype, "o",
+                         GRAD_TOL[torch.float32])
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=GRAD_TOL[dtype],
+                                   rtol=GRAD_TOL[dtype],
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_block_d192_runs_sdpa(cuda_device, no_tf32, dtype):
+    """sr-sample's AttentionBlock (768 channels, 4 heads: D = 192) on the
+    card, which raised before SDPA took the head dims without a kernel:
+    forward and input gradient against the same block on the CPU (the
+    twin), float32 within 1e-3 of the scale, bf16 within 2e-2."""
+    from autodiffusion_tpu_torch.models.unet import AttentionBlock
+
+    torch.manual_seed(0)
+    blk = AttentionBlock(768, num_heads=4)
+    with torch.no_grad():
+        blk.proj_out.weight.normal_(0, 0.05)
+    x = torch.randn(2, 768, 16, 16)
+    g = torch.randn_like(x)
+    xc = x.clone().requires_grad_(True)
+    want = blk(xc)
+    want.backward(g)
+    gpu = blk.to(cuda_device)
+    xg = x.to(cuda_device, dtype).requires_grad_(True)
+    reset_launch_counts()
+    out = gpu(xg)
+    out.backward(g.to(cuda_device, dtype))
+    torch.cuda.synchronize()
+    assert not LAUNCHES["flash_fwd"] and not LAUNCHES["flash_bwd_dq"]
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    for a, b in ((out.detach(), want.detach()), (xg.grad, xc.grad)):
+        scale = float(b.abs().max())
+        assert float((a.float().cpu() - b).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_flash_gate_table_is_read_and_can_be_switched_off(cuda_device,
+                                                          monkeypatch):
+    """A site in the gate's table takes SDPA (no flash launch);
+    ADT_FLASH_GATE=0 puts it back on its kernel; every committed entry is
+    routed to SDPA on the card and to its kernel with the gate off."""
+    import sys
+
+    from autodiffusion_tpu_torch.models.unet import AttentionBlock
+
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    for site in fa.FLASH_GATE_SDPA:
+        monkeypatch.delenv("ADT_FLASH_GATE", raising=False)
+        assert fa.attention_route(*site, cuda_device) == "sdpa"
+        monkeypatch.setenv("ADT_FLASH_GATE", "0")
+        assert fa.attention_route(*site, cuda_device) == "kernel"
+    blk = AttentionBlock(128, num_head_channels=64).to(cuda_device)
+    x = torch.randn(2, 128, 8, 8, device=cuda_device)
+    monkeypatch.setattr(fa, "FLASH_GATE_SDPA",
+                        frozenset({(64, 64, 64, 2, False)}))
+    launched = {}
+    for gate in ("1", "0"):
+        monkeypatch.setenv("ADT_FLASH_GATE", gate)
+        reset_launch_counts()
+        with torch.no_grad():
+            out = blk(x)
+        torch.cuda.synchronize()
+        launched[gate] = (LAUNCHES["flash_fwd"], out)
+    assert launched["1"][0] == 0 and launched["0"][0] == 1
+    torch.testing.assert_close(launched["1"][1], launched["0"][1],
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [4, 16])
+def test_group_norm_kernels_at_one_position(cuda_device, dtype, b):
+    """The spatial_v2 classifier head's GroupNorm: [B, 2048, 1, 1], 32
+    groups of 64 channels with one position each, SiLU: both kernels
+    against their twins, and GroupNorm32 on the card launches them."""
+    from autodiffusion_tpu_torch.models.nn import GroupNorm32
+
+    gen = torch.Generator(device=cuda_device).manual_seed(b)
+    shape = (b, 2048, 1, 1)
+    x = (1.5 * _randn(gen, cuda_device, torch.float32, *shape) + 0.3).to(dtype)
+    dy = _randn(gen, cuda_device, dtype, *shape)
+    gamma = 1 + 0.2 * _randn(gen, cuda_device, torch.float32, 2048)
+    beta = 0.1 * _randn(gen, cuda_device, torch.float32, 2048)
+    reset_launch_counts()
+    y, mu, rstd = group_norm_fwd(x, gamma, beta, None, None, 32, 1e-5, True)
+    y_ref, mu_ref, rstd_ref = group_norm_fwd_plain(x, gamma, beta, None, None,
+                                                   32, 1e-5, True)
+    got = group_norm_bwd(x, dy, gamma, beta, None, None, mu_ref, rstd_ref,
+                         32, True, grad_film=False)
+    want = group_norm_bwd_plain(x, dy, gamma, beta, None, None, mu_ref,
+                                rstd_ref, 32, True, grad_film=False)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(group_norm_fwd=1, group_norm_bwd=1)
+    _assert_within_limit(y, y_ref, dtype, "y")
+    _assert_within_limit(mu, mu_ref, torch.float32, "mu")
+    _assert_within_limit(rstd, rstd_ref, torch.float32, "rstd")
+    _assert_within_limit(got[0], want[0], dtype, "dx")
+    for name, a, b_ in zip(("dgamma", "dbeta"), got[3:], want[3:]):
+        _assert_within_limit(a, b_, torch.float32, name, SUM_TOL)
+    norm = GroupNorm32(2048).to(cuda_device)
+    reset_launch_counts()
+    with torch.no_grad():
+        norm(x, act="silu")
+    assert LAUNCHES["group_norm_fwd"] == 1

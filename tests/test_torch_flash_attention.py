@@ -252,11 +252,13 @@ def test_packed_twin_matches_pallas_at_ring_edges(b, heads, d, t, s):
 
 
 def test_sd_sites_are_the_known_ones(monkeypatch):
-    """multihead_attention at full width (meta device, batch 1): the SD
+    """multihead_attention at full width (meta device, batch 1), the flash
+    gate off (ADT_FLASH_GATE=0: every site with a kernel on it): the SD
     UNet's packed calls are the 64x64 level's self- and cross-attention
     (D = 40, 8 heads), and the decoder's one D = 512 call is the
     mid-block over 4096 tokens; nothing else reaches either kernel."""
     fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    monkeypatch.setenv("ADT_FLASH_GATE", "0")
 
     def sites(part):
         packed, wide = set(), set()

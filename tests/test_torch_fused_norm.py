@@ -303,7 +303,7 @@ def test_gate_reads_environment(monkeypatch):
     assert fused_norm_available((2, 64, 8, 8), 32)
     assert fused_norm_available((2, 16, 3), 32)       # groups = C
     assert not fused_norm_available((2, 48, 8, 8), 32)   # 48 % 32
-    assert not fused_norm_available((2, 64, 1, 1), 32)   # one position
+    assert fused_norm_available((2, 64, 1, 1), 32)   # one position a channel
 
 
 def test_gate_defaults_on_for_cuda_tensors(monkeypatch):

@@ -19,6 +19,8 @@ tests/test_torch_samplers.py (5e-4 for a guided DDIM loop, 2e-4 x scale
 for the classifier gradient): float32 on the CPU on both sides.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,6 @@ from autodiffusion_tpu.schedules import build_tables as jax_build_tables
 from autodiffusion_tpu_torch.models import (ClassifierConfig, ModelConfig,
                                             create_classifier, create_model)
 from autodiffusion_tpu_torch.models import nn as port_nn
-from autodiffusion_tpu_torch.models import unet as port_unet
 from autodiffusion_tpu_torch.models.convert import (
     _resblock, classifier_state_dict_from_flax, unet_state_dict_from_flax)
 from autodiffusion_tpu_torch.models.unet import (EncoderUNetModel, ResBlock,
@@ -44,6 +45,10 @@ from autodiffusion_tpu_torch.samplers import (classifier_cond_fn,
 from autodiffusion_tpu_torch.schedules import build_tables
 from test_torch_models import _random_params
 from test_torch_package import one_torch_thread  # noqa: F401
+
+# the module (the package re-exports a function of the same name)
+_fa_module = importlib.import_module(
+    "autodiffusion_tpu_torch.ops.flash_attention")
 
 TOL = 2e-4
 LOOP_TOL = 5e-4
@@ -250,7 +255,7 @@ def test_adm64_route_counts(monkeypatch):
 
     for name in ROUTES:
         monkeypatch.setattr(port_nn, name, recorder(name))
-    monkeypatch.setattr(port_unet, "flash_attention",
+    monkeypatch.setattr(_fa_module, "flash_attention",
                         lambda q, k, v: torch.empty_like(q))
     with torch.device("meta"):
         m = create_model(ModelConfig.adm64(), device="meta")
@@ -372,9 +377,12 @@ def test_sd_route_counts(monkeypatch):
     three Upsample convs through the im2col conv; attention at D = 40 (5
     transformers x 2) packed, at D = 80 (10) on flash_fwd, at D = 160
     plain. The decoder: 14 ResnetBlocks (28 fused convs), the mid-block
-    attention's norm and norm_out fused, one D = 512 attention."""
+    attention's norm and norm_out fused, one D = 512 attention. The flash
+    gate off (ADT_FLASH_GATE=0), as chip_smoke.py's "switches on": every
+    attention site with a kernel on it."""
     for k, v in SWITCHES.items():
         monkeypatch.setenv(k, v)
+    monkeypatch.setenv("ADT_FLASH_GATE", "0")
     counts = sd_route_counts()
     assert counts["unet"] == {"fused_group_norm": 17, "conv3x3": 3,
                               "conv3x3_fused": 44, "packed": 10,

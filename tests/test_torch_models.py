@@ -12,6 +12,8 @@ the CPU (q and k each scaled by D^-1/4) while the port scales the float32
 logits by D^-1/2 after the dot, and the convolutions sum in other orders.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,13 +25,16 @@ from autodiffusion_tpu.models import UNetModel as JaxUNet
 from autodiffusion_tpu.models.convert import convert_classifier, convert_unet
 from autodiffusion_tpu_torch.models import (ClassifierConfig, ModelConfig,
                                             create_classifier, create_model)
-from autodiffusion_tpu_torch.models import unet as port_unet
 from autodiffusion_tpu_torch.models.convert import (
     classifier_state_dict_from_flax, unet_state_dict_from_flax)
 from autodiffusion_tpu_torch.models.unet import (AttentionBlock,
                                                  EncoderUNetModel, UNetModel,
                                                  unet_layer_count)
 from test_torch_package import one_torch_thread  # noqa: F401
+
+# the module (the package re-exports a function of the same name)
+_fa_module = importlib.import_module(
+    "autodiffusion_tpu_torch.ops.flash_attention")
 
 TOL = 2e-4
 IMG = 16
@@ -217,14 +222,17 @@ def test_keep_mask_length_checked():
 
 def _adm64_attention_sites(monkeypatch, which):
     """(T, batch*heads, D) of every flash_attention call of one forward of
-    the full-width ADM-64 model, run on the meta device (shapes only)."""
+    the full-width ADM-64 model, run on the meta device (shapes only),
+    with the flash gate off (ADT_FLASH_GATE=0: every site with a kernel on
+    it)."""
     calls = []
+    monkeypatch.setenv("ADT_FLASH_GATE", "0")
 
     def record(q, k, v):
         calls.append(tuple(q.shape))
         return torch.empty_like(q)
 
-    monkeypatch.setattr(port_unet, "flash_attention", record)
+    monkeypatch.setattr(_fa_module, "flash_attention", record)
     with torch.device("meta"):
         if which == "unet":
             m = create_model(ModelConfig.adm64(), device="meta")

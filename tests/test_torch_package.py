@@ -96,9 +96,11 @@ def _entry_points():
     from autodiffusion_tpu_torch.cli.main import main
     from autodiffusion_tpu_torch.fid import FIDStats, load_fid_inception
     from autodiffusion_tpu_torch.models import (ClassifierConfig,
+                                                ModelConfig,
                                                 create_classifier,
                                                 create_model,
-                                                create_sd_models)
+                                                create_sd_models,
+                                                create_sr_model)
     from autodiffusion_tpu_torch.search import (make_adm_fitness,
                                                 make_sd_fitness)
 
@@ -166,6 +168,12 @@ def _entry_points():
                                 "i.png", "--mask", "i_mask.png"),
         "cli.main convert": cli("convert", "--torch_path", "sd.ckpt",
                                 "--out", "sd_dir", "--preset", "sd"),
+        "cli.main sr-sample": cli("sr-sample", "--base_samples", "b.npz"),
+        "cli.main selftest": cli("selftest", "--inception_path", "i.pth"),
+        "create_sr_model": lambda **kw: create_sr_model(
+            ModelConfig(image_size=32, num_channels=32, num_res_blocks=1,
+                        channel_mult="1,2"), large_size=32, small_size=8,
+            **kw),
     }
 
 
@@ -179,7 +187,9 @@ def _entry_points():
                                   "cli.main nll", "cli.main txt2img",
                                   "cli.main img2img", "cli.main ldm-sample",
                                   "cli.main ldm-sample cin",
-                                  "cli.main inpaint", "cli.main convert"])
+                                  "cli.main inpaint", "cli.main convert",
+                                  "cli.main sr-sample", "cli.main selftest",
+                                  "create_sr_model"])
 def test_entry_points_raise_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -201,7 +211,8 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
         eps["cli.main search-sd"](device="cpu")
     for cmd in ("sample", "evaluate", "ref-stats", "train",
                 "train-classifier", "nll", "txt2img", "img2img",
-                "ldm-sample", "ldm-sample cin", "inpaint", "convert"):
+                "ldm-sample", "ldm-sample cin", "inpaint", "convert",
+                "sr-sample", "selftest"):
         with pytest.raises(FileNotFoundError):
             eps[f"cli.main {cmd}"](device="cpu")
 

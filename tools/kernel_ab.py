@@ -16,7 +16,7 @@ within chip_smoke.py's bf16 limit, and workers time the tree's kernel and
 the variant at the Stable Diffusion (and ADM) sites (chip_smoke.cuda_ms,
 one-call CUDA-event medians; the dQ and dK/dV kernels and the GroupNorm
 backward at the ADM-64 classifier's sites, beside SDPA's whole backward
-and F.group_norm's backward, with their device times from torch.profiler)
+and F.group_norm's backward, with their device times, chip_smoke.device_ms)
 in the order tree, variant, variant, tree. Each library runs in its own
 process: two libraries holding the same kernels in one process fail their
 launches.
@@ -666,7 +666,7 @@ def dkv_worker(fn, stream, gen, mode):
                               for z in (q, k, v, do))
             oh = F.scaled_dot_product_attention(qh, kh, vh)
             out[key] = dict(ms=cs.cuda_ms(call),
-                            device_ms=cs.device_ms(call, "flash_bwd_dkv"),
+                            device_ms=cs.device_ms(call),
                             sdpa_ms=cs.cuda_ms(lambda: torch.autograd.grad(
                                 oh, (qh, kh, vh), gh, retain_graph=True)))
     return out
@@ -714,7 +714,7 @@ def dq_worker(fn, stream, gen, mode):
                               for z in (q, k, v, do))
             oh = F.scaled_dot_product_attention(qh, kh, vh)
             out[key] = dict(ms=cs.cuda_ms(call),
-                            device_ms=cs.device_ms(call, "flash_bwd_dq"),
+                            device_ms=cs.device_ms(call),
                             sdpa_ms=cs.cuda_ms(lambda: torch.autograd.grad(
                                 oh, (qh, kh, vh), gh, retain_graph=True)))
     return out
@@ -772,7 +772,7 @@ def gnb_worker(fn, stream, gen, mode):
             xg = x.detach().clone().requires_grad_(True)
             yl = F.group_norm(xg, 32, gamma.bfloat16(), beta.bfloat16(), 1e-5)
             out[key] = dict(ms=cs.cuda_ms(call),
-                            device_ms=cs.device_ms(call, "group_norm_bwd"),
+                            device_ms=cs.device_ms(call),
                             sdpa_ms=cs.cuda_ms(lambda: torch.autograd.grad(
                                 yl, (xg,), dy, retain_graph=True)))
     return out
