@@ -47,6 +47,13 @@ CLIP tokenizer a vocab.json / merges.txt pair, the Inception weights
 pytorch_fid's ``pt_inception-2015-12-05`` ``.pth``, the reference
 statistics an ``.npz`` of mu and sigma, sample and image arrays an
 ``.npz`` whose first array is uint8 [N, H, W, 3].
+
+``sample``, ``train`` and ``train-classifier`` run data parallel under
+``torchrun --nproc_per_node=N`` (one process per GPU, NCCL; gloo with
+``--device cpu``): ``--batch_size`` is the global batch, every rank draws
+the same global randomness and keeps its rows, so the result is that of
+one process. Only rank 0 writes files and logs. The other commands run
+one process.
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ import numpy as np
 from .. import resolve_device
 from ..utils import logger
 from ..utils.config import add_dict_to_argparser
+
+DATA_PARALLEL = ("sample", "train", "train-classifier")
 
 __all__ = ["main", "cmd_search", "cmd_sample", "cmd_evaluate",
            "cmd_ref_stats", "cmd_search_sd", "cmd_train", "cmd_sr_sample",
@@ -103,6 +112,25 @@ def _load_state(module, path: str) -> None:
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
     module.load_state_dict(sd, strict=True)
+
+
+def _data_parallel(dev):
+    """Join torchrun's process group, if the command runs under it:
+    (device, mesh, sharder). Each process takes its GPU (LOCAL_RANK), the
+    other ranks' logger writes nothing, and the sharder takes this rank's
+    rows of a global batch and averages over the ranks (in one process:
+    all the rows, and no reduction)."""
+    import torch
+
+    from ..parallel import data_sharder, make_mesh, rank, setup_dist
+
+    setup_dist(device=dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if rank() != 0:
+        logger.configure(None, log_to_stdout=False, formats=[])
+    mesh = make_mesh()
+    return dev, mesh, data_sharder(mesh)
 
 
 def _write_pngs(dir_: str, arr: np.ndarray) -> None:
@@ -239,11 +267,15 @@ def _sample_defaults():
 def cmd_sample(args) -> int:
     """Samples of an ADM model with a searched schedule: DDIM or ancestral,
     optionally classifier-guided, optionally skipping layers per step
-    (classifier_sample.py with the searched --use_timestep)."""
+    (classifier_sample.py with the searched --use_timestep). Data
+    parallel, each rank samples its rows of every global batch (labels,
+    x_T and each step's noise drawn at the global shape) and rank 0
+    gathers and writes them."""
     import torch
 
     from ..models import (ClassifierConfig, create_classifier, create_model,
                           create_tables)
+    from ..parallel import all_gather_host, barrier, rank
     from ..samplers import (ModelVarType, classifier_cond_fn,
                             ddim_sample_loop, p_sample_loop)
     from ..search import keep_masks_for, parse_timestep_string, to_uint8
@@ -251,6 +283,7 @@ def cmd_sample(args) -> int:
     dev = resolve_device(args.device)
     if not args.model_path:
         raise ValueError("sample needs --model_path")
+    dev, mesh, shard = _data_parallel(dev)
     if args.classifier_path and not args.class_cond:
         raise ValueError("classifier guidance requires --class_cond True "
                          "(the guidance log-prob is taken at the sampled "
@@ -293,21 +326,27 @@ def cmd_sample(args) -> int:
     while n_done < args.num_samples:
         y = (torch.randint(0, 1000, (args.batch_size,), generator=gen,
                            device=dev) if cfg.class_cond else None)
+        y_rows = shard(y)
 
         def model_fn(x, t, i):
-            return model(x, t, y, keep_mask=None if keep is None
+            return model(x, t, y_rows, keep_mask=None if keep is None
                          else keep[i])
 
-        cond_fn = (classifier_cond_fn(classifier, y, args.classifier_scale)
+        cond_fn = (classifier_cond_fn(classifier, y_rows,
+                                      args.classifier_scale)
                    if classifier is not None else None)
         x0 = loop(model_fn, shape, tables, device=dev, generator=gen,
-                  cond_fn=cond_fn, var_type=var_type)
-        all_imgs.append(to_uint8(x0).cpu().numpy())
+                  cond_fn=cond_fn, var_type=var_type, shard_fn=shard)
+        imgs = all_gather_host(to_uint8(x0).cpu().numpy())
+        all_imgs.append(imgs.reshape((-1,) + imgs.shape[-3:]))
         if y is not None:
             all_labels.append(y.cpu().numpy())
         n_done += args.batch_size
         logger.log(f"created {n_done} samples ({time.time() - t0:.3f} s)")
 
+    if rank() != 0:
+        barrier("sample")
+        return 0
     arr = np.concatenate(all_imgs)[: args.num_samples]
     out = (args.out or
            f"samples_{arr.shape[0]}x{arr.shape[1]}x{arr.shape[2]}x3.npz")
@@ -319,6 +358,7 @@ def cmd_sample(args) -> int:
     logger.log(f"saved to {out}")
     if args.save_png_dir:
         _write_pngs(args.save_png_dir, arr)
+    barrier("sample")
     return 0
 
 
@@ -634,6 +674,24 @@ def _seed_sr_from_base(model, path: str) -> bool:
     return True
 
 
+def _local_batch(batch_size: int, mesh) -> int:
+    """This rank's rows of a global batch of ``batch_size``."""
+    if batch_size % mesh.shape["data"]:
+        raise ValueError(f"--batch_size {batch_size} does not divide over "
+                         f"the {mesh.shape['data']} data-parallel ranks")
+    return batch_size // mesh.shape["data"]
+
+
+def _state_tensors(state) -> list:
+    """The model, EMA copies and optimizer state of a TrainState: what
+    rank 0 broadcasts so that every rank starts from its state."""
+    import torch
+
+    return [state.model, list(state.ema_params),
+            [v for st in state.optimizer.state.values()
+             for v in st.values() if torch.is_tensor(v)]]
+
+
 def cmd_train(args) -> int:
     """Train or fine-tune an ADM UNet (scripts/image_train.py and
     train_util.py's TrainLoop, with the OFA respacing curricula), or with
@@ -641,10 +699,12 @@ def cmd_train(args) -> int:
     (scripts/super_res_train.py): low_res from --lq_dir partner files, or
     derived from each batch by area downsampling. The model trains in
     train mode (dropout on); bf16 compute over float32 parameters under
-    --use_bf16."""
+    --use_bf16. Data parallel, every rank reads the same global batches,
+    trains on its rows and applies the update of the whole batch."""
     import torch
 
     from ..models import create_model, create_sr_model, create_tables
+    from ..parallel import barrier, rank, replicate
     from ..samplers import ModelVarType
     from ..train import (TrainLoop, create_named_schedule_sampler,
                          create_train_state, make_train_step,
@@ -655,6 +715,8 @@ def cmd_train(args) -> int:
     if args.ofa_mode not in ("", "random_section", "random_select"):
         raise ValueError(f"unknown --ofa_mode {args.ofa_mode!r} (random_"
                          "section or random_select)")
+    dev, mesh, shard = _data_parallel(dev)
+    local = _local_batch(args.batch_size, mesh)
     cfg = _model_config(args, dropout=args.dropout)
     sr_mode = args.sr_small_size > 0
     if sr_mode and cfg.image_size % args.sr_small_size:
@@ -668,7 +730,8 @@ def cmd_train(args) -> int:
         small_size=args.sr_small_size if sr_mode else None)
     if sr_mode and not args.lq_dir:
         data = _derive_low_res(data, cfg.image_size // args.sr_small_size)
-    logger.configure(args.save_dir or None)
+    if rank() == 0:
+        logger.configure(args.save_dir or None)
     torch.manual_seed(args.seed)
     model = (create_sr_model(cfg, large_size=cfg.image_size,
                              small_size=args.sr_small_size, device=dev)
@@ -683,14 +746,15 @@ def cmd_train(args) -> int:
         lr_anneal_steps=args.lr_anneal_steps)
     if ckpt and not seeded:
         resume_train_state(state, ckpt)
+    replicate(mesh, _state_tensors(state))
     # learn_sigma False -> FIXED_LARGE, the reference default
     # (script_util.py:415-453 create_gaussian_diffusion)
     var_type = (ModelVarType.LEARNED_RANGE if cfg.learn_sigma
                 else ModelVarType.FIXED_LARGE)
     step = make_train_step(
         model, class_cond=cfg.class_cond, var_type=var_type,
-        microbatches=max(1, args.batch_size
-                         // (args.microbatch or args.batch_size)))
+        microbatches=max(1, local // (args.microbatch or local)),
+        data_sharder=shard)
     grad_fn = tables_fn = None
     if args.ofa_mode == "random_section":
         tables_fn = ofa_tables_fn(cfg.noise_schedule, cfg.diffusion_steps)
@@ -708,8 +772,9 @@ def cmd_train(args) -> int:
         tables=create_tables(cfg), tables_fn=tables_fn,
         batch_size=args.batch_size, lr_anneal_steps=args.lr_anneal_steps,
         log_interval=args.log_interval, save_interval=args.save_interval,
-        save_dir=args.save_dir, seed=args.seed)
+        save_dir=args.save_dir, seed=args.seed, data_sharder=shard)
     loop.run_loop(max_steps=args.max_steps or None)
+    barrier("train")
     return 0
 
 
@@ -730,11 +795,13 @@ def _train_classifier_defaults():
 
 def cmd_train_classifier(args) -> int:
     """Train the noisy guidance classifier (scripts/classifier_train.py):
-    noised inputs at uniform t, cross-entropy, AdamW, top-1 / top-5."""
+    noised inputs at uniform t, cross-entropy, AdamW, top-1 / top-5; data
+    parallel as ``train``."""
     import torch
 
     from ..data import load_data
     from ..models import ClassifierConfig, create_classifier
+    from ..parallel import barrier, rank, replicate
     from ..schedules import build_base_tables
     from ..train import (create_train_state, make_classifier_train_step,
                          resume_train_state)
@@ -742,10 +809,12 @@ def cmd_train_classifier(args) -> int:
     from ..utils.checkpoint import save_checkpoint
 
     dev = resolve_device(args.device)
+    dev, mesh, shard = _data_parallel(dev)
     data = load_data(data_dir=args.data_dir, batch_size=args.batch_size,
                      image_size=args.image_size, class_cond=True,
                      random_crop=True)
-    logger.configure(args.save_dir or None)
+    if rank() == 0:
+        logger.configure(args.save_dir or None)
     cfg = ClassifierConfig(
         image_size=args.image_size, classifier_width=args.classifier_width,
         classifier_depth=args.classifier_depth,
@@ -762,7 +831,9 @@ def cmd_train_classifier(args) -> int:
         lr_anneal_steps=args.iterations if args.anneal_lr else 0)
     if args.resume_checkpoint:
         resume_train_state(state, args.resume_checkpoint)
-    step = make_classifier_train_step(clf, noised=args.noised)
+    replicate(mesh, _state_tensors(state))
+    step = make_classifier_train_step(clf, noised=args.noised,
+                                      data_sharder=shard)
     tables = build_base_tables(args.noise_schedule,
                                args.diffusion_steps).to(dev)
     logger.log(f"training {sum(p.numel() for p in clf.parameters())} "
@@ -770,6 +841,8 @@ def cmd_train_classifier(args) -> int:
     rng = np.random.RandomState(args.seed)
 
     def save(i):
+        if rank() != 0:
+            return
         save_checkpoint(f"{args.save_dir}/model{i:06d}.pt", clf.state_dict())
         save_checkpoint(f"{args.save_dir}/opt{i:06d}.pt",
                         state.optimizer.state_dict())
@@ -798,6 +871,7 @@ def cmd_train_classifier(args) -> int:
     if args.save_dir and (not args.save_interval
                           or i % args.save_interval != 0):
         save(i)
+    barrier("train-classifier")
     return 0
 
 
@@ -1382,6 +1456,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+            and args.cmd not in DATA_PARALLEL:
+        raise ValueError(f"adt-torch {args.cmd} runs one process; of the "
+                         f"commands only {', '.join(DATA_PARALLEL)} run "
+                         "under torchrun with more than one")
     return args.fn(args)
 
 

@@ -159,14 +159,21 @@ def _bcast_t(t: torch.Tensor, batch: int) -> torch.Tensor:
     return t.float().expand(batch) if t.dim() == 0 else t.float()
 
 
-def _x_T(shape, noise, generator, dev) -> torch.Tensor:
-    return (torch.randn(tuple(shape), generator=generator, device=dev)
-            if noise is None else noise.to(dev)).float()
+def _all_rows(x):
+    return x
 
 
-def _z(step_noise, i: int, x: torch.Tensor, generator, dev) -> torch.Tensor:
-    return (torch.randn(x.shape, generator=generator, device=dev)
-            if step_noise is None else step_noise[i].to(dev))
+def _x_T(shape, noise, generator, dev,
+         shard: Callable = _all_rows) -> torch.Tensor:
+    return shard((torch.randn(tuple(shape), generator=generator, device=dev)
+                  if noise is None else noise.to(dev)).float())
+
+
+def _z(step_noise, i: int, shape, generator, dev,
+       shard: Callable) -> torch.Tensor:
+    """Step i's z: drawn at ``shape`` (the global batch's) and sliced."""
+    return shard(torch.randn(tuple(shape), generator=generator, device=dev)
+                 if step_noise is None else step_noise[i].to(dev))
 
 
 @torch.no_grad()
@@ -178,18 +185,25 @@ def p_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
                   denoised_fn: Optional[Callable] = None,
                   cond_fn: Optional[Callable] = None,
                   noise: Optional[torch.Tensor] = None,
-                  step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  step_noise: Optional[torch.Tensor] = None,
+                  shard_fn: Optional[Callable] = None) -> torch.Tensor:
     """Ancestral sampling (gaussian_diffusion.py:395-534). Returns x_0
     (float32, ``shape``). Guidance shifts the mean by variance * cond_fn
     (condition_mean, gaussian_diffusion.py:356-369); step 0 adds no noise.
 
     ``noise`` is x_T; ``step_noise`` [K, *shape] the per-step z (step i
     uses step_noise[i]); either is drawn from ``generator`` when absent.
-    ``tables`` must already be on ``device``."""
+    ``tables`` must already be on ``device``. With ``shard_fn`` (this
+    data-parallel rank's rows of a batch) ``shape``, ``noise`` and
+    ``step_noise`` are the global batch's: each draw is made at the global
+    shape and sliced, so every rank's rows equal those of one process;
+    ``tables`` (where per sample), ``model_fn`` and ``cond_fn`` see this
+    rank's rows, and so does the result."""
     dev = torch.device(device) if device is not None else tables.betas.device
-    x = _x_T(shape, noise, generator, dev)
+    shard = shard_fn or _all_rows
+    x = _x_T(shape, noise, generator, dev, shard)
     for i in range(tables.num_steps - 1, -1, -1):
-        t = _bcast_t(tables.timestep_map[..., i], shape[0])
+        t = _bcast_t(tables.timestep_map[..., i], x.shape[0])
         model_out = model_fn(x, t, i).float()
         mean, variance, log_variance, _ = p_mean_variance(
             tables, model_out, x, i, mean_type=mean_type, var_type=var_type,
@@ -200,7 +214,7 @@ def p_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
             x = mean
             continue
         x = mean + torch.exp(0.5 * log_variance) \
-            * _z(step_noise, i, x, generator, dev)
+            * _z(step_noise, i, shape, generator, dev, shard)
     return x
 
 
@@ -215,18 +229,21 @@ def ddim_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
                      cond_fn: Optional[Callable] = None,
                      noise: Optional[torch.Tensor] = None,
                      step_noise: Optional[torch.Tensor] = None,
-                     final_step_noise: bool = False) -> torch.Tensor:
+                     final_step_noise: bool = False,
+                     shard_fn: Optional[Callable] = None) -> torch.Tensor:
     """DDIM sampling, eq. 12 of Song et al. (gaussian_diffusion.py:536-716).
     Returns x_0 (float32, ``shape``).
 
     ``noise`` is x_T; ``step_noise`` [K, *shape] the per-step z (step i
     uses step_noise[i]); either is drawn from ``generator`` when absent.
-    ``tables`` must already be on ``device``."""
+    ``tables`` must already be on ``device``. ``shard_fn`` as in
+    :func:`p_sample_loop`."""
     dev = torch.device(device) if device is not None else tables.betas.device
     nd = len(shape) - 1
-    x = _x_T(shape, noise, generator, dev)
+    shard = shard_fn or _all_rows
+    x = _x_T(shape, noise, generator, dev, shard)
     for i in range(tables.num_steps - 1, -1, -1):
-        t = _bcast_t(tables.timestep_map[..., i], shape[0])
+        t = _bcast_t(tables.timestep_map[..., i], x.shape[0])
         model_out = model_fn(x, t, i).float()
         _, _, _, pred_x0 = p_mean_variance(
             tables, model_out, x, i, mean_type=mean_type, var_type=var_type,
@@ -250,5 +267,6 @@ def ddim_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
         if i == 0 and not final_step_noise:
             x = mean_pred
             continue
-        x = mean_pred + sigma * _z(step_noise, i, x, generator, dev)
+        x = mean_pred + sigma * _z(step_noise, i, shape, generator, dev,
+                                   shard)
     return x

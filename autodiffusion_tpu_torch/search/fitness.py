@@ -13,6 +13,11 @@ Caller supplies:
   sample_fn(per_sample_payload, generator, batch_idx) -> uint8
       [N, H, W, 3], N the leading length of the per-sample payload
   feature_fn(uint8 images) -> dict with "pool3" [N, D]
+
+Data parallel (``shard_fn``, parallel.data_sharder): each rank evaluates
+its rows of every candidate's batch (``per_candidate``), sample_fn
+returns those rows, and the moments are summed over the ranks before the
+Frechet, so every rank returns the same FIDs.
 """
 
 from __future__ import annotations
@@ -27,10 +32,11 @@ import torch
 from .. import resolve_device
 from ..fid.stats import (FeatureStats, FIDStats, finalize_stats,
                          frechet_distance_eigh, make_device_frechet)
+from ..parallel.mesh import DataSharder
 from ..schedules import ScheduleTables, stack_tables
 from ..utils import logger
 
-__all__ = ["BatchedFIDFitness", "to_uint8"]
+__all__ = ["BatchedFIDFitness", "to_uint8", "per_candidate"]
 
 
 def to_uint8(samples: torch.Tensor) -> torch.Tensor:
@@ -38,6 +44,19 @@ def to_uint8(samples: torch.Tensor) -> torch.Tensor:
     (search_imagenet64_classifier_guidance.py:352-354)."""
     return ((samples + 1) * 127.5).clamp(0, 255).to(torch.uint8) \
         .permute(0, 2, 3, 1).contiguous()
+
+
+def per_candidate(shard_fn: Callable, c: int) -> Callable:
+    """``shard_fn`` applied to each candidate's rows of a folded [C*b, ...]
+    batch (sample j of candidate j // b): [C*b, ...] -> [C*b', ...] with
+    b' = b / ranks, still candidate-major."""
+
+    def fn(x):
+        rest = tuple(x.shape[1:])
+        by_row = x.reshape((c, x.shape[0] // c) + rest).transpose(0, 1)
+        return shard_fn(by_row).transpose(0, 1).reshape((-1,) + rest)
+
+    return fn
 
 
 def _fold(payloads: Sequence[Dict[str, Any]], per_cand: int, device
@@ -68,7 +87,10 @@ class BatchedFIDFitness:
     slices and streamed into per-candidate moments. ``max_device_batch``
     caps candidate_chunk * device_batch; it is off (None) by default: the
     JAX package's default of 128 was sized for a 16 GB TPU, and no cap has
-    been measured on this port's GPUs yet.
+    been measured on this port's GPUs yet. ``shard_fn``
+    (parallel.data_sharder; one rank when not given) is the data axis:
+    sample_fn returns this rank's rows of each candidate and the moments
+    are all-reduced in float64 over its ranks.
     """
 
     def __init__(self, *, payload_fn: Callable, sample_fn: Callable,
@@ -77,8 +99,10 @@ class BatchedFIDFitness:
                  candidate_chunk: int = 8, feature_dim: int = 2048,
                  seed: int = 0, device_frechet: bool = True,
                  group_key_fn: Optional[Callable] = None,
-                 max_device_batch: Optional[int] = None, device=None):
+                 max_device_batch: Optional[int] = None, device=None,
+                 shard_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
+        self.shard_fn = shard_fn or DataSharder()
         self.payload_fn = payload_fn
         self.sample_fn = sample_fn
         self.feature_fn = feature_fn
@@ -163,12 +187,13 @@ class BatchedFIDFitness:
             for bi in range(n_batches):
                 imgs = self.sample_fn(per_sample, self._generator(bi), bi)
                 feats = self.feature_fn(imgs)["pool3"].double() - self._shift
-                by_cand = feats.reshape(c, b, -1)
+                by_cand = feats.reshape(c, -1, feats.shape[-1])
                 stats = FeatureStats(
-                    n=stats.n + b,
+                    n=stats.n + by_cand.shape[1],
                     s1=stats.s1 + by_cand.sum(dim=1),
                     s2=stats.s2 + torch.einsum("cbd,cbe->cde", by_cand,
                                                by_cand))
+        self.shard_fn.all_reduce_sum_(list(stats))
         _sync(self.device)
         self._eval_count += 1
         sample_time = time.time() - t0

@@ -14,11 +14,12 @@ import torch
 
 from .. import resolve_device
 from ..fid.stats import FIDStats
+from ..parallel.mesh import DataSharder
 from ..samplers import (classifier_cond_fn, ddim_sample_loop,
                         p_sample_loop)
 from ..samplers.diffusion import ModelVarType
 from ..schedules import build_tables
-from .fitness import BatchedFIDFitness, to_uint8
+from .fitness import BatchedFIDFitness, per_candidate, to_uint8
 
 __all__ = ["make_adm_fitness", "keep_masks_for"]
 
@@ -42,11 +43,18 @@ def make_adm_fitness(*, model, image_size: int, feature_fn: Callable,
                      joint: bool = False, candidate_chunk: int = 8,
                      seed: int = 0, feature_dim: int = 2048,
                      max_device_batch: Optional[int] = None,
-                     device=None) -> BatchedFIDFitness:
+                     device=None, shard_fn: Optional[Callable] = None
+                     ) -> BatchedFIDFitness:
     """Fitness for timestep-only (joint=False) or joint timestep +
     architecture candidates. ``model`` / ``classifier`` are the port's
     UNetModel / EncoderUNetModel on ``device`` (cuda by default); their
-    parameters are frozen (``requires_grad_(False)``)."""
+    parameters are frozen (``requires_grad_(False)``).
+
+    ``shard_fn`` (parallel.data_sharder; one rank when not given) runs
+    the fitness data parallel: labels and noise are drawn at the global
+    shape and each rank samples its rows of every candidate (the JAX
+    package's batch-axis sharding constraints); the FIDs are those of one
+    process."""
     dev = resolve_device(device)
     # frozen: guidance differentiates the classifier with respect to its
     # input only, so no weight gradient is asked for
@@ -67,19 +75,25 @@ def make_adm_fitness(*, model, image_size: int, feature_fn: Callable,
         return {"tables": build_tables(cand, base_schedule=base_schedule,
                                        base_num_steps=base_num_steps)}
 
+    # this rank's rows of each candidate's slice (all of them in one
+    # process)
+    shard_fn = shard_fn or DataSharder()
+    rows = per_candidate(shard_fn, candidate_chunk)
+
     def sample_fn(payload, gen: torch.Generator, batch_idx: int):
-        tables = payload["tables"]
-        n = tables.betas.shape[0]     # chunk * per-candidate slice
+        n = payload["tables"].betas.shape[0]   # chunk * per-candidate slice
+        tables = payload["tables"].map(rows)
+        masks = rows(payload["keep_masks"]) if joint else None
         y = None
         if num_classes:
             # every folded candidate's slice draws the SAME labels, so the
             # candidates of a chunk stay comparable
             b = n // candidate_chunk
-            y = torch.randint(0, num_classes, (b,), generator=gen,
-                              device=dev).repeat(candidate_chunk)
+            y = rows(torch.randint(0, num_classes, (b,), generator=gen,
+                                   device=dev).repeat(candidate_chunk))
 
         def model_fn(x, t, i):
-            mask = payload["keep_masks"][:, i] if joint else None
+            mask = masks[:, i] if joint else None
             return model(x, t, y, keep_mask=mask)
 
         cond = None
@@ -93,11 +107,12 @@ def make_adm_fitness(*, model, image_size: int, feature_fn: Callable,
         kw = {"eta": eta} if use_ddim else {}
         x0 = loop(model_fn, shape, tables, device=dev, generator=gen,
                   var_type=var_type, clip_denoised=clip_denoised,
-                  cond_fn=cond, noise=noise, **kw)
+                  cond_fn=cond, noise=noise,
+                  shard_fn=rows, **kw)
         return to_uint8(x0)
 
     return BatchedFIDFitness(
         payload_fn=payload_fn, sample_fn=sample_fn, feature_fn=feature_fn,
         ref_stats=ref_stats, num_samples=num_samples, batch_size=batch_size,
         candidate_chunk=candidate_chunk, seed=seed, feature_dim=feature_dim,
-        max_device_batch=max_device_batch, device=dev)
+        max_device_batch=max_device_batch, device=dev, shard_fn=shard_fn)

@@ -17,6 +17,11 @@ The random streams are the JAX loop's: ``np.random.RandomState(seed)`` for
 t, ``random.Random(seed)`` for the OFA draws and, one ``getrandbits(32)``
 a step, the seed of the step's noise generator. Batches come in as numpy
 [B, H, W, C] (the data loaders' layout) and go to the device as NCHW.
+
+Data parallel (``data_sharder``): every rank reads the same global batch
+and draws the same t and seeds; the step trains on this rank's rows, the
+sampler's history takes every rank's (t, loss) rows through its
+all-gather, and only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.dist import rank
+from ..parallel.mesh import DataSharder
 from ..schedules import ScheduleTables, build_base_tables, build_tables
 from ..utils import logger
 from ..utils.checkpoint import (find_latest_checkpoint, flax_state_dict,
@@ -114,7 +121,10 @@ class TrainLoop:
     tables_fn(step, rng) -> ScheduleTables lets the OFA variants respace
     per step; the default is the full base schedule. A tables_fn that
     returns a LIST of schedules selects the sandwich step, which needs
-    ``grad_fn`` (make_train_step(...).grads_and_metrics)."""
+    ``grad_fn`` (make_train_step(...).grads_and_metrics, which leaves
+    the gradients in the state's ``grad_buffer``). ``data_sharder`` (one
+    rank when not given) must be the one the step and ``grad_fn`` were
+    made with (data parallel, see the module's docstring)."""
 
     def __init__(self, *, state: TrainState, step_fn: Callable,
                  data: Iterator[Dict[str, np.ndarray]],
@@ -127,8 +137,9 @@ class TrainLoop:
                  save_dir: Optional[str] = None,
                  ema_rates: Optional[Sequence[float]] = None,
                  val_fn: Optional[Callable] = None, val_interval: int = 0,
-                 seed: int = 0):
+                 seed: int = 0, data_sharder: Optional[Callable] = None):
         self.state = state
+        self.data_sharder = data_sharder or DataSharder()
         self.step_fn = step_fn
         self.grad_fn = grad_fn
         self.data = data
@@ -200,6 +211,8 @@ class TrainLoop:
             self.state, tables_dev, batch_to_device(batch, self.device),
             t_dev, w, self._generator())
         self.step = int(self.state.step)
+        # this rank's rows (_local_t_loss of the JAX loop)
+        t = self.data_sharder(t)
         per_ex = metrics.pop("per_example_loss").float().cpu().numpy()
         sampler.update_with_local_losses(t, per_ex)
         logger.logkv("step", self.step)
@@ -220,30 +233,38 @@ class TrainLoop:
         """ONE optimizer update from gradients accumulated over several
         respacings (the OFA random-select sandwich,
         train_util.py:668-712), averaged over the schedules as the JAX
-        loop averages them (the reference sums)."""
+        loop averages them (the reference sums). Data parallel, the
+        summed gradients and the losses are averaged over the ranks once
+        an update."""
         if self.grad_fn is None:
             raise ValueError(
                 "tables_fn returned a list of schedules (sandwich mode) but "
                 "TrainLoop was built without grad_fn; pass "
                 "grad_fn=make_train_step(...).grads_and_metrics")
         dev_batch = batch_to_device(batch, self.device)
-        total = None
+        total, losses = None, []
         for tb in tlist:
             sampler, t, t_dev, w = self._sample_t(self.schedule_sampler,
                                                   tb.num_steps)
-            grads, metrics = self.grad_fn(self.state, tb.to(self.device),
-                                          dev_batch, t_dev, w,
-                                          self._generator())
+            _, metrics = self.grad_fn(self.state, tb.to(self.device),
+                                      dev_batch, t_dev, w, self._generator(),
+                                      reduce=False)
+            # the schedule's gradients, in a grad_buffer of their own
             if total is None:
-                total = grads
+                total = self.state.grad_buffer
             else:
-                torch._foreach_add_(total, grads)
+                total += self.state.grad_buffer
             sampler.update_with_local_losses(
-                t, metrics.pop("per_example_loss").float().cpu().numpy())
+                self.data_sharder(t),
+                metrics.pop("per_example_loss").float().cpu().numpy())
+            losses.append(metrics["loss"])
+        self.data_sharder.all_reduce_mean_([total])
+        self.data_sharder.all_reduce_mean_(losses)
+        for tb, loss in zip(tlist, losses):
             # the reference's per-schedule log line (diffusion_len_<name>)
-            logger.logkv_mean(f"loss_len{tb.num_steps}",
-                              float(metrics["loss"]))
-        torch._foreach_div_(total, len(tlist))
+            logger.logkv_mean(f"loss_len{tb.num_steps}", float(loss))
+        total /= len(tlist)
+        total = self.state.grad_views(total)
         self.state.apply_gradients(total)
         self.step = int(self.state.step)
         logger.logkv("step", self.step)
@@ -251,7 +272,7 @@ class TrainLoop:
         logger.logkv_mean("step_time", time.time() - t0)
 
     def save(self) -> None:
-        if not self.save_dir:
+        if not self.save_dir or rank() != 0:
             return
         logger.log(f"saving model at step {self.step}...")
         save_checkpoint(f"{self.save_dir}/model{self.step:06d}.pt",

@@ -2,15 +2,17 @@
 
 Port of autodiffusion_tpu/train/resample.py (guided_diffusion/
 resample.py:8-154): UniformSampler and LossSecondMomentResampler, numpy
-only, the same draws from the same ``np.random.RandomState``. One process
-trains, so a sampler's history is updated with this process's losses; the
-reference's all-gather across data-parallel workers (resample.py:83-104)
-comes with the multi-process layer (ROADMAP queue 1 item 9).
+only, the same draws from the same ``np.random.RandomState``. Data
+parallel, a sampler's history takes the losses of every rank
+(resample.py:71-104's all-gather), so every rank keeps the same history
+and draws the same t.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..parallel.dist import all_gather_host
 
 __all__ = ["UniformSampler", "LossSecondMomentResampler",
            "create_named_schedule_sampler"]
@@ -54,9 +56,13 @@ class LossSecondMomentResampler(UniformSampler):
 
     def update_with_local_losses(self, ts: np.ndarray,
                                  losses: np.ndarray) -> None:
-        """Update the history with this process's per-example losses."""
-        self.update_with_losses(np.asarray(ts).reshape(-1),
-                                np.asarray(losses).reshape(-1))
+        """Update the history with the per-example losses of every
+        process, each passing its own rows (resample.py:71-104); one
+        process's are its own. Data shards are equal in size, so the
+        reference's gather of the batch sizes is not needed."""
+        self.update_with_losses(
+            np.asarray(all_gather_host(np.asarray(ts))).reshape(-1),
+            np.asarray(all_gather_host(np.asarray(losses))).reshape(-1))
 
     def _warmed_up(self) -> bool:
         return bool((self._loss_counts == self.history_per_term).all())

@@ -20,6 +20,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import DataSharder
 from ..samplers.diffusion import ModelMeanType, ModelVarType
 from ..schedules import ScheduleTables
 from .losses import LossType, training_losses
@@ -38,7 +39,8 @@ def take_grads(params: Sequence[nn.Parameter], divide: int = 1
                ) -> List[torch.Tensor]:
     """Each parameter's accumulated gradient (zeros where none reached it,
     as jax.grad gives), divided by ``divide``; the parameters' .grad are
-    cleared."""
+    cleared. After :meth:`TrainState.bind_grads` these are views of the
+    state's ``grad_buffer``."""
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
     for p in params:
@@ -71,6 +73,34 @@ class TrainState:
             [p.detach().float().clone() for p in self.params]
             for _ in self.ema_rates)
         self.step = 0
+        # the flat buffer of the last bind_grads, every parameter's
+        # gradient in it
+        self.grad_buffer: Optional[torch.Tensor] = None
+
+    def grad_views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """``flat`` (a buffer laid out as ``grad_buffer``) as one view a
+        parameter."""
+        parts = flat.split([p.numel() for p in self.params])
+        return [v.view_as(p) for v, p in zip(parts, self.params)]
+
+    def bind_grads(self) -> None:
+        """Make each parameter's .grad its view of a new zeroed flat
+        buffer, ``grad_buffer``, so that backward accumulates the
+        gradients in place there and a data-parallel all-reduce takes the
+        buffer as it is (no gather, no copy back; DDP's
+        gradient_as_bucket_view). A new buffer each call (zeroing an old
+        one writes as much), so gradients a caller kept from an earlier
+        step stay as they were."""
+        kinds = {(p.dtype, p.device) for p in self.params}
+        if len(kinds) != 1:
+            raise ValueError("the parameters of a TrainState must share "
+                             f"one dtype and device, not {kinds}")
+        dtype, device = kinds.pop()
+        self.grad_buffer = None        # frees the last step's if unkept
+        self.grad_buffer = torch.zeros(sum(p.numel() for p in self.params),
+                                       dtype=dtype, device=device)
+        for p, g in zip(self.params, self.grad_views(self.grad_buffer)):
+            p.grad = g
 
     def updates(self) -> int:
         """Updates the optimizer has applied (optax's count: it restarts
@@ -181,7 +211,8 @@ def make_train_step(model: nn.Module, *,
                     var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
                     loss_type: str = LossType.MSE,
                     microbatches: int = 1,
-                    class_cond: bool = False) -> Callable:
+                    class_cond: bool = False,
+                    data_sharder: Optional[Callable] = None) -> Callable:
     """The train step of ``model``.
 
     step(state, tables, batch, t, loss_weights, generator=None,
@@ -190,19 +221,37 @@ def make_train_step(model: nn.Module, *,
     SuperResModel on (low, high) pairs, called as (x_t, t, low_res[, y])
     (the JAX step's signature), t the int64 [B] respaced steps, loss_weights [B] the
     t-sampler's importance weights, noise [B, C, H, W] or drawn from
-    ``generator``. B = microbatches * micro; the microbatches' gradients
-    are averaged. metrics: loss (the mean of the microbatches' weighted
-    losses), grad_norm (global L2, before clipping), per_example_loss [B]
-    and mse, vb where the loss has them. ``step.grads_and_metrics`` is the
-    same without the update, for the OFA sandwich."""
+    ``generator``, one draw a microbatch, in order. The microbatches are
+    equal slices of the batch, and their gradients are averaged. metrics:
+    loss (the mean of the microbatches' weighted losses), grad_norm
+    (global L2, before clipping), per_example_loss and mse, vb where the
+    loss has them. ``step.grads_and_metrics`` is the same without the
+    update, for the OFA sandwich. The gradients accumulate in the state's
+    ``grad_buffer`` (:meth:`TrainState.bind_grads`).
+
+    ``data_sharder`` (parallel.data_sharder; one rank when not given)
+    makes the step data parallel: batch, t, loss_weights and noise are
+    the global batch's, the same on every rank, and each rank trains on
+    its rows, which the microbatches divide. Drawn noise is drawn a
+    microbatch at a time over the whole global batch, so that the noise
+    of each row is that of one process with microbatches of the same
+    size. The gradients (one all-reduce of ``grad_buffer``) and loss, mse
+    and vb are averaged over the ranks before grad_norm and the update
+    (the JAX step's psum), so every rank applies the same update.
+    per_example_loss holds this rank's rows.
+    ``grads_and_metrics(..., reduce=False)`` leaves the gradients and
+    metrics local, for a caller that reduces once over several calls."""
+    data_sharder = data_sharder or DataSharder()
 
     def grads_and_metrics(state: TrainState, tables: ScheduleTables,
                           batch: Dict[str, torch.Tensor], t: torch.Tensor,
                           loss_weights: torch.Tensor,
                           generator: Optional[torch.Generator] = None,
-                          noise: Optional[torch.Tensor] = None
+                          noise: Optional[torch.Tensor] = None, *,
+                          reduce: bool = True
                           ) -> Tuple[List[torch.Tensor], Dict]:
-        x, y, low_res = batch["x"], batch.get("y"), batch.get("low_res")
+        x, y, low_res = (data_sharder(batch.get(k))
+                         for k in ("x", "y", "low_res"))
         b = x.shape[0]
         if b % microbatches:
             raise ValueError(
@@ -211,8 +260,16 @@ def make_train_step(model: nn.Module, *,
                 "(the microbatches are equal slices, as the JAX package's; "
                 "the reference's ragged tail microbatch is not supported)")
         micro = b // microbatches
-        for p in state.params:
-            p.grad = None
+        if noise is None:
+            full = batch["x"]
+            noise = torch.cat([
+                torch.randn((micro,) + tuple(full.shape[1:]),
+                            generator=generator, device=full.device,
+                            dtype=full.dtype)
+                for _ in range(full.shape[0] // micro)])
+        t, loss_weights, noise = (data_sharder(v)
+                                  for v in (t, loss_weights, noise))
+        state.bind_grads()
         losses, terms_all = [], {}
         for m in range(microbatches):
             sl = slice(m * micro, (m + 1) * micro)
@@ -230,7 +287,7 @@ def make_train_step(model: nn.Module, *,
             terms = training_losses(
                 tables, model_fn, x[sl], t[sl], generator,
                 mean_type=mean_type, var_type=var_type, loss_type=loss_type,
-                noise=None if noise is None else noise[sl])
+                noise=noise[sl])
             loss = (terms["loss"] * loss_weights[sl]).mean()
             loss.backward()
             losses.append(loss.detach())
@@ -238,11 +295,15 @@ def make_train_step(model: nn.Module, *,
                 terms_all.setdefault(k, []).append(v.detach())
         grads = take_grads(state.params, microbatches)
         metrics = {"loss": torch.stack(losses).mean(),
-                   "grad_norm": global_norm(grads),
                    "per_example_loss": torch.cat(terms_all["loss"])}
         for k in ("mse", "vb"):
             if k in terms_all:
                 metrics[k] = torch.cat(terms_all[k]).mean()
+        if reduce:
+            data_sharder.all_reduce_mean_([state.grad_buffer])
+            data_sharder.all_reduce_mean_(
+                [metrics[k] for k in ("loss", "mse", "vb") if k in metrics])
+        metrics["grad_norm"] = global_norm(grads)
         return grads, metrics
 
     def step(state: TrainState, tables: ScheduleTables, batch: Dict,

@@ -155,7 +155,7 @@ class Logger:
         self.text_outputs: List[Any] = \
             [HumanOutput(None)] if (log_to_stdout and "stdout" in formats) \
             else []
-        if dir is not None:
+        if dir is not None and set(formats) - {"stdout"}:
             os.makedirs(dir, exist_ok=True)
             if "log" in formats:
                 self.text_outputs.append(

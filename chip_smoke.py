@@ -150,31 +150,41 @@ Phases, each of which raises on failure:
     the CPU twins, default and switches on: losses, gradient norms, the
     first step's gradients and every parameter and EMA value after the
     steps within 1e-3 of their scale;
-20. generation kernels: the attention and GroupNorm kernels against their
+20. data parallel: ``adt-torch train`` (3 steps), ``adt-torch sample``
+    (16 images, unguided on the default path and guided with the flash
+    gate off) and a guided fitness chunk at full ADM-64 width under
+    ``python -m torch.distributed.run --standalone --nproc_per_node=1``
+    (NCCL, the process group up, so every gradient and moment all-reduce
+    runs at world size 1) against the same runs in this process: losses
+    and FIDs within 1e-3 relative, pixels within one uint8 level, equal
+    launches; the NCCL version and the device time of the ADM-64 gradient
+    all-reduce of one step (``chiprun_out/chip_smoke_dist.log``: the
+    torchrun process's output);
+21. generation kernels: the attention and GroupNorm kernels against their
     twins (bf16 and fp32, sabotaged runs) at every new site of the
     generation commands' default path, read from the models on the meta
     device: the LDM UNets' ADM-layout D = 32 attention, cin's token-major
     D = 32 self-attention and its cross-attention over one class token
     (S = 1), the VQ-f4 mid-block's D = 512 at T 4096 and 16384, SD's
     encoder, and every GroupNorm of those models;
-21. LDM parity: ldm-sample's two eta-1 DDIM steps and VQ-f4 decode
+22. LDM parity: ldm-sample's two eta-1 DDIM steps and VQ-f4 decode
     (unconditional and on cin's class token) and inpaint's condition, two
     DDIM steps, decode and composite, full width, float32, 32 x 32 latent,
     GPU against the CPU twins, draws injected, within 1e-3 x scale;
-22. ``adt-torch txt2img`` at SD v1 width, 512 x 512, four prompts in one
+23. ``adt-torch txt2img`` at SD v1 width, 512 x 512, four prompts in one
     batch: PLMS over a searched 4-step --timesteps, DPM-Solver over five
     knots, PLMS with a --prompt_mask; ``convert --preset sd`` and the PLMS
     run again from the params directory, which must give the same images;
-23. ``adt-torch img2img`` on a synthesized 512 x 512 PNG, strength 0.75;
-24. ``adt-torch ldm-sample`` at celebahq-ldm-vq-4's defaults and with
+24. ``adt-torch img2img`` on a synthesized 512 x 512 PNG, strength 0.75;
+25. ``adt-torch ldm-sample`` at celebahq-ldm-vq-4's defaults and with
     ``--num_classes 1000`` at cin256-v2's UNet widths, 10 DDIM steps;
-25. ``adt-torch inpaint`` at inpainting_big's defaults on a synthesized
-    512 x 512 image and mask pair, 10 DDIM steps. Each of 22-25 runs on
+26. ``adt-torch inpaint`` at inpainting_big's defaults on a synthesized
+    512 x 512 image and mask pair, 10 DDIM steps. Each of 23-26 runs on
     the default path with its launch counters set to 0 just before and
     read just after (each equal to the per-call counts of the models times
     the command's UNet calls, encodes and decodes), its output's format,
     images/s and peak memory;
-26. SR kernels: the flash forward, dQ and dK/dV at the SR training
+27. SR kernels: the flash forward, dQ and dK/dV at the SR training
     step's attention sites (head dim 64: T 1024 with 6 heads, T 256 and 64
     with 12, microbatch 2), the GroupNorm forward at every GroupNorm of
     sr-sample's and the SR training step's UNets and the backward at the
@@ -182,18 +192,18 @@ Phases, each of which raises on failure:
     training step's sites, and the spatial_v2 classifier head's GroupNorm
     at one position (batch 16), bf16 and fp32, with the sabotaged runs,
     whatever the gate routes;
-27. SR parity: two DDIM steps of sr-sample's full-width SR UNet (the 256
+28. SR parity: two DDIM steps of sr-sample's full-width SR UNet (the 256
     model's widths at 128 x 128), float32, seeded weights, x_T injected,
     GPU against the CPU twins, within 1e-3 x scale;
-28. ``adt-torch sr-sample`` at its defaults (DDIM over 1000 steps, bf16)
+29. ``adt-torch sr-sample`` at its defaults (DDIM over 1000 steps, bf16)
     on two seeded 64 x 64 base samples: the .npz, launches equal to the
     UNet call's per-call counts x 1000, images/s, peak memory;
-29. ``adt-torch train --image_size 256 --sr_small_size 64`` (batch 4 in
+30. ``adt-torch train --image_size 256 --sr_small_size 64`` (batch 4 in
     two microbatches, 3 steps) over seeded PNGs, low_res derived and from
     --lq_dir, on the default path and with every kernel on: finite
     losses, launches a step, step time, peak memory;
-30. ``adt-torch train-classifier --classifier_pool spatial_v2``, 3 steps;
-31. ``adt-torch selftest`` with a synthesized pytorch_fid ``.pth``:
+31. ``adt-torch train-classifier --classifier_pool spatial_v2``, 3 steps;
+32. ``adt-torch selftest`` with a synthesized pytorch_fid ``.pth``:
     passed true, certified false, seconds.
 
 The flash gate (ops/flash_attention.py ``FLASH_GATE_SDPA``) routes the
@@ -204,10 +214,11 @@ the gate off to the literal counts of ``FLASH_ANCHORS``. Every profile is
 taken again when it comes back short of kernels the launch counters saw
 (``profiled``).
 
-Two measurements run alone, not in the smoke run:
+Three measurements run alone, not in the smoke run:
 
     python3 chip_smoke.py --flash-ab      # the flash gate's A/B
     python3 chip_smoke.py --lost-events   # the profiler's lost kernels
+    python3 chip_smoke.py --guided-repro  # is the guided step reproducible
 
 ``--flash-ab`` (``phase_flash_ab``): every attention site on its kernel
 against every site on SDPA, two rounds, device time per site shape from
@@ -215,8 +226,11 @@ profiler ranges, inside the guided DDIM step, the SD UNet call (which also
 times its D = 160 sites on the float32 twin), the ADM-64 training step and
 the SR training step; it prints the sites it would send to SDPA beside the
 committed gate. ``--lost-events`` (``phase_lost_events``): how often a
-whole guided run's profile misses kernels. Each writes its record to
-``chiprun_out/`` and exits 0 when it ran to its end.
+whole guided run's profile misses kernels. ``--guided-repro``
+(``phase_guided_repro``): the guided DDIM-4 run three times from one seed
+under each arm of ``REPRO_ARMS`` (the flash gate, the fused GroupNorm,
+cuDNN's convs, SDPA's backends), how far the runs differ. Each writes its
+record to ``chiprun_out/`` and exits 0 when it ran to its end.
 
 The last lines of standard output are a ``kernels`` JSON line, the
 ``nvidia-smi`` name / power-limit line and ``{"ok": true, "device": ...}``.
@@ -1438,6 +1452,105 @@ def profile_counts(prof):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return {k: sum(any(tag in e.name for tag in tags) for e in evs)
             for k, tags in PROFILE_TAGS.items()}
+
+
+def _sdpa_arm(backend: str, deterministic: bool = False):
+    """A context: SDPA limited to ``backend`` (torch.nn.attention's
+    SDPBackend name, "" for PyTorch's own choice), optionally under
+    ``torch.use_deterministic_algorithms``, cuDNN's convs deterministic
+    under ``backend == "cudnn_conv"``."""
+    import contextlib
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    @contextlib.contextmanager
+    def arm():
+        old = (torch.are_deterministic_algorithms_enabled(),
+               torch.backends.cudnn.deterministic)
+        with contextlib.ExitStack() as stack:
+            if backend == "cudnn_conv":
+                torch.backends.cudnn.deterministic = True
+            elif backend:
+                stack.enter_context(sdpa_kernel(getattr(SDPBackend,
+                                                        backend)))
+            if deterministic:
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                yield
+            finally:
+                torch.use_deterministic_algorithms(old[0])
+                torch.backends.cudnn.deterministic = old[1]
+
+    return arm()
+
+
+# the arms of phase_guided_repro: (label, kernel switches, SDPA arm)
+REPRO_ARMS = [
+    ("default", DEFAULT, ("", False)),
+    ("flash gate off", {"ADT_FLASH_GATE": "0"}, ("", False)),
+    ("fused norm off", {"ADT_FUSED_NORM": "0"}, ("", False)),
+    ("gate off + fused norm off", {"ADT_FLASH_GATE": "0",
+                                   "ADT_FUSED_NORM": "0"}, ("", False)),
+    ("cudnn convs deterministic", DEFAULT, ("cudnn_conv", False)),
+    ("sdpa cudnn", DEFAULT, ("CUDNN_ATTENTION", False)),
+    ("sdpa flash", DEFAULT, ("FLASH_ATTENTION", False)),
+    ("sdpa flash, deterministic algorithms", DEFAULT,
+     ("FLASH_ATTENTION", True)),
+    ("sdpa efficient", DEFAULT, ("EFFICIENT_ATTENTION", False)),
+    ("deterministic algorithms", DEFAULT, ("", True)),
+]
+
+
+def phase_guided_repro(unet_sd, cls_sd, repeats: int = 3):
+    """Is the guided step reproducible? The guided DDIM-4 run (batch 32,
+    full width, bf16, seeded weights) ``repeats`` times from the same seed
+    in one process under each arm of REPRO_ARMS: the largest difference
+    from the first run (float, and in uint8 levels), the share of
+    elements that differ, and the median wall time of a run. An arm whose
+    runs agree bit for bit is deterministic; the one arm that changes one
+    thing against the default names the cause."""
+    import numpy as np
+    import torch
+    from autodiffusion_tpu_torch.samplers import (classifier_cond_fn,
+                                                  ddim_sample_loop)
+    from autodiffusion_tpu_torch.schedules import build_tables
+    from autodiffusion_tpu_torch.search import to_uint8
+
+    _, (m, c) = guided_run(unet_sd, cls_sd)
+    tables = build_tables("ddim4", base_schedule="cosine").to("cuda")
+
+    def once():
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        y = torch.randint(0, 1000, (32,), generator=gen, device="cuda")
+        out = ddim_sample_loop(lambda x, t, i: m(x, t, y), (32, 3, 64, 64),
+                               tables, device="cuda", generator=gen,
+                               cond_fn=classifier_cond_fn(c, y, 1.0))
+        torch.cuda.synchronize()
+        return out
+
+    res = {}
+    for label, env, (backend, det) in REPRO_ARMS:
+        with switches(env), _sdpa_arm(backend, det):
+            once()                                  # warm-up
+            outs, walls = [], []
+            for _ in range(repeats):
+                t0 = time.time()
+                outs.append(once())
+                walls.append(time.time() - t0)
+        ref = outs[0]
+        diff = max(float((o - ref).abs().max()) for o in outs[1:])
+        share = max(float((o != ref).float().mean()) for o in outs[1:])
+        u8 = to_uint8(ref).cpu().numpy().astype(np.int16)
+        levels = max(int(np.abs(to_uint8(o).cpu().numpy() - u8).max())
+                     for o in outs[1:])
+        res[label] = dict(max_abs_diff=diff, share_differing=share,
+                          uint8_levels=levels,
+                          wall_ms=1e3 * sorted(walls)[repeats // 2])
+        log(f"guided repro [{label}]: {repeats} runs, max |diff| {diff:.3e}"
+            f", {share:.2%} of elements differ, {levels} uint8 level(s), "
+            f"{res[label]['wall_ms']:.1f} ms a run (wall)")
+    return res
 
 
 def phase_lost_events(unet_sd, cls_sd, tries: int = 1):
@@ -3411,6 +3524,300 @@ def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
                 cpu_metrics=cpu["metrics"], launches=gpu["launches"])
 
 
+# ------------------------------------------------ the multi-process layer
+
+DIST_TRAIN_STEPS = 3
+DIST_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "group_norm_fwd", "group_norm_bwd")
+# phase_dist's samples: (name, switches, extra arguments). The default
+# path's guided step is not reproducible on the card (the flash gate's
+# SDPA backward at the classifier's sites, ``--guided-repro``), so the
+# guided sample runs with the gate off, every site on the port's own
+# kernels, where two runs agree bit for bit
+DIST_SAMPLES = [
+    ("sample", DEFAULT, []),
+    ("sample_guided", dict(DEFAULT, ADT_FLASH_GATE="0"),
+     ["--classifier_path", "{cls}"]),
+]
+
+
+def dist_runs(paths, files, out_dir: str):
+    """The runs ``phase_dist`` compares, in this process: ``adt-torch
+    train`` (ADM-64, bf16, batch 16 in two microbatches, 3 steps, no
+    checkpoint), ``adt-torch sample`` (ADM-64, ancestral over the searched
+    4 steps, 16 images at batch 16) unguided on the default path and
+    guided with the flash gate off (DIST_SAMPLES) and one guided fitness
+    chunk on the default path (two DDIM-4 candidates folded, 16 samples
+    each, Inception features) on ``data_sharder(make_mesh())``: this
+    process alone without a group, the group's ranks under torchrun. Each
+    run's launch counters are set to 0 just before it and read just
+    after."""
+    import random
+
+    import numpy as np
+    import torch
+    from autodiffusion_tpu_torch.cli.main import main as adt_torch
+    from autodiffusion_tpu_torch.fid import (FIDStats, inception_apply,
+                                             load_fid_inception)
+    from autodiffusion_tpu_torch.models import (ClassifierConfig,
+                                                ModelConfig,
+                                                create_classifier,
+                                                create_model)
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.parallel import data_sharder, make_mesh
+    from autodiffusion_tpu_torch.search import (TimestepSpace,
+                                                make_adm_fitness)
+
+    def counted(fn):
+        reset_launch_counts()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(LAUNCHES), time.time() - t0
+
+    out = {}
+    train_log = os.path.join(out_dir, "train")
+    argv = ["train", "--device", "cuda", "--data_dir", files["npy"],
+            "--batch_size", "16", "--microbatch", "8", "--ema_rate",
+            "0.9999", "--max_steps", str(DIST_TRAIN_STEPS),
+            "--log_interval", "1"]
+    with switches(dict(DEFAULT, ADT_LOGDIR=train_log)):
+        rc, launches, wall = counted(lambda: adt_torch(argv))
+    out["train"] = dict(rc=rc, launches=launches, wall_s=wall,
+                        losses=[r["loss"] for r in _progress(train_log)])
+
+    for name, env, extra in DIST_SAMPLES:
+        npz = os.path.join(out_dir, f"{name}.npz")
+        argv = ["sample", "--device", "cuda", "--model_path", paths["unet"],
+                "--use_timestep", SAMPLE_TIMESTEPS, "--use_ddim", "False",
+                "--num_samples", "16", "--batch_size", "16", "--seed", "0",
+                "--out", npz] + [paths["cls"] if a == "{cls}" else a
+                                 for a in extra]
+        with switches(env):
+            rc, launches, wall = counted(lambda: adt_torch(argv))
+        with np.load(npz) as z:
+            labels = z["arr_1"].tolist()
+        out[name] = dict(rc=rc, launches=launches, wall_s=wall, npz=npz,
+                         labels=labels)
+
+    unet = create_model(ModelConfig.adm64(), device="cuda")
+    unet.load_state_dict(torch.load(paths["unet"], map_location="cuda",
+                                    weights_only=True))
+    clf = create_classifier(ClassifierConfig.adm64(), device="cuda")
+    clf.load_state_dict(torch.load(paths["cls"], map_location="cuda",
+                                   weights_only=True))
+    inception = load_fid_inception(paths["incep"], device="cuda")
+    fitness = make_adm_fitness(
+        model=unet, image_size=64,
+        feature_fn=lambda imgs: inception_apply(inception, imgs),
+        ref_stats=FIDStats.load(paths["ref"]), num_samples=16,
+        batch_size=16, classifier=clf, candidate_chunk=2, seed=0,
+        device="cuda",
+        shard_fn=data_sharder(make_mesh()))
+    space = TimestepSpace(1000, 4, rng=random.Random(0))
+    cands = [space.random() for _ in range(2)]
+    with switches(DEFAULT):
+        fids, launches, wall = counted(lambda: fitness(cands))
+    out["fitness"] = dict(fids=[float(f) for f in fids], launches=launches,
+                          wall_s=wall)
+    del unet, clf, inception, fitness
+    torch.cuda.empty_cache()
+    return out
+
+
+def allreduce_ms(reps: int = 5):
+    """Device time (CUDA events) of the ADM-64 training step's gradient
+    all-reduce, medians of ``reps``: ``DataSharder.all_reduce_mean_`` of
+    the state's flat gradient buffer (``step_ms``: the train step's, in
+    place), of one gradient a parameter (``list_ms``: flatten, all-reduce,
+    copy back, as the step reduced before its gradients lived in one
+    buffer), and the bare ``dist.all_reduce`` of the buffer."""
+    import torch
+    import torch.distributed as dist
+    from autodiffusion_tpu_torch.models import ModelConfig, create_model
+    from autodiffusion_tpu_torch.parallel import data_sharder, make_mesh
+    from autodiffusion_tpu_torch.train import create_train_state
+
+    m = create_model(ModelConfig.adm64(), device="cuda")
+    state = create_train_state(m, ema_rates=())
+    state.bind_grads()
+    flat = state.grad_buffer.fill_(1.0)
+    n = flat.numel()
+    grads = [torch.ones(p.shape, device="cuda") for p in state.params]
+    shard = data_sharder(make_mesh())
+
+    def timed(fn):
+        for _ in range(2):
+            fn()
+        ts = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return sorted(ts)[reps // 2]
+
+    step = timed(lambda: shard.all_reduce_mean_([flat]))
+    listed = timed(lambda: shard.all_reduce_mean_(grads))
+    if not (bool((flat == 1).all())
+            and all(bool((g == 1).all()) for g in grads)):
+        raise AssertionError("the all-reduce mean at world size 1 changed "
+                             "the gradients")
+    bare = timed(lambda: dist.all_reduce(flat))
+    # the list's flatten (read + write) and copy back (read + write),
+    # float32
+    bound = 4 * 4 * n / HBM_BYTES_PER_S * 1e3
+    del state, m, flat, grads
+    torch.cuda.empty_cache()
+    return dict(params=n, step_ms=step, list_ms=listed, all_reduce_ms=bare,
+                list_copy_bound_ms=bound)
+
+
+def dist_worker(spec_path: str) -> int:
+    """One torchrun rank of ``phase_dist``: the runs of ``dist_runs`` with
+    the process group up (the CLI's ``setup_dist`` makes it), then the
+    all-reduce timing; the record goes to the spec's directory."""
+    import torch
+    import torch.distributed as dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    res = dist_runs(spec["paths"], spec["files"], spec["out"])
+    if not dist.is_initialized():
+        raise AssertionError("no process group under torchrun")
+    res["group"] = dict(backend=dist.get_backend(),
+                        world=dist.get_world_size(), rank=dist.get_rank(),
+                        nccl=".".join(map(str, torch.cuda.nccl.version())),
+                        device=torch.cuda.current_device())
+    res["allreduce"] = allreduce_ms()
+    with open(os.path.join(spec["out"], "result.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist(paths, files, smi: str):
+    """``sample`` (unguided on the default path, guided with the flash
+    gate off), ``train`` and a guided fitness chunk data parallel under
+    ``python -m torch.distributed.run --standalone --nproc_per_node=1``
+    (NCCL, the group up at world size 1, so every all-reduce runs), held
+    to the same runs without torchrun: losses and FIDs within 1e-3
+    relative, sample pixels within one uint8 level, labels equal, and each
+    kernel's launches equal (the flash forward, dQ and dK/dV, and the
+    GroupNorm forward and backward among them). Prints the NCCL version,
+    the ADM-64 gradient all-reduce's device time and the card."""
+    import numpy as np
+    import torch
+
+    base = os.path.join(WORK, "dist")
+    plain_dir, tr_dir = (os.path.join(base, k) for k in ("plain", "torchrun"))
+    for d in (plain_dir, tr_dir):
+        os.makedirs(d, exist_ok=True)
+    plain = dist_runs(paths, files, plain_dir)
+    torch.cuda.empty_cache()
+    spec = os.path.join(base, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(paths=paths, files=files, out=tr_dir), f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + ([os.environ["PYTHONPATH"]]
+                  if os.environ.get("PYTHONPATH") else [])))
+    for k in DEFAULT:
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.join(ROOT, "chip_smoke.py"),
+           "--dist-worker", spec]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError("the torchrun run did not end within 400 s")
+    wall = time.time() - t0
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "chip_smoke_dist.log"), "w") as f:
+        f.write(text)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun returned {proc.returncode}:\n"
+                             f"{text[-3000:]}")
+    with open(os.path.join(tr_dir, "result.json")) as f:
+        tr = json.load(f)
+
+    group = tr["group"]
+    if (group["backend"], group["world"], group["rank"]) != ("nccl", 1, 0):
+        raise AssertionError(f"torchrun's group: {group}")
+    samples = [name for name, _, _ in DIST_SAMPLES]
+    names = ["train"] + samples + ["fitness"]
+    for name in ["train"] + samples:
+        for run in (plain, tr):
+            if run[name]["rc"] != 0:
+                raise AssertionError(f"{name} returned {run[name]['rc']}")
+    lp, lt = plain["train"]["losses"], tr["train"]["losses"]
+    if len(lp) != DIST_TRAIN_STEPS or len(lt) != DIST_TRAIN_STEPS or \
+            not all(math.isfinite(v) for v in lp + lt):
+        raise AssertionError(f"train losses {lp} vs {lt}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lt, lp))
+    fp, ft = plain["fitness"]["fids"], tr["fitness"]["fids"]
+    if not all(math.isfinite(v) and v >= 0 for v in fp + ft):
+        raise AssertionError(f"FIDs {fp} vs {ft}")
+    fid_rel = max(abs(a - b) / abs(b) for a, b in zip(ft, fp))
+    pix = {}
+    for name in samples:
+        with np.load(plain[name]["npz"]) as a, \
+                np.load(tr[name]["npz"]) as b:
+            arr_p, arr_t = a["arr_0"], b["arr_0"]
+        if arr_p.shape != (16, 64, 64, 3) or arr_t.shape != arr_p.shape:
+            raise AssertionError(f"{name}: {arr_p.shape} vs {arr_t.shape}")
+        pix[name] = int(np.abs(arr_p.astype(np.int16) - arr_t).max())
+        if plain[name]["labels"] != tr[name]["labels"]:
+            raise AssertionError(f"{name} labels differ under torchrun")
+    if loss_rel > 1e-3 or fid_rel > 1e-3 or max(pix.values()) > 1:
+        raise AssertionError(
+            f"torchrun vs one process: losses {lt} vs {lp} ({loss_rel:.2e} "
+            f"relative), FIDs {ft} vs {fp} ({fid_rel:.2e}), sample pixels "
+            f"{pix} levels apart (limits 1e-3, 1e-3, 1)")
+    launched = set()
+    for name in names:
+        if tr[name]["launches"] != plain[name]["launches"]:
+            raise AssertionError(
+                f"{name} launches under torchrun {tr[name]['launches']} != "
+                f"{plain[name]['launches']} in one process")
+        launched |= {k for k, v in tr[name]["launches"].items() if v}
+    missing = [k for k in DIST_KERNELS if k not in launched]
+    if missing:
+        raise AssertionError(f"the torchrun runs launched no {missing}")
+    ar = tr["allreduce"]
+    log(f"dist: NCCL {group['nccl']}, backend {group['backend']}, world "
+        f"{group['world']}, torchrun wall {wall:.1f} s (process start, "
+        f"NCCL init, the runs)")
+    log(f"dist: ADM-64 gradient all-reduce ({ar['params']} float32 "
+        f"parameters) a step: {ar['step_ms']:.3f} ms device time (the "
+        f"flat gradient buffer in place, CUDA events); one tensor a "
+        f"parameter {ar['list_ms']:.3f} ms (flatten + all-reduce + copy "
+        f"back; copy bound {ar['list_copy_bound_ms']:.3f} ms); the bare "
+        f"all-reduce {ar['all_reduce_ms']:.3f} ms; on {smi}")
+    log(f"dist: torchrun vs one process: train losses {lt} vs {lp} "
+        f"({loss_rel:.2e} relative), fitness FIDs {ft} vs {fp} "
+        f"({fid_rel:.2e}), sample pixels at most {pix} level(s) apart; "
+        f"launches equal ({sorted(launched)}); wall (torchrun / one "
+        f"process) " + ", ".join(
+            f"{name} {tr[name]['wall_s']:.1f} / {plain[name]['wall_s']:.1f}"
+            f" s" for name in names))
+    return dict(group=group, allreduce=ar, torchrun_wall_s=wall,
+                loss_rel=loss_rel, fid_rel=fid_rel, pixel_levels=pix,
+                plain={k: {kk: vv for kk, vv in v.items() if kk != "npz"}
+                       for k, v in plain.items()},
+                torchrun={k: v for k, v in tr.items() if k in names},
+                runs=[tr[k] for k in names])
+
+
 # ------------------------------------------- SD and LDM generation commands
 
 GEN_PROMPTS = ["a photo of a red car on the street", "a bowl of fruit",
@@ -4219,7 +4626,7 @@ def adm_weights():
 
 
 # the measurements run alone (``python3 chip_smoke.py <flag>``)
-MEASUREMENTS = ("--flash-ab", "--lost-events")
+MEASUREMENTS = ("--flash-ab", "--lost-events", "--guided-repro")
 
 
 def measure_alone(flag: str, smi: str) -> int:
@@ -4229,6 +4636,8 @@ def measure_alone(flag: str, smi: str) -> int:
     if flag == "--flash-ab":
         res, gate = phase_flash_ab(unet_sd, cls_sd, _sites_of_programs())
         rec = {"flash_ab": res, "flash_gate_from_ab": gate}
+    elif flag == "--guided-repro":
+        rec = {"guided_repro": phase_guided_repro(unet_sd, cls_sd)}
     else:
         rec = {"lost_events": phase_lost_events(unet_sd, cls_sd, tries=8)}
     os.makedirs(OUT, exist_ok=True)
@@ -4243,7 +4652,9 @@ def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv and (len(argv) > 1 or argv[0] not in MEASUREMENTS):
+    worker = len(argv) == 2 and argv[0] == "--dist-worker"
+    if argv and not worker and (len(argv) > 1
+                                or argv[0] not in MEASUREMENTS):
         print(f"usage: chip_smoke.py [{' | '.join(MEASUREMENTS)}]",
               file=sys.stderr)
         return 2
@@ -4252,6 +4663,8 @@ def main(argv=None) -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if worker:                   # a rank of phase_dist, under torchrun
+        return dist_worker(argv[1])
     from autodiffusion_tpu_torch.ops import _build
 
     t_start = time.time()
@@ -4343,6 +4756,8 @@ def main(argv=None) -> int:
                         for label, env in (("default", DEFAULT),
                                            ("switches on", SWITCHES_ON))}
         mark("train parity")
+        dist = phase_dist(paths, files, smi)
+        mark("data parallel")
 
         # the Stable Diffusion slice: search-sd's kernels at every SD site,
         # parity of the full-width towers, profiles and the searches; the
@@ -4464,7 +4879,8 @@ def main(argv=None) -> int:
             + list(train_cls.values())
             + [r for k, r in txt2img.items() if k != "convert"]
             + [img2img, inpaint] + list(ldm_sample.values())
-            + [sr_sample, cls_v2, selftest] + list(sr_train.values()))
+            + [sr_sample, cls_v2, selftest] + list(sr_train.values())
+            + dist["runs"] + list(dist["plain"].values()))
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNEL_INFO}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
@@ -4507,6 +4923,8 @@ def main(argv=None) -> int:
                    "train_classifier": train_cls, "nll": nll,
                    "sample_trained": sample_trained,
                    "train_parity": train_parity,
+                   "data_parallel": {k: v for k, v in dist.items()
+                                     if k != "runs"},
                    "gen_sites": {part: {k: {str(s): n for s, n in v.items()}
                                         for k, v in d.items()}
                                  for part, d in gen_sites.items()},

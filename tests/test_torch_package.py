@@ -63,6 +63,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, "\n".join(bad)
 
 
+def test_parallel_is_scanned_and_exports_the_jax_names():
+    """parallel/ (the multi-process layer) is among the scanned sources,
+    and exports the JAX package's twelve names."""
+    from autodiffusion_tpu.parallel import __all__ as jax_names
+
+    import autodiffusion_tpu_torch.parallel as port
+
+    scanned = {os.path.relpath(p, PACKAGE) for p in _port_sources()}
+    assert {"parallel/__init__.py", "parallel/dist.py",
+            "parallel/mesh.py"} <= scanned
+    assert sorted(port.__all__) == sorted(jax_names) and len(jax_names) == 12
+    assert all(callable(getattr(port, n)) for n in jax_names)
+
+
 def test_import_scan_catches_forbidden_imports(tmp_path):
     """The scan is not vacuous: it sees imports inside functions and
     tells autodiffusion_tpu from autodiffusion_tpu_torch."""
@@ -101,6 +115,7 @@ def _entry_points():
                                                 create_model,
                                                 create_sd_models,
                                                 create_sr_model)
+    from autodiffusion_tpu_torch.parallel import setup_dist
     from autodiffusion_tpu_torch.search import (make_adm_fitness,
                                                 make_sd_fitness)
 
@@ -170,6 +185,7 @@ def _entry_points():
                                 "--out", "sd_dir", "--preset", "sd"),
         "cli.main sr-sample": cli("sr-sample", "--base_samples", "b.npz"),
         "cli.main selftest": cli("selftest", "--inception_path", "i.pth"),
+        "setup_dist": lambda **kw: setup_dist("localhost:1", 2, 0, **kw),
         "create_sr_model": lambda **kw: create_sr_model(
             ModelConfig(image_size=32, num_channels=32, num_res_blocks=1,
                         channel_mult="1,2"), large_size=32, small_size=8,
@@ -189,7 +205,7 @@ def _entry_points():
                                   "cli.main ldm-sample cin",
                                   "cli.main inpaint", "cli.main convert",
                                   "cli.main sr-sample", "cli.main selftest",
-                                  "create_sr_model"])
+                                  "create_sr_model", "setup_dist"])
 def test_entry_points_raise_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
