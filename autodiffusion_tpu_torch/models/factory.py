@@ -97,6 +97,18 @@ class ModelConfig:
         base.update(overrides)
         return cls(**base)
 
+    @classmethod
+    def lsun256(cls, **overrides) -> "ModelConfig":
+        """The LSUN bedroom / cat 256 unconditional config
+        (search_lsun_bedroom.sh); guided-diffusion's legacy QKV order."""
+        base = dict(image_size=256, num_channels=256, num_res_blocks=2,
+                    num_head_channels=64, attention_resolutions="32,16,8",
+                    class_cond=False, learn_sigma=True, noise_schedule="linear",
+                    resblock_updown=True, use_scale_shift_norm=True,
+                    use_bf16=True, dropout=0.1)
+        base.update(overrides)
+        return cls(**base)
+
 
 @dataclasses.dataclass
 class ClassifierConfig:

@@ -70,7 +70,8 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_fwd_packed_plain", "multihead_attention", "LAUNCHES",
            "reset_launch_counts", "SUPPORTED_HEAD_DIMS", "FWD_HEAD_DIMS",
            "PACKED_HEAD_DIMS", "WIDE_HEAD_DIM", "attention_route",
-           "flash_gate_on", "FLASH_GATE_SDPA", "routed_attention"]
+           "flash_gate_on", "FLASH_GATE_SDPA", "REPRO_KERNEL_SITES",
+           "routed_attention"]
 
 # head dims of the backward kernels (and of FlashAttentionFunction)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -91,11 +92,10 @@ FORWARD_KERNEL_DIMS = FWD_HEAD_DIMS + PACKED_HEAD_DIMS + (WIDE_HEAD_DIM,)
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5, "The flash gate"). A
 # site with a gradient is decided forward and backward together (SDPA's
 # backward needs SDPA's forward). Every other site with a kernel keeps it.
+# The sites of REPRO_KERNEL_SITES are never on it (see there).
 FLASH_GATE_SDPA = frozenset({
-    # the guided DDIM step: the classifier's three sites (with the input's
-    # gradient), the UNet's 16 x 16 level
-    (64, 64, 64, 8, True), (256, 256, 64, 6, True),
-    (1024, 1024, 64, 4, True), (256, 256, 64, 9, False),
+    # the guided DDIM step: the UNet's 16 x 16 level
+    (256, 256, 64, 9, False),
     # the ADM-64 and SR training steps: every site
     (64, 64, 64, 12, True), (256, 256, 64, 9, True),
     (1024, 1024, 64, 6, True), (256, 256, 64, 12, True),
@@ -103,7 +103,29 @@ FLASH_GATE_SDPA = frozenset({
     # cross-attention, the 32 x 32 level's cross-attention
     (4096, 4096, 40, 8, False), (4096, 77, 40, 8, False),
     (1024, 77, 80, 8, False),
+    # the LSUN-256 UNet call: the 16 x 16 level (one A/B run, two rounds)
+    (256, 256, 64, 16, False),
 })
+
+# The sites that keep their kernels for reproducibility, though SDPA took
+# less time there in the A/B: the ADM-64 classifier's three sites with the
+# input's gradient, (1024, 4), (256, 6) and (64, 8) heads (the guided step,
+# and train-classifier's step, which shares their shapes). SDPA's backward
+# is not deterministic on the card, so two guided runs from one seed
+# differed, while the flash forward, dQ and dK/dV kernels give the same
+# bits every run. Their cost: a 4-step batch-32 guided DDIM run took 215.87
+# ms of device time with them on the kernels against 211.69 with them on
+# SDPA (chip_smoke.py --guided-repro), 2.0 %. The rule is by shape: a
+# gradient site of another model that should repeat bit for bit belongs
+# here, and a gate entry equal to one of these raises at import.
+REPRO_KERNEL_SITES = frozenset({
+    (1024, 1024, 64, 4, True), (256, 256, 64, 6, True),
+    (64, 64, 64, 8, True),
+})
+if FLASH_GATE_SDPA & REPRO_KERNEL_SITES:
+    raise ValueError(f"the flash gate holds sites kept on the kernels for "
+                     f"reproducibility: "
+                     f"{sorted(FLASH_GATE_SDPA & REPRO_KERNEL_SITES)}")
 
 
 def flash_gate_on() -> bool:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict
 
-__all__ = ["add_dict_to_argparser", "str2bool"]
+__all__ = ["add_dict_to_argparser", "args_to_dict", "str2bool"]
 
 
 def str2bool(v) -> bool:
@@ -33,3 +33,8 @@ def add_dict_to_argparser(parser: argparse.ArgumentParser,
         elif isinstance(v, bool):
             v_type = str2bool
         parser.add_argument(f"--{k}", default=v, type=v_type)
+
+
+def args_to_dict(args: argparse.Namespace, keys) -> Dict[str, Any]:
+    """{key: args.key} for each of ``keys``."""
+    return {k: getattr(args, k) for k in keys}

@@ -45,27 +45,11 @@ Phases, each of which raises on failure:
    call and decode;
 4. parity: two guided DDIM steps and two guided ancestral steps (the same
    x_T and per-step noise) of the full-width ADM-64 UNet and classifier
-   (float32, seeded random weights) on the GPU against the same runs on
-   the CPU, where every kernel is its plain twin: once on the default
-   path (the switches unset: the fused GroupNorm on the card, the plain
-   chain on the CPU), once with all three on;
-5. profile: one guided DDIM-4 run at batch 32 in bf16 under
-   ``torch.profiler``: device time by kernel, the flash kernels' share
-   (the forward's, the dQ kernel's and the dK/dV kernel's own lines) and
-   the device's idle share (``chiprun_out/chip_smoke_profile.txt``);
-6. A/B: the same guided DDIM-4 run with the switches off, on the default
-   path (the fused norm alone), with each conv switch alone, with the
-   fused norm and the fused conv, and with every kernel on, one round:
-   wall time per step, device-busy time
-   per step (profiler), idle share, the GroupNorm forward's and
-   backward's kernels, the dK/dV kernel and weight- and input-gradient
-   conv time of every run (the guided models frozen, as the search
-   freezes them: any weight-gradient kernel fails the phase, and so does
-   a GroupNorm backward count other than one kernel a call, 17 a step
-   with all three on, or any batch-sum kernel)
-   (``chiprun_out/chip_smoke_profile_fused.txt``: the kernels of a run
-   with all three on);
-7. search: ``adt-torch search`` through its Python entry at full ADM-64
+   (float32, seeded random weights) on the GPU, once on the default path
+   (the switches unset: the fused GroupNorm) and once with all three on,
+   each against one run of the same steps on the CPU, where every kernel
+   is its plain twin (the plain chain of the default path);
+5. search: ``adt-torch search`` through its Python entry at full ADM-64
    width (classifier guidance, DDIM-4, chunk 2 x batch 16, 32 samples per
    candidate, population 4, one epoch) with seeded random UNet, classifier
    and Inception weights written as checkpoint files, and reference
@@ -76,17 +60,17 @@ Phases, each of which raises on failure:
    Every FID must be finite and >= 0, and each run's launch counters,
    set to 0 just before it, must show every kernel of its path ran as
    many times as its guided steps need;
-8. sample: ``adt-torch sample`` with the same checkpoints (classifier
+6. sample: ``adt-torch sample`` with the same checkpoints (classifier
    guidance, a searched 4-step --use_timestep, 32 samples at batch 16),
    ancestral and then DDIM with a 4-entry --skip_layers: the .npz's
    format, the flash forward's, dQ's and dK/dV's launches per guided step
    (as the gate routes the step's 35 sites, 13 with a gradient; the
    GroupNorm forward and backward; no other kernel), images/s;
-9. FID commands: ``adt-torch ref-stats`` of 64 seeded images on the GPU,
+7. FID commands: ``adt-torch ref-stats`` of 64 seeded images on the GPU,
    then ``adt-torch evaluate`` of the ancestral samples against them (FID,
    IS, precision and recall with --ref_batch) on the GPU and on the CPU,
    TF32 off: every metric in range, the two FIDs within 1e-3 relative;
-10. SD kernels: at every attention site of the Stable Diffusion v1 UNet
+8. SD kernels: at every attention site of the Stable Diffusion v1 UNet
    and VAE decoder (read from the models on the meta device), the packed
    small-head-dim forward (D = 40, T = 4096, S = 4096 and 77, plus a
    ragged T), the flash forward at D = 80 (T = 1024, S = 1024 and 77) and
@@ -99,20 +83,14 @@ Phases, each of which raises on failure:
    route to them; all timed beside their twins, bounds (with the share of
    the bound each reaches) and library calls, the D = 40 rows also beside
    the softmax's exponential floor (T S n / 3.9e12 s^-1);
-11. SD parity: CLIP on two prompts, two PLMS steps of the UNet with
-    classifier-free guidance at batch 1, one VAE decode, and DPM-Solver-2
-    over three steps from the same latent, full width, float32, seeded
-    random weights, GPU against the CPU twins, on the default path and
-    with the switches on; on the default path also txt2img's DDIM-2 with
-    a --prompt_mask and img2img's encode, posterior draw, q_sample and
-    DDIM-2 at 128 x 128;
-12. SD profile: one PLMS-4 fitness batch in bf16 under torch.profiler,
-    on the default path (``chip_smoke_profile_sd.txt``), with the switches
-    off and with them on (the fused GroupNorm's A/B), with
-    the packed and D = 80 forwards' lines of a UNet call where the gate keeps
-    them, the wide forward's line of the decode and the GroupNorm
-    forward's time in each;
-13. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
+9. SD parity: CLIP on two prompts, two PLMS steps of the UNet with
+   classifier-free guidance at batch 1 and one VAE decode, full width,
+   float32, seeded random weights, on the GPU on the default path and
+   with the switches on, each against one run on the CPU twins; on the
+   default path also, at 128 x 128, DPM-Solver-2 over three steps,
+   txt2img's DDIM-2 with a --prompt_mask and img2img's encode, posterior
+   draw, q_sample and DDIM-2;
+10. SD search: ``adt-torch search-sd`` through its Python entry (PLMS-4,
     scale 7.5, 512 x 512, chunk 2 x batch 4, 8 samples per candidate,
     population 4, one epoch) from a seeded random-weight CompVis-layout
     ``.ckpt``, a synthesized byte-level vocabulary and COCO captions file,
@@ -121,7 +99,7 @@ Phases, each of which raises on failure:
     calls and decodes; then ``--sampler dpm_solver`` (five time knots,
     DPM-Solver-2, the smallest population the EA takes) twice, with the
     same launch check;
-14. train: ``adt-torch train`` through its Python entry at full ADM-64
+11. train: ``adt-torch train`` through its Python entry at full ADM-64
     width (bf16, dropout 0.1, batch 16 in two microbatches of 8, EMA
     0.9999) from a seeded uint8 ``.npy`` of 256 images with labels over
     1000 classes, 4 steps with a save at step 2, then a
@@ -133,26 +111,20 @@ Phases, each of which raises on failure:
     every GroupNorm32 forward and backward; on,
     one GroupNorm backward a forward and the fused conv at the in-norms
     only, dropout keeping the out-norm out of it);
-15. train profile: the same training step driven directly on
-    device-resident data, with the switches off, on the default path (the
-    fused norm alone) and with them on: wall and device-busy ms a step,
-    idle share, samples/s, peak memory, and the GroupNorm backward in its
-    every-gradient form (one batch sum a call)
-    (``chip_smoke_profile_train_<arm>.txt``);
-16. ``adt-torch train-classifier`` at its defaults (width 128, depth 2)
+12. ``adt-torch train-classifier`` at its defaults (width 128, depth 2)
     over a folder of 32 seeded PNGs, batch 16, 3 steps, default and
     switches on: finite losses, launches a step;
-17. ``adt-torch nll`` of the trained EMA checkpoint, one batch of 2 over
+13. ``adt-torch nll`` of the trained EMA checkpoint, one batch of 2 over
     the 1000-step bound: bits/dim finite, seconds;
-18. ``adt-torch sample`` of the trained EMA checkpoint, 16 images;
-19. train parity: two AdamW + EMA steps of the full-width UNet in float32
-    (dropout 0, the same weights, batch, t and noise) on the GPU against
-    the CPU twins, default and switches on: losses, gradient norms, the
-    first step's gradients and every parameter and EMA value after the
-    steps within 1e-3 of their scale;
-20. data parallel: ``adt-torch train`` (3 steps), ``adt-torch sample``
-    (16 images, unguided on the default path and guided with the flash
-    gate off) and a guided fitness chunk at full ADM-64 width under
+14. ``adt-torch sample`` of the trained EMA checkpoint, 16 images;
+15. train parity: two AdamW + EMA steps of the full-width UNet in float32
+    (dropout 0, the same weights, batch, t and noise) on the GPU, default
+    and switches on, each against one run on the CPU twins: losses,
+    gradient norms, the first step's gradients and every parameter and
+    EMA value after the steps within 1e-3 of their scale;
+16. data parallel: ``adt-torch train`` (3 steps), ``adt-torch sample``
+    (16 images, unguided and guided, the default path) and a guided
+    fitness chunk at full ADM-64 width under
     ``python -m torch.distributed.run --standalone --nproc_per_node=1``
     (NCCL, the process group up, so every gradient and moment all-reduce
     runs at world size 1) against the same runs in this process: losses
@@ -160,31 +132,31 @@ Phases, each of which raises on failure:
     launches; the NCCL version and the device time of the ADM-64 gradient
     all-reduce of one step (``chiprun_out/chip_smoke_dist.log``: the
     torchrun process's output);
-21. generation kernels: the attention and GroupNorm kernels against their
+17. generation kernels: the attention and GroupNorm kernels against their
     twins (bf16 and fp32, sabotaged runs) at every new site of the
     generation commands' default path, read from the models on the meta
     device: the LDM UNets' ADM-layout D = 32 attention, cin's token-major
     D = 32 self-attention and its cross-attention over one class token
     (S = 1), the VQ-f4 mid-block's D = 512 at T 4096 and 16384, SD's
     encoder, and every GroupNorm of those models;
-22. LDM parity: ldm-sample's two eta-1 DDIM steps and VQ-f4 decode
+18. LDM parity: ldm-sample's two eta-1 DDIM steps and VQ-f4 decode
     (unconditional and on cin's class token) and inpaint's condition, two
     DDIM steps, decode and composite, full width, float32, 32 x 32 latent,
     GPU against the CPU twins, draws injected, within 1e-3 x scale;
-23. ``adt-torch txt2img`` at SD v1 width, 512 x 512, four prompts in one
+19. ``adt-torch txt2img`` at SD v1 width, 512 x 512, four prompts in one
     batch: PLMS over a searched 4-step --timesteps, DPM-Solver over five
     knots, PLMS with a --prompt_mask; ``convert --preset sd`` and the PLMS
     run again from the params directory, which must give the same images;
-24. ``adt-torch img2img`` on a synthesized 512 x 512 PNG, strength 0.75;
-25. ``adt-torch ldm-sample`` at celebahq-ldm-vq-4's defaults and with
+20. ``adt-torch img2img`` on a synthesized 512 x 512 PNG, strength 0.75;
+21. ``adt-torch ldm-sample`` at celebahq-ldm-vq-4's defaults and with
     ``--num_classes 1000`` at cin256-v2's UNet widths, 10 DDIM steps;
-26. ``adt-torch inpaint`` at inpainting_big's defaults on a synthesized
-    512 x 512 image and mask pair, 10 DDIM steps. Each of 23-26 runs on
+22. ``adt-torch inpaint`` at inpainting_big's defaults on a synthesized
+    512 x 512 image and mask pair, 10 DDIM steps. Each of 19-22 runs on
     the default path with its launch counters set to 0 just before and
     read just after (each equal to the per-call counts of the models times
     the command's UNet calls, encodes and decodes), its output's format,
     images/s and peak memory;
-27. SR kernels: the flash forward, dQ and dK/dV at the SR training
+23. SR kernels: the flash forward, dQ and dK/dV at the SR training
     step's attention sites (head dim 64: T 1024 with 6 heads, T 256 and 64
     with 12, microbatch 2), the GroupNorm forward at every GroupNorm of
     sr-sample's and the SR training step's UNets and the backward at the
@@ -192,45 +164,99 @@ Phases, each of which raises on failure:
     training step's sites, and the spatial_v2 classifier head's GroupNorm
     at one position (batch 16), bf16 and fp32, with the sabotaged runs,
     whatever the gate routes;
-28. SR parity: two DDIM steps of sr-sample's full-width SR UNet (the 256
+24. SR parity: two DDIM steps of sr-sample's full-width SR UNet (the 256
     model's widths at 128 x 128), float32, seeded weights, x_T injected,
     GPU against the CPU twins, within 1e-3 x scale;
-29. ``adt-torch sr-sample`` at its defaults (DDIM over 1000 steps, bf16)
+25. ``adt-torch sr-sample`` at its defaults (DDIM over 1000 steps, bf16)
     on two seeded 64 x 64 base samples: the .npz, launches equal to the
     UNet call's per-call counts x 1000, images/s, peak memory;
-30. ``adt-torch train --image_size 256 --sr_small_size 64`` (batch 4 in
+26. ``adt-torch train --image_size 256 --sr_small_size 64`` (batch 4 in
     two microbatches, 3 steps) over seeded PNGs, low_res derived and from
     --lq_dir, on the default path and with every kernel on: finite
     losses, launches a step, step time, peak memory;
-31. ``adt-torch train-classifier --classifier_pool spatial_v2``, 3 steps;
-32. ``adt-torch selftest`` with a synthesized pytorch_fid ``.pth``:
-    passed true, certified false, seconds.
+27. ``adt-torch train-classifier --classifier_pool spatial_v2``, 3 steps;
+28. ``adt-torch selftest`` with a synthesized pytorch_fid ``.pth``:
+    passed true, certified false, seconds;
+29. the default path's guided DDIM-4 run (batch 32, bf16, full width)
+    twice from one seed: equal bit for bit;
+30. the joint timestep + layer-skip search, ``adt-torch search
+    --use_dynamic_unet True --time_step 10 --index_step 580 --max_prun
+    0.1 --min_prun 0.0`` at full ADM-64 width with classifier guidance,
+    at the cut of 5 (the progressive hook keeps every layer in its first
+    epochs): the best candidate and its FID, images/s, launches held to
+    the guided steps each chunk ran; then the joint fitness on two
+    candidates with the same ten timesteps and other skip lists, folded
+    in one chunk beside each other and beside themselves: a candidate's
+    FID must not depend on the skip lists of the other rows;
+31. LSUN-256 kernels and parity: the flash forward at the unconditional
+    LSUN-256 UNet's attention sites (ModelConfig.lsun256: 256 channels,
+    legacy QKV order, head dim 64; T 1024 with 8 heads, T 256 and 64 with
+    16, batch 32) and the GroupNorm forward at its 128 x 128 and 256 x
+    256 sites (batch 32) against their twins, with the sabotaged runs; two
+    unconditional DDIM steps of the full-width UNet at 128 x 128, float32,
+    GPU against the CPU twins, within 1e-3 x scale;
+32. the unconditional LSUN-256 search (search_lsun_bedroom.sh):
+    ``adt-torch search`` without a classifier on the preset's flags, bf16,
+    DDIM-4, the cut of 5, from seeded weights (their parameter count
+    printed) and reference statistics of 64 seeded 256 x 256 images; then
+    ``adt-torch sample --class_cond False`` over the published 15-step
+    bedroom schedule, 16 images at batch 16: the .npz, images/s, peak
+    memory and the launches a UNet call.
 
 The flash gate (ops/flash_attention.py ``FLASH_GATE_SDPA``) routes the
 default path's attention sites; "switches on" also turns it off
 (``ADT_FLASH_GATE=0``: every site with a kernel on it), and every launch
 count expected of a run follows the routes of its environment, held with
-the gate off to the literal counts of ``FLASH_ANCHORS``. Every profile is
-taken again when it comes back short of kernels the launch counters saw
-(``profiled``).
+the gate off to the literal counts of ``FLASH_ANCHORS``. The smoke run
+takes no profile: torch.profiler's runs are the measurements below.
 
-Three measurements run alone, not in the smoke run:
+Four measurements run alone, not in the smoke run:
 
+    python3 chip_smoke.py --profiles      # device time by kernel, the A/B
     python3 chip_smoke.py --flash-ab      # the flash gate's A/B
     python3 chip_smoke.py --lost-events   # the profiler's lost kernels
     python3 chip_smoke.py --guided-repro  # is the guided step reproducible
 
+``--profiles`` (``phase_profiles``): one guided DDIM-4 run at batch 32 in
+bf16 on the default path under ``torch.profiler``: device time by kernel,
+the flash kernels' share (the forward's, the dQ kernel's and the dK/dV
+kernel's own lines) and the device's idle share
+(``chiprun_out/chip_smoke_profile.txt``); the switches' A/B of that run
+(off, the default path, each conv switch alone, the fused norm and the
+fused conv, every kernel on): wall and device-busy time per step, idle
+share, the GroupNorm forward's and backward's kernels, the dK/dV kernel
+and weight- and input-gradient conv time of every run (the guided models
+frozen, as the search freezes them: any weight-gradient kernel fails it,
+and so does a GroupNorm backward count other than one kernel a call, 17 a
+step with all three on, or any batch-sum kernel)
+(``chip_smoke_profile_fused.txt``: every kernel on); the training step
+driven directly on device-resident data with the switches off, on the
+default path and on: wall and device-busy ms a step, idle share,
+samples/s, peak memory, and the GroupNorm backward in its every-gradient
+form (one batch sum a call) (``chip_smoke_profile_train_<arm>.txt``);
+one SD PLMS-4 fitness batch under the same three arms
+(``chip_smoke_profile_sd*.txt``): the packed and D = 80 forwards' lines
+of a UNet call where the gate keeps them, the wide forward's line of the
+decode and the GroupNorm forward's time in each. A profile is taken again
+when it comes back short of kernels the launch counters saw
+(``profiled``).
 ``--flash-ab`` (``phase_flash_ab``): every attention site on its kernel
 against every site on SDPA, two rounds, device time per site shape from
 profiler ranges, inside the guided DDIM step, the SD UNet call (which also
-times its D = 160 sites on the float32 twin), the ADM-64 training step and
-the SR training step; it prints the sites it would send to SDPA beside the
-committed gate. ``--lost-events`` (``phase_lost_events``): how often a
-whole guided run's profile misses kernels. ``--guided-repro``
-(``phase_guided_repro``): the guided DDIM-4 run three times from one seed
-under each arm of ``REPRO_ARMS`` (the flash gate, the fused GroupNorm,
-cuDNN's convs, SDPA's backends), how far the runs differ. Each writes its
-record to ``chiprun_out/`` and exits 0 when it ran to its end.
+times its D = 160 sites on the float32 twin), the ADM-64 training step,
+the SR training step and the LSUN-256 UNet call; it prints the sites it
+would send to SDPA beside the committed gate (the classifier's gradient
+sites stay on the kernels whatever it reads: ``REPRO_KERNEL_SITES`` in
+ops/flash_attention.py).
+``--lost-events`` (``phase_lost_events``): how often a whole guided run's
+profile misses kernels. ``--guided-repro`` (``phase_guided_repro``): the
+guided DDIM-4 run three times from one seed under each arm of
+``REPRO_ARMS`` (the default path, the classifier's gradient sites on
+SDPA, the flash gate, the fused GroupNorm, cuDNN's convs, SDPA's
+backends), how far the runs differ and the device-busy time of a run,
+then ``train-classifier``'s step on the default path and with those
+sites on SDPA. Each writes its record to ``chiprun_out/`` and exits 0
+when it ran to its end.
 
 The last lines of standard output are a ``kernels`` JSON line, the
 ``nvidia-smi`` name / power-limit line and ``{"ok": true, "device": ...}``.
@@ -951,7 +977,8 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
     """The GroupNorm and conv kernels against their twins at every site of
     ``sites`` (ADM-64's, or a Stable Diffusion tower's) at ``batch``, in
     both dtypes, with a sabotaged run of each that must break the limit,
-    timed beside the twin, the bound and the nearest library call. A
+    timed beside the twin, the bound and the nearest library call (the
+    median of ``reps`` runs, 2 ``reps`` for the GroupNorm forward). A
     GroupNorm site key may carry its eps as a fifth entry (1e-5 if not).
     The conv twins' float32 convolutions (and F.conv2d) run with TF32
     off."""
@@ -1002,10 +1029,12 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
                         compare(rstd, rstd_ref, "float32")]
                 sabotage = compare(bad, y_ref, dname)[1]
                 gl, bl = gamma.to(dt), beta.to(dt)
-                timing = (cuda_ms(lambda: group_norm_fwd(*args)),
-                          cuda_ms(lambda: group_norm_fwd_plain(*args)),
+                timing = (cuda_ms(lambda: group_norm_fwd(*args),
+                                  reps=2 * reps),
+                          cuda_ms(lambda: group_norm_fwd_plain(*args),
+                                  reps=2 * reps),
                           cuda_ms(lambda: F.group_norm(x, GROUPS, gl, bl,
-                                                       eps)))
+                                                       eps), reps=2 * reps))
                 _row(rows, failures, "group_norm_fwd",
                      f"C={c} HW={hw} {act}" + (f" eps={eps:g}" if eps != 1e-5
                                                else ""), count, dname, errs,
@@ -1454,62 +1483,85 @@ def profile_counts(prof):
             for k, tags in PROFILE_TAGS.items()}
 
 
-def _sdpa_arm(backend: str, deterministic: bool = False):
-    """A context: SDPA limited to ``backend`` (torch.nn.attention's
-    SDPBackend name, "" for PyTorch's own choice), optionally under
-    ``torch.use_deterministic_algorithms``, cuDNN's convs deterministic
-    under ``backend == "cudnn_conv"``."""
-    import contextlib
+@contextlib.contextmanager
+def repro_sites_on_sdpa():
+    """The sites the port keeps on the kernels for reproducibility
+    (ops/flash_attention.py ``REPRO_KERNEL_SITES``: the classifier's
+    gradient sites) added to the flash gate's table for the block: the
+    guided step and train-classifier's as the gate routed them when the
+    A/B alone decided (SDPA, forward and backward)."""
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
+    saved = fa.FLASH_GATE_SDPA
+    fa.FLASH_GATE_SDPA = saved | fa.REPRO_KERNEL_SITES
+    try:
+        yield
+    finally:
+        fa.FLASH_GATE_SDPA = saved
 
+
+@contextlib.contextmanager
+def cudnn_convs_deterministic():
+    """cuDNN's convolutions limited to its deterministic algorithms."""
+    import torch
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+@contextlib.contextmanager
+def sdpa_arm(backend: str = "", deterministic: bool = False):
+    """SDPA limited to ``backend`` (torch.nn.attention's SDPBackend name,
+    "" for PyTorch's own choice), optionally under
+    ``torch.use_deterministic_algorithms``."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    @contextlib.contextmanager
-    def arm():
-        old = (torch.are_deterministic_algorithms_enabled(),
-               torch.backends.cudnn.deterministic)
-        with contextlib.ExitStack() as stack:
-            if backend == "cudnn_conv":
-                torch.backends.cudnn.deterministic = True
-            elif backend:
-                stack.enter_context(sdpa_kernel(getattr(SDPBackend,
-                                                        backend)))
-            if deterministic:
-                torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
-                yield
-            finally:
-                torch.use_deterministic_algorithms(old[0])
-                torch.backends.cudnn.deterministic = old[1]
-
-    return arm()
+    old = torch.are_deterministic_algorithms_enabled()
+    with contextlib.ExitStack() as stack:
+        if backend:
+            stack.enter_context(sdpa_kernel(getattr(SDPBackend, backend)))
+        if deterministic:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(old)
 
 
-# the arms of phase_guided_repro: (label, kernel switches, SDPA arm)
+# the arms of phase_guided_repro: (label, kernel switches, a context the
+# runs take place in)
 REPRO_ARMS = [
-    ("default", DEFAULT, ("", False)),
-    ("flash gate off", {"ADT_FLASH_GATE": "0"}, ("", False)),
-    ("fused norm off", {"ADT_FUSED_NORM": "0"}, ("", False)),
+    ("default", DEFAULT, contextlib.nullcontext),
+    ("classifier sites on SDPA", DEFAULT, repro_sites_on_sdpa),
+    ("flash gate off", {"ADT_FLASH_GATE": "0"}, contextlib.nullcontext),
+    ("fused norm off", {"ADT_FUSED_NORM": "0"}, contextlib.nullcontext),
     ("gate off + fused norm off", {"ADT_FLASH_GATE": "0",
-                                   "ADT_FUSED_NORM": "0"}, ("", False)),
-    ("cudnn convs deterministic", DEFAULT, ("cudnn_conv", False)),
-    ("sdpa cudnn", DEFAULT, ("CUDNN_ATTENTION", False)),
-    ("sdpa flash", DEFAULT, ("FLASH_ATTENTION", False)),
+                                   "ADT_FUSED_NORM": "0"},
+     contextlib.nullcontext),
+    ("cudnn convs deterministic", DEFAULT, cudnn_convs_deterministic),
+    ("sdpa cudnn", DEFAULT, lambda: sdpa_arm("CUDNN_ATTENTION")),
+    ("sdpa flash", DEFAULT, lambda: sdpa_arm("FLASH_ATTENTION")),
     ("sdpa flash, deterministic algorithms", DEFAULT,
-     ("FLASH_ATTENTION", True)),
-    ("sdpa efficient", DEFAULT, ("EFFICIENT_ATTENTION", False)),
-    ("deterministic algorithms", DEFAULT, ("", True)),
+     lambda: sdpa_arm("FLASH_ATTENTION", True)),
+    ("sdpa efficient", DEFAULT, lambda: sdpa_arm("EFFICIENT_ATTENTION")),
+    ("deterministic algorithms", DEFAULT, lambda: sdpa_arm("", True)),
 ]
 
 
-def phase_guided_repro(unet_sd, cls_sd, repeats: int = 3):
+def phase_guided_repro(unet_sd, cls_sd, repeats: int = 3, arms=REPRO_ARMS,
+                       busy: bool = True):
     """Is the guided step reproducible? The guided DDIM-4 run (batch 32,
     full width, bf16, seeded weights) ``repeats`` times from the same seed
-    in one process under each arm of REPRO_ARMS: the largest difference
+    in one process under each arm of ``arms``: the largest difference
     from the first run (float, and in uint8 levels), the share of
-    elements that differ, and the median wall time of a run. An arm whose
-    runs agree bit for bit is deterministic; the one arm that changes one
-    thing against the default names the cause."""
+    elements that differ, the median wall time of a run and, with
+    ``busy``, the device-busy time of one more run (profiled). An arm
+    whose runs agree bit for bit is deterministic; the one arm that
+    changes one thing against the default names the cause."""
     import numpy as np
     import torch
     from autodiffusion_tpu_torch.samplers import (classifier_cond_fn,
@@ -1530,14 +1582,15 @@ def phase_guided_repro(unet_sd, cls_sd, repeats: int = 3):
         return out
 
     res = {}
-    for label, env, (backend, det) in REPRO_ARMS:
-        with switches(env), _sdpa_arm(backend, det):
+    for label, env, arm in arms:
+        with switches(env), arm():
             once()                                  # warm-up
             outs, walls = [], []
             for _ in range(repeats):
                 t0 = time.time()
                 outs.append(once())
                 walls.append(time.time() - t0)
+            busy_ms = device_busy(profiled(once)[0], 1)[0] if busy else None
         ref = outs[0]
         diff = max(float((o - ref).abs().max()) for o in outs[1:])
         share = max(float((o != ref).float().mean()) for o in outs[1:])
@@ -1546,10 +1599,25 @@ def phase_guided_repro(unet_sd, cls_sd, repeats: int = 3):
                      for o in outs[1:])
         res[label] = dict(max_abs_diff=diff, share_differing=share,
                           uint8_levels=levels,
-                          wall_ms=1e3 * sorted(walls)[repeats // 2])
+                          wall_ms=1e3 * sorted(walls)[repeats // 2],
+                          busy_ms=busy_ms)
         log(f"guided repro [{label}]: {repeats} runs, max |diff| {diff:.3e}"
             f", {share:.2%} of elements differ, {levels} uint8 level(s), "
-            f"{res[label]['wall_ms']:.1f} ms a run (wall)")
+            f"{res[label]['wall_ms']:.1f} ms a run (wall)"
+            + (f", device busy {busy_ms:.2f} ms a run" if busy else ""))
+    return res
+
+
+def phase_default_repro(unet_sd, cls_sd):
+    """The default path's guided DDIM-4 run (batch 32, full width, bf16,
+    seeded weights) twice from one seed after a warm-up
+    (phase_guided_repro's "default" arm): the two outputs must be equal
+    bit for bit."""
+    res = phase_guided_repro(unet_sd, cls_sd, repeats=2,
+                             arms=REPRO_ARMS[:1], busy=False)["default"]
+    if res["max_abs_diff"] != 0 or res["share_differing"] != 0:
+        raise AssertionError(f"two default guided DDIM-4 runs from one "
+                             f"seed differ: {res}")
     return res
 
 
@@ -1665,19 +1733,31 @@ FLASH_ANCHORS = {
     "guided": {"flash_fwd": 35, "flash_bwd_dq": 13, "flash_bwd_dkv": 13},
     "adm_train": {"flash_fwd": 22, "flash_bwd_dq": 22, "flash_bwd_dkv": 22},
     "sr_train": {"flash_fwd": 22, "flash_bwd_dq": 22, "flash_bwd_dkv": 22},
+    "lsun_unet": {"flash_fwd": 16, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+}
+# ... and with the committed gate (the default path): the guided step's
+# UNet keeps its 15 forward-only sites at T 1024 and 64 on the kernel
+# (SDPA at its 7 sites at T 256) and the classifier its 13 sites, forward,
+# dQ and dK/dV, for reproducibility (REPRO_KERNEL_SITES)
+FLASH_DEFAULT_ANCHORS = {
+    "guided": {"flash_fwd": 28, "flash_bwd_dq": 13, "flash_bwd_dkv": 13},
+    # the LSUN-256 UNet call: its 5 sites at T 1024 and 6 at T 64 (SDPA
+    # at its 5 at T 256)
+    "lsun_unet": {"flash_fwd": 11, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
 }
 
 
 def flash_per_call(program: str, env=None):
     """flash_counts of one call of ``program`` (program_sites) under the
-    switches of ``env`` (the default path's if None); with the gate off,
-    held to the program's FLASH_ANCHORS."""
+    switches of ``env`` (the default path's if None); held to the
+    program's FLASH_ANCHORS with the gate off, to its
+    FLASH_DEFAULT_ANCHORS with the committed gate."""
     from autodiffusion_tpu_torch.ops.flash_attention import flash_gate_on
 
     with switches(DEFAULT if env is None else env):
         out = flash_counts(_sites_of_programs()[program])
-        anchor = FLASH_ANCHORS.get(program, {}) if not flash_gate_on() \
-            else {}
+        anchor = (FLASH_ANCHORS if not flash_gate_on()
+                  else FLASH_DEFAULT_ANCHORS).get(program, {})
     wrong = {k: (out[k], n) for k, n in anchor.items() if out[k] != n}
     if wrong:
         raise AssertionError(f"{program}: flash launches a call (derived, "
@@ -1726,7 +1806,8 @@ def program_sites():
     step (the UNet without gradient, the classifier with the input's), the
     SD UNet call, the ADM-64 training step (a microbatch), the classifier's
     training step (train-classifier's defaults), the SR training step (a
-    microbatch) and the sr-sample UNet call, read on the meta device."""
+    microbatch), the sr-sample UNet call and the LSUN-256 UNet call, read
+    on the meta device."""
     import torch
     from autodiffusion_tpu_torch.models import (SD_V1_UNET, ClassifierConfig,
                                                 ModelConfig, SDUNetModel,
@@ -1743,6 +1824,7 @@ def program_sites():
                                    device="meta")
         sr_sample = create_sr_model(sr_config("sample"), SR_LARGE, SR_SMALL,
                                     device="meta")
+        lsun = create_model(ModelConfig.lsun256(), device="meta")
 
     def t():
         return torch.zeros(1)
@@ -1769,6 +1851,8 @@ def program_sites():
         "sr_train": attention_sites(lambda: sr_train(big, t(), low, y()),
                                     grad=True),
         "sr_sample": attention_sites(lambda: sr_sample(big, t(), low, y())),
+        "lsun_unet": attention_sites(lambda: lsun(
+            torch.empty(1, 3, LSUN_SIZE, LSUN_SIZE), t())),
     }
 
 
@@ -1914,9 +1998,10 @@ def flash_programs(unet_sd, cls_sd):
     """{program: (one run of it on the card, its attention sites' unit)}:
     a guided DDIM-2 run at batch 32 (ADM-64, bf16), an SD v1 UNet call at
     batch 16 (bf16, random weights), an ADM-64 training step of one
-    microbatch of 8 and an SR training step of one microbatch of 2 (256
-    from 64), the commands' microbatches, each at full width; the training
-    steps in train mode with dropout."""
+    microbatch of 8, an SR training step of one microbatch of 2 (256
+    from 64), the commands' microbatches, and an LSUN-256 UNet call at the
+    search's batch of 32 (bf16, random weights), each at full width; the
+    training steps in train mode with dropout."""
     import torch
     from autodiffusion_tpu_torch.models import (SD_V1_UNET, ModelConfig,
                                                 SDUNetModel, create_model,
@@ -1938,6 +2023,16 @@ def flash_programs(unet_sd, cls_sd):
     def sd_call():
         with torch.no_grad():
             return sd_unet(sd_x, sd_t, sd_ctx)
+
+    lsun = create_model(ModelConfig.lsun256(dropout=0.0), device="cuda")
+    lsun.requires_grad_(False)
+    lsun_x = torch.randn(LSUN_BATCH, 3, LSUN_SIZE, LSUN_SIZE, device="cuda",
+                         generator=gen)
+    lsun_t = torch.full((LSUN_BATCH,), 500.0, device="cuda")
+
+    def lsun_call():
+        with torch.no_grad():
+            return lsun(lsun_x, lsun_t)
 
     def train_step(model, batch, micro):
         state = create_train_state(model, ema_rates=(0.9999,))
@@ -1967,7 +2062,8 @@ def flash_programs(unet_sd, cls_sd):
             "adm_train": (train_step(adm, adm_batch, 1),
                           "training step of one microbatch"),
             "sr_train": (train_step(sr, sr_batch, 1),
-                         "training step of one microbatch")}
+                         "training step of one microbatch"),
+            "lsun_unet": (lsun_call, "UNet call")}
 
 
 def phase_flash_ab(unet_sd, cls_sd, sites, rounds: int = 2):
@@ -1979,11 +2075,15 @@ def phase_flash_ab(unet_sd, cls_sd, sites, rounds: int = 2):
     device time of each site shape read from its profiler ranges (forward
     and backward together). A site goes to SDPA where its SDPA time is
     below the kernel's in every round by more than the spread of the
-    rounds (the larger of the two arms' max - min). Also each run's device
+    rounds (the larger of the two arms' max - min), but for
+    REPRO_KERNEL_SITES, which stay on the kernels (their runs repeat
+    bit for bit, SDPA's backward's do not). Also each run's device
     busy time and the profiled kernels against the launch counters.
     Returns {program: {...}} and the sites the A/B sends to SDPA."""
     import torch
+    import autodiffusion_tpu_torch.ops.flash_attention  # noqa: F401
 
+    fa = sys.modules["autodiffusion_tpu_torch.ops.flash_attention"]
     programs = flash_programs(unet_sd, cls_sd)
     res, gate = {}, set()
     for name, (fn, unit) in programs.items():
@@ -2029,13 +2129,15 @@ def phase_flash_ab(unet_sd, cls_sd, sites, rounds: int = 2):
                 row["f32_twin_ms"] = [r[key] for r in per["f32_160"]]
             rows.append(row)
             has_kernel = _gate_off_route(key) == "kernel"
-            if to_sdpa and has_kernel:
+            kept = key in fa.REPRO_KERNEL_SITES
+            if to_sdpa and has_kernel and not kept:
                 gate.add(key)
             twin = ""
             if "f32_twin_ms" in row:
                 twin = (", float32 twin "
                         f"{['%.4f' % v for v in row['f32_twin_ms']]} ms")
             route = ("SDPA (no kernel: by shape)" if not has_kernel
+                     else "kernel (kept: reproducibility)" if kept
                      else "SDPA" if to_sdpa else "kernel")
             log(f"flash A/B {name} {key}: x{sites[name][key]} kernels "
                 f"{['%.4f' % v for v in k_ms]} ms, SDPA "
@@ -2056,8 +2158,7 @@ def phase_flash_ab(unet_sd, cls_sd, sites, rounds: int = 2):
             log(f"flash A/B {name}: sdpa - kernels {d:+.4f} ms  {n[:110]}")
     del programs
     torch.cuda.empty_cache()
-    committed = set(sys.modules[
-        "autodiffusion_tpu_torch.ops.flash_attention"].FLASH_GATE_SDPA)
+    committed = set(fa.FLASH_GATE_SDPA)
     log(f"flash A/B: the sites it sends to SDPA {sorted(gate)}; the "
         f"committed gate {sorted(committed)} "
         f"({'the same' if gate == committed else 'differs'})")
@@ -2124,13 +2225,14 @@ def phase_profile(unet_sd, cls_sd):
                 kernels_per_step=n_kernels, peak_gb=peak_gb, top=lines)
 
 
-def phase_parity(unet_sd, cls_sd, env, label: str):
+def phase_parity(unet_sd, cls_sd, envs):
     """Two guided DDIM steps and two guided ancestral steps (the same x_T
-    and per-step z on both devices) of the full-width models in float32
-    under the switches of ``env``: GPU (the kernels) against CPU (their
-    plain twins), same weights. Each output within 1e-3 x its scale.
-    Returns ({"ddim2": err, "ancestral2": err}, the GPU runs' kernel
-    launches)."""
+    and per-step z on both devices) of the full-width models in float32:
+    the GPU (the kernels) under the switches of each of ``envs`` ({label:
+    env}) against one CPU run on the default path (the plain chain, the
+    same function), same weights. Each output within 1e-3 x its scale.
+    Returns {label: ({"ddim2": err, "ancestral2": err}, the GPU run's
+    kernel launches)}."""
     import torch
     from autodiffusion_tpu_torch.models import (ClassifierConfig,
                                                 ModelConfig,
@@ -2150,8 +2252,9 @@ def phase_parity(unet_sd, cls_sd, env, label: str):
         z = torch.randn(2, 2, 3, 64, 64, generator=gen)
         y = torch.tensor([7, 321])
         tables = build_tables("ddim2", base_schedule="cosine")
-        outs = {}
-        for dev in ("cpu", "cuda"):
+        outs, launches = {}, {}
+        for dev, label, env in ([("cpu", "cpu", DEFAULT)]
+                                + [("cuda", k, v) for k, v in envs.items()]):
             m = create_model(ModelConfig.adm64(use_bf16=False, dropout=0.0),
                              device=dev)
             m.load_state_dict(unet_sd)
@@ -2169,26 +2272,30 @@ def phase_parity(unet_sd, cls_sd, env, label: str):
                     out = loop(lambda x, t, i: m(x, t, yd), (2, 3, 64, 64),
                                tables.to(dev), device=dev, cond_fn=cond,
                                noise=x_t, **kw)
-                    outs[(name, dev)] = out.cpu()
-            launches = dict(LAUNCHES)
+                    outs[(name, label)] = out.cpu()
+            launches[label] = dict(LAUNCHES)
             log(f"parity ({label}) on {dev}: {time.time() - t0:.1f} s")
             del m, c
-        errs = {}
-        for name in ("ddim2", "ancestral2"):
-            got, want = outs[(name, "cuda")], outs[(name, "cpu")]
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"non-finite guided {name} output on "
-                                     "the GPU")
-            errs[name] = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            log(f"parity ({label}): guided {name}, ADM-64 float32, GPU vs "
-                f"CPU max abs err {errs[name]:.3e} (output max {scale:.3f}, "
-                f"tol 1e-3 x scale)")
-            if not errs[name] <= 1e-3 * max(scale, 1.0):
-                raise AssertionError(f"GPU guided {name} ({label}) disagrees "
-                                     f"with the CPU twin: {errs[name]}")
-        log(f"parity ({label}): GPU launches {launches}")
-        return errs, launches
+        result = {}
+        for label in envs:
+            errs = {}
+            for name in ("ddim2", "ancestral2"):
+                got, want = outs[(name, label)], outs[(name, "cpu")]
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"non-finite guided {name} output "
+                                         f"on the GPU ({label})")
+                errs[name] = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                log(f"parity ({label}): guided {name}, ADM-64 float32, GPU "
+                    f"vs CPU max abs err {errs[name]:.3e} (output max "
+                    f"{scale:.3f}, tol 1e-3 x scale)")
+                if not errs[name] <= 1e-3 * max(scale, 1.0):
+                    raise AssertionError(f"GPU guided {name} ({label}) "
+                                         f"disagrees with the CPU twin: "
+                                         f"{errs[name]}")
+            log(f"parity ({label}): GPU launches {launches[label]}")
+            result[label] = (errs, launches[label])
+        return result
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -2216,33 +2323,82 @@ def search_files(unet_sd, cls_sd):
     return paths
 
 
-def phase_search(paths, env, per_step, label: str):
-    """``adt-torch search`` under the switches of ``env``, its launch
-    counters set to 0 just before and read just after: each must equal
-    ``per_step`` times the guided steps run (and a kernel of the path may
-    not be missing)."""
+@contextlib.contextmanager
+def chunk_recorder(chunks):
+    """Appends (steps a candidate, batches) of every fitness chunk the
+    block evaluates to ``chunks`` (``BatchedFIDFitness._eval_chunk``
+    wrapped): a chunk samples ``batches`` batches of that many steps."""
+    from autodiffusion_tpu_torch.search.fitness import BatchedFIDFitness
+
+    real = BatchedFIDFitness._eval_chunk
+
+    def recorded(self, cands):
+        chunks.append((self.group_key_fn(cands[0]),
+                       -(-self.num_samples // self.device_batch)))
+        return real(self, cands)
+
+    BatchedFIDFitness._eval_chunk = recorded
+    try:
+        yield
+    finally:
+        BatchedFIDFitness._eval_chunk = real
+
+
+# the EA's cut of the smoke run's searches: two candidates a chunk, 16
+# samples each a batch (a device batch of 32), 32 samples a candidate,
+# population 4, one epoch
+SEARCH_CUT = ["--candidate_chunk", "2", "--batch_size", "16",
+              "--num_samples", "32", "--population_num", "4",
+              "--select_num", "2", "--mutation_num", "2",
+              "--crossover_num", "2", "--max_epochs", "1", "--seed", "0"]
+# the batches of a chunk under SEARCH_CUT: 32 samples a candidate at 16
+SEARCH_BATCHES = 2
+
+
+def check_fixed_steps(res, steps: int, label: str):
+    """A search of a fixed schedule (``--time_step`` steps, no layer
+    search) under SEARCH_CUT: every chunk ran ``steps`` steps of
+    SEARCH_BATCHES batches, the literal cut, so that the launches run_search
+    derives from the fitness's own chunks cannot drift with it."""
+    want = [(steps, SEARCH_BATCHES)] * res["chunks"]
+    if not res["chunks"] or res["chunk_steps"] != want:
+        raise AssertionError(f"search ({label}): chunks of (steps, batches) "
+                             f"{res['chunk_steps']}, not {want}")
+
+
+def run_search(argv, env, per_step, label: str, unit: str):
+    """``adt-torch search`` ``argv`` (its --save_dir under WORK) under the
+    switches of ``env``, its launch counters set to 0 just before and read
+    just after: each must equal ``per_step`` times the sampler steps its
+    chunks ran (chunk_recorder: each chunk's steps a candidate times its
+    batches; a kernel of the path may not be missing). Every FID finite
+    and >= 0; the best candidate and its FID from the command's last
+    line; images/s of a chunk's sample phase after the first; peak
+    memory."""
+    import io
+
     import torch
     from autodiffusion_tpu_torch.cli.main import main as adt_torch
     from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
 
-    save_dir = os.path.join(WORK, f"search_{label}")
-    argv = ["search", "--device", "cuda",
-            "--model_path", paths["unet"], "--classifier_path", paths["cls"],
-            "--inception_path", paths["incep"], "--ref_stats", paths["ref"],
-            "--save_dir", save_dir, "--time_step", "4", "--use_ddim", "True",
-            "--candidate_chunk", "2", "--batch_size", "16",
-            "--num_samples", "32", "--population_num", "4",
-            "--select_num", "2", "--mutation_num", "2",
-            "--crossover_num", "2", "--max_epochs", "1", "--seed", "0"]
-    with switches(env):
+    save_dir = os.path.join(WORK, f"search_{label.replace(' ', '_')}")
+    argv = ["search", "--device", "cuda", "--save_dir", save_dir] + argv
+    chunks, buf = [], io.StringIO()
+    with switches(env), chunk_recorder(chunks), \
+            contextlib.redirect_stdout(buf):
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.time()
         rc = adt_torch(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(LAUNCHES)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
     if rc != 0:
         raise AssertionError(f"adt-torch search ({label}) returned {rc}")
+    best = json.loads(text.strip().splitlines()[-1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     with open(os.path.join(save_dir, "ea_state.json")) as f:
         fids = list(json.load(f)["vis_dict"].values())
@@ -2253,30 +2409,49 @@ def phase_search(paths, env, per_step, label: str):
         phases = [tuple(float(v) for v in m.groups()) for m in re.finditer(
             r"reset_time: ([\d.]+), sample_time: ([\d.]+), "
             r"fid_time: ([\d.]+)", f.read())]
-    chunks = len(phases)
-    steps = chunks * 2 * 4            # chunks x 2 batches x DDIM-4
-    want = {k: v * steps for k, v in per_step.items()}
+    if len(phases) != len(chunks):
+        raise AssertionError(f"search ({label}): {len(phases)} timing "
+                             f"lines for {len(chunks)} chunks")
+    steps = sum(k * nb for k, nb in chunks)
+    want = {k: per_step.get(k, 0) * steps for k in launches}
     log(f"search ({label}): {len(fids)} candidates, FIDs {fids}")
-    log(f"search ({label}): {chunks} chunks, {steps} guided DDIM steps at "
-        f"batch 32, launches {launches} (expected {want}), wall {wall:.1f} s")
+    log(f"search ({label}): best {best['best']} FID {best['fid']}")
+    log(f"search ({label}): {len(chunks)} chunks of (steps, batches) "
+        f"{chunks}, {steps} {unit}, launches {launches} (expected {want}),"
+        f" wall {wall:.1f} s, peak memory {peak_gb:.2f} GB")
     for name, count in want.items():
         if count and not launches[name]:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"search path ({label})")
     if launches != want:
         raise AssertionError(f"launch counts ({label}) {launches} != {want}")
-    imgs_per_chunk = 2 * 16 * 2
+    imgs_per_chunk = 2 * 16 * SEARCH_BATCHES
     sample_s = [p[1] for p in phases]
     steady = sample_s[1:] or sample_s
     ips = imgs_per_chunk * len(steady) / sum(steady)
     log(f"search ({label}): per-chunk reset/sample/fid seconds: "
         + "; ".join(f"{a:.3f}/{b:.3f}/{c:.3f}" for a, b, c in phases))
-    log(f"search ({label}): images/s through the guided sampler (sample "
-        f"phase = guided DDIM-4 + Inception + moments, chunks after the "
-        f"first): {ips:.2f}")
-    return dict(fids=fids, launches=launches, expected_launches=want,
-                chunks=chunks, guided_steps=steps, phases=phases,
-                images_per_s=ips, wall_s=wall)
+    log(f"search ({label}): images/s through the sampler (sample phase = "
+        f"the chunk's {unit}, Inception, moments; chunks after the first): "
+        f"{ips:.2f}")
+    return dict(fids=fids, best=best["best"], best_fid=best["fid"],
+                launches=launches, expected_launches=want,
+                chunks=len(chunks), chunk_steps=chunks, steps=steps,
+                phases=phases, images_per_s=ips, wall_s=wall,
+                peak_gb=peak_gb)
+
+
+def phase_search(paths, env, per_step, label: str):
+    """``adt-torch search`` at full ADM-64 width (classifier guidance,
+    DDIM-4, SEARCH_CUT) under the switches of ``env``: run_search, its
+    launches ``per_step`` times the guided steps run."""
+    res = run_search(["--model_path", paths["unet"], "--classifier_path",
+                      paths["cls"], "--inception_path", paths["incep"],
+                      "--ref_stats", paths["ref"], "--time_step", "4",
+                      "--use_ddim", "True"] + SEARCH_CUT,
+                     env, per_step, label, "guided DDIM steps at batch 32")
+    check_fixed_steps(res, 4, label)
+    return dict(res, guided_steps=res["steps"])
 
 
 # a searched 4-step schedule (the first four knots of the README's
@@ -2682,20 +2857,20 @@ def sd_towers(weights, use_bf16: bool, device: str):
 
 def phase_sd_parity(weights, envs, dpm_label: str = "default"):
     """The SD towers at full width in float32 with seeded random weights,
-    GPU (the kernels) against CPU (their twins), under the switches of each
-    of ``envs`` ({label: env}): CLIP on two prompts' ids, two PLMS steps of
-    the UNet with classifier-free guidance (scale 7.5) at batch 1 (three
-    UNet calls at the doubled batch 2: ``txt2img``'s and ``search-sd``'s
-    PLMS), one VAE decode of the result, and, under the switches of
-    ``dpm_label`` (the solvers' arithmetic is the same under either),
-    DPM-Solver-2 from the same latent over three steps (three guided UNet
-    calls; the middle step second order, the last first order as
-    lower_order_final makes it), and at 128 x 128 (latent 16 x 16) two DDIM
-    steps of ``txt2img`` with a --prompt_mask of [1, 0] and ``img2img``'s
-    path (encode, a posterior draw, q_sample at index t_enc = 2 of three,
-    two DDIM steps, decode) with the draws injected. Each output within
-    1e-3 x its scale. Returns {label: ({output: max abs error}, GPU
-    launches)}."""
+    the GPU (the kernels) under the switches of each of ``envs`` ({label:
+    env}) against one CPU run (their twins) under those of ``dpm_label``:
+    CLIP on two prompts' ids, two PLMS steps of the UNet with
+    classifier-free guidance (scale 7.5) at batch 1 (three UNet calls at
+    the doubled batch 2: ``txt2img``'s and ``search-sd``'s PLMS), one VAE
+    decode of the result, and, under the switches of ``dpm_label`` (the
+    solvers' arithmetic is the same under either), at 128 x 128 (latent
+    16 x 16) DPM-Solver-2 over three steps (three guided UNet calls; the
+    middle step second order, the last first order as lower_order_final
+    makes it), two DDIM steps of ``txt2img`` with a --prompt_mask of [1, 0]
+    and ``img2img``'s path (encode, a posterior draw, q_sample at index
+    t_enc = 2 of three, two DDIM steps, decode) with the draws injected.
+    Each output within 1e-3 x its scale. Returns {label: ({output: max abs
+    error}, GPU launches)}."""
     import numpy as np
     import torch
     from autodiffusion_tpu_torch.cli.main import img2img_latents
@@ -2715,7 +2890,8 @@ def phase_sd_parity(weights, envs, dpm_label: str = "default"):
     ids = torch.randint(0, 49408, (2, 77), generator=gen)
     ids[:, 0], ids[:, 20:] = 49406, 49407
     z_t = torch.randn(1, 4, 64, 64, generator=gen)
-    # txt2img's masked DDIM and img2img at 128 x 128 (the CPU's time)
+    # DPM-Solver, txt2img's masked DDIM and img2img at 128 x 128 (the
+    # CPU's time)
     z16 = torch.randn(1, 4, 16, 16, generator=gen)
     x128 = torch.rand(1, 3, 128, 128, generator=gen) * 2 - 1
     post, qn = (torch.randn(1, 4, 16, 16, generator=gen) for _ in range(2))
@@ -2727,9 +2903,10 @@ def phase_sd_parity(weights, envs, dpm_label: str = "default"):
     outs = {label: {} for label in envs}
     launches = {}
     try:
-        for dev in ("cpu", "cuda"):
+        for dev, labels in (("cpu", {dpm_label: envs[dpm_label]}),
+                            ("cuda", envs)):
             unet, vae, clip = sd_towers(weights, False, dev)
-            for label, env in envs.items():
+            for label, env in labels.items():
                 t0 = time.time()
                 reset_launch_counts()
                 with switches(env), torch.no_grad():
@@ -2744,9 +2921,9 @@ def phase_sd_parity(weights, envs, dpm_label: str = "default"):
                     if label == dpm_label:
                         outs[label][dev]["dpm_solver2"] = \
                             dpm_solver_sample_loop(
-                                guided, (1, 4, 64, 64), sched.to(dev),
+                                guided, (1, 4, 16, 16), sched.to(dev),
                                 times.to(dev), device=dev, order=2,
-                                noise=z_t).cpu()
+                                noise=z16.to(dev)).cpu()
                         masked = cfg_eps_fn(
                             unet, ctx[1:], ctx[0], 7.5,
                             prompt_mask=torch.tensor([1.0, 0.0], device=dev))
@@ -2763,7 +2940,8 @@ def phase_sd_parity(weights, envs, dpm_label: str = "default"):
                         outs[label][dev]["img2img2"] = z_i.cpu()
                         outs[label][dev]["img2img_decode"] = vae.decode(
                             z_i / SD_SCALE_FACTOR).cpu()
-                launches[label] = dict(LAUNCHES)
+                if dev == "cuda":
+                    launches[label] = dict(LAUNCHES)
                 log(f"SD parity ({label}) on {dev}: {time.time() - t0:.1f} s")
             del unet, vae, clip
     finally:
@@ -2771,8 +2949,8 @@ def phase_sd_parity(weights, envs, dpm_label: str = "default"):
     result = {}
     for label in envs:
         errs = {}
-        for name, want in outs[label]["cpu"].items():
-            got = outs[label]["cuda"][name]
+        for name, got in outs[label]["cuda"].items():
+            want = outs[dpm_label]["cpu"][name]
             if not torch.isfinite(got).all():
                 raise AssertionError(f"SD parity ({label}): non-finite "
                                      f"{name} on the GPU")
@@ -3426,12 +3604,14 @@ def phase_sample_trained(ema_path):
     return dict(shape=list(arr.shape), seconds=time.time() - t0)
 
 
-def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
+def phase_train_parity(unet_sd, envs, batch: int = 2):
     """Two AdamW + EMA training steps of the full-width ADM-64 UNet in
-    float32 (dropout 0; the same weights, batch, t and noise) on the GPU
-    (the kernels) against the CPU (their plain twins), TF32 off: each
-    step's loss and gradient norm, the first step's gradients and every
-    parameter and EMA value after the steps within 1e-3 of their scale."""
+    float32 (dropout 0; the same weights, batch, t and noise): the GPU (the
+    kernels) under the switches of each of ``envs`` ({label: env}) against
+    one CPU run on the default path (the plain chain, the same function),
+    TF32 off: each step's loss and gradient norm, the first step's
+    gradients and every parameter and EMA value after the steps within
+    1e-3 of their scale. Returns {label: the comparison}."""
     import torch
     from autodiffusion_tpu_torch.models import ModelConfig, create_model
     from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
@@ -3449,7 +3629,8 @@ def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
             for _ in range(2)]
     res = {}
     try:
-        for dev in ("cpu", "cuda"):
+        for dev, label, env in ([("cpu", "cpu", DEFAULT)]
+                                + [("cuda", k, v) for k, v in envs.items()]):
             t0 = time.time()
             with switches(env):
                 m = create_model(ModelConfig.adm64(use_bf16=False,
@@ -3473,55 +3654,60 @@ def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
                     metrics.append({k: float(mt[k]) for k in
                                     ("loss", "grad_norm", "mse", "vb")})
                 launches = dict(LAUNCHES)
-            res[dev] = dict(metrics=metrics, grads=first,
-                            params={n: p.detach().cpu()
-                                    for n, p in m.named_parameters()},
-                            ema={n: e.cpu() for n, e in
-                                 st.ema_state_dict(0).items()},
-                            launches=launches, names=st.names)
+            res[label] = dict(metrics=metrics, grads=first,
+                              params={n: p.detach().cpu()
+                                      for n, p in m.named_parameters()},
+                              ema={n: e.cpu() for n, e in
+                                   st.ema_state_dict(0).items()},
+                              launches=launches, names=st.names)
             log(f"train parity ({label}) on {dev}: {time.time() - t0:.1f} s")
             del m, st, grads
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    gpu, cpu = res["cuda"], res["cpu"]
-    errs = {}
-    for i, (g, c) in enumerate(zip(gpu["metrics"], cpu["metrics"])):
-        for k in g:
-            if not (math.isfinite(g[k]) and abs(g[k] - c[k])
-                    <= 1e-3 * max(abs(c[k]), 1.0)):
-                raise AssertionError(f"train parity ({label}) step {i} {k}: "
-                                     f"GPU {g[k]} CPU {c[k]}")
-    gscale = max(float(g.abs().max()) for g in cpu["grads"])
-    errs["grads"] = max(float((a - b).abs().max())
-                        for a, b in zip(gpu["grads"], cpu["grads"]))
-    if not errs["grads"] <= 1e-3 * gscale:
-        worst = max(zip(gpu["grads"], cpu["grads"], cpu["names"]),
-                    key=lambda z: float((z[0] - z[1]).abs().max()))[2]
-        raise AssertionError(f"train parity ({label}): gradients "
-                             f"{errs['grads']:.3e} apart (scale {gscale:.3e}"
-                             f", worst {worst})")
-    for part in ("params", "ema"):
-        errs[part] = 0.0
-        for n, c in cpu[part].items():
-            e = float((gpu[part][n] - c).abs().max())
-            errs[part] = max(errs[part], e)
-            if not e <= 1e-3 * max(float(c.abs().max()), 1.0):
-                raise AssertionError(f"train parity ({label}): {part} {n} "
-                                     f"{e:.3e} apart")
-    missing = [k for k in train_kernels(env) if not gpu["launches"][k]]
-    if missing:
-        raise AssertionError(f"train parity ({label}): GPU launched no "
-                             f"{missing}")
-    log(f"train parity ({label}): ADM-64 float32 batch {batch}, 2 AdamW + "
-        f"EMA steps, GPU vs CPU: losses {[m['loss'] for m in gpu['metrics']]}"
-        f" vs {[m['loss'] for m in cpu['metrics']]}, grad norms "
-        f"{[m['grad_norm'] for m in gpu['metrics']]} vs "
-        f"{[m['grad_norm'] for m in cpu['metrics']]}, max abs err gradients "
-        f"{errs['grads']:.3e} (scale {gscale:.3e}), parameters "
-        f"{errs['params']:.3e}, EMA {errs['ema']:.3e} (tol 1e-3 x scale); "
-        f"GPU launches {gpu['launches']}")
-    return dict(errs=errs, gpu_metrics=gpu["metrics"],
-                cpu_metrics=cpu["metrics"], launches=gpu["launches"])
+    cpu = res["cpu"]
+    out = {}
+    for label, env in envs.items():
+        gpu, errs = res[label], {}
+        for i, (g, c) in enumerate(zip(gpu["metrics"], cpu["metrics"])):
+            for k in g:
+                if not (math.isfinite(g[k]) and abs(g[k] - c[k])
+                        <= 1e-3 * max(abs(c[k]), 1.0)):
+                    raise AssertionError(f"train parity ({label}) step {i} "
+                                         f"{k}: GPU {g[k]} CPU {c[k]}")
+        gscale = max(float(g.abs().max()) for g in cpu["grads"])
+        errs["grads"] = max(float((a - b).abs().max())
+                            for a, b in zip(gpu["grads"], cpu["grads"]))
+        if not errs["grads"] <= 1e-3 * gscale:
+            worst = max(zip(gpu["grads"], cpu["grads"], cpu["names"]),
+                        key=lambda z: float((z[0] - z[1]).abs().max()))[2]
+            raise AssertionError(f"train parity ({label}): gradients "
+                                 f"{errs['grads']:.3e} apart (scale "
+                                 f"{gscale:.3e}, worst {worst})")
+        for part in ("params", "ema"):
+            errs[part] = 0.0
+            for n, c in cpu[part].items():
+                e = float((gpu[part][n] - c).abs().max())
+                errs[part] = max(errs[part], e)
+                if not e <= 1e-3 * max(float(c.abs().max()), 1.0):
+                    raise AssertionError(f"train parity ({label}): {part} "
+                                         f"{n} {e:.3e} apart")
+        missing = [k for k in train_kernels(env) if not gpu["launches"][k]]
+        if missing:
+            raise AssertionError(f"train parity ({label}): GPU launched no "
+                                 f"{missing}")
+        log(f"train parity ({label}): ADM-64 float32 batch {batch}, 2 AdamW"
+            f" + EMA steps, GPU vs CPU: losses "
+            f"{[m['loss'] for m in gpu['metrics']]} vs "
+            f"{[m['loss'] for m in cpu['metrics']]}, grad norms "
+            f"{[m['grad_norm'] for m in gpu['metrics']]} vs "
+            f"{[m['grad_norm'] for m in cpu['metrics']]}, max abs err "
+            f"gradients {errs['grads']:.3e} (scale {gscale:.3e}), parameters"
+            f" {errs['params']:.3e}, EMA {errs['ema']:.3e} (tol 1e-3 x "
+            f"scale); GPU launches {gpu['launches']}")
+        out[label] = dict(errs=errs, gpu_metrics=gpu["metrics"],
+                          cpu_metrics=cpu["metrics"],
+                          launches=gpu["launches"])
+    return out
 
 
 # ------------------------------------------------ the multi-process layer
@@ -3529,15 +3715,12 @@ def phase_train_parity(unet_sd, env, label: str, batch: int = 2):
 DIST_TRAIN_STEPS = 3
 DIST_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                 "group_norm_fwd", "group_norm_bwd")
-# phase_dist's samples: (name, switches, extra arguments). The default
-# path's guided step is not reproducible on the card (the flash gate's
-# SDPA backward at the classifier's sites, ``--guided-repro``), so the
-# guided sample runs with the gate off, every site on the port's own
-# kernels, where two runs agree bit for bit
+# phase_dist's samples: (name, switches, extra arguments), both on the
+# default path, whose guided step repeats bit for bit (the classifier's
+# gradient sites on the port's own kernels: phase_default_repro)
 DIST_SAMPLES = [
     ("sample", DEFAULT, []),
-    ("sample_guided", dict(DEFAULT, ADT_FLASH_GATE="0"),
-     ["--classifier_path", "{cls}"]),
+    ("sample_guided", DEFAULT, ["--classifier_path", "{cls}"]),
 ]
 
 
@@ -3545,8 +3728,8 @@ def dist_runs(paths, files, out_dir: str):
     """The runs ``phase_dist`` compares, in this process: ``adt-torch
     train`` (ADM-64, bf16, batch 16 in two microbatches, 3 steps, no
     checkpoint), ``adt-torch sample`` (ADM-64, ancestral over the searched
-    4 steps, 16 images at batch 16) unguided on the default path and
-    guided with the flash gate off (DIST_SAMPLES) and one guided fitness
+    4 steps, 16 images at batch 16) unguided and guided on the default
+    path (DIST_SAMPLES) and one guided fitness
     chunk on the default path (two DDIM-4 candidates folded, 16 samples
     each, Inception features) on ``data_sharder(make_mesh())``: this
     process alone without a group, the group's ranks under torchrun. Each
@@ -3701,8 +3884,8 @@ def dist_worker(spec_path: str) -> int:
 
 
 def phase_dist(paths, files, smi: str):
-    """``sample`` (unguided on the default path, guided with the flash
-    gate off), ``train`` and a guided fitness chunk data parallel under
+    """``sample`` (unguided and guided, the default path), ``train`` and a
+    guided fitness chunk data parallel under
     ``python -m torch.distributed.run --standalone --nproc_per_node=1``
     (NCCL, the group up at world size 1, so every all-reduce runs), held
     to the same runs without torchrun: losses and FIDs within 1e-3
@@ -4607,6 +4790,299 @@ def phase_selftest():
     return dict(res, result=out)
 
 
+# ------------------------- the joint search and the unconditional LSUN-256
+
+# search_dynamic_unet_imagenet64_classifier_guidance_progressive.sh's flags:
+# a budget of 580 kept layers, ten steps of the ADM-64 UNet's 58; the
+# progressive hook keeps the skip range at (0, 0) in the first epochs
+JOINT_FLAGS = ["--use_dynamic_unet", "True", "--time_step", "10",
+               "--index_step", "580", "--max_prun", "0.1", "--min_prun",
+               "0.0"]
+JOINT_STEPS = 10
+# two joint candidates on the same ten timesteps with other skip lists at
+# every step, at most 5 = 0.1 x 58 layers a step (--max_prun 0.1)
+JOINT_TIMESTEPS = tuple(range(0, 1000, 100))
+JOINT_SKIPS = (
+    ((0, 3), (), (10, 57), (5,), (), (20, 21, 22), (), (40,), (), (1,)),
+    ((), (7,), (), (30, 31), (12,), (), (50, 51, 52, 53, 54), (), (2,), ()),
+)
+
+
+def phase_joint_search(paths, per_step):
+    """Stage 2 of the search, ``adt-torch search --use_dynamic_unet True``
+    at full ADM-64 width (classifier guidance, DDIM, JOINT_FLAGS,
+    SEARCH_CUT) on the default path: run_search, the launches ``per_step``
+    times the guided steps (ten a chunk's batch where its candidates keep
+    every layer); the best candidate's timesteps and skip lists. Then the
+    joint fitness (``make_adm_fitness(joint=True)``, one batch of 16 a
+    candidate) on chunks [A, B] and [B, B] of two candidates with the same
+    timesteps and other skip lists (JOINT_SKIPS), each from a fresh
+    fitness (the same labels and noise): B's FID must be the same in both
+    chunks, bit for bit (its rows took B's keep masks and nothing of A's),
+    A's another; the launches ``per_step`` times the 2 x 10 guided
+    steps."""
+    import torch
+    from autodiffusion_tpu_torch.fid import (FIDStats, inception_apply,
+                                             load_fid_inception)
+    from autodiffusion_tpu_torch.models import (ClassifierConfig,
+                                                ModelConfig,
+                                                create_classifier,
+                                                create_model)
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.search import make_adm_fitness
+
+    res = run_search(["--model_path", paths["unet"], "--classifier_path",
+                      paths["cls"], "--inception_path", paths["incep"],
+                      "--ref_stats", paths["ref"], "--use_ddim", "True"]
+                     + JOINT_FLAGS + SEARCH_CUT, DEFAULT, per_step,
+                     "joint", "guided DDIM steps at batch 32")
+    ks = [k for k, _ in res["chunk_steps"]]
+    if ks[0] != JOINT_STEPS or max(ks) > JOINT_STEPS or any(
+            nb != SEARCH_BATCHES for _, nb in res["chunk_steps"]):
+        raise AssertionError(f"joint search: chunks of (steps, batches) "
+                             f"{res['chunk_steps']} (the budget is "
+                             f"{JOINT_STEPS} steps of every layer, "
+                             f"{SEARCH_BATCHES} batches a chunk)")
+
+    unet = create_model(ModelConfig.adm64(), device="cuda")
+    unet.load_state_dict(torch.load(paths["unet"], map_location="cuda",
+                                    weights_only=True))
+    clf = create_classifier(ClassifierConfig.adm64(), device="cuda")
+    clf.load_state_dict(torch.load(paths["cls"], map_location="cuda",
+                                   weights_only=True))
+    inception = load_fid_inception(paths["incep"], device="cuda")
+    ref = FIDStats.load(paths["ref"])
+
+    def fitness():
+        return make_adm_fitness(
+            model=unet, image_size=64,
+            feature_fn=lambda imgs: inception_apply(inception, imgs),
+            ref_stats=ref, num_samples=16, batch_size=16, classifier=clf,
+            joint=True, candidate_chunk=2, seed=0, device="cuda")
+
+    a, b = ((JOINT_TIMESTEPS, skips) for skips in JOINT_SKIPS)
+    with switches(DEFAULT):
+        reset_launch_counts()
+        f_ab = fitness()([a, b])
+        f_bb = fitness()([b, b])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    want = {k: per_step.get(k, 0) * 2 * JOINT_STEPS for k in launches}
+    log(f"joint fitness: chunk [A, B] FIDs {f_ab}, chunk [B, B] {f_bb}; "
+        f"launches {launches} (expected {want})")
+    if not all(math.isfinite(f) and f >= 0 for f in f_ab + f_bb):
+        raise AssertionError(f"joint fitness FIDs {f_ab} {f_bb}")
+    if f_ab[1] != f_bb[1] or f_ab[0] == f_ab[1]:
+        raise AssertionError(f"joint fitness: B's FID {f_ab[1]} beside A, "
+                             f"{f_bb[1]} beside B (must be equal); A's "
+                             f"{f_ab[0]} (must differ)")
+    if launches != want:
+        raise AssertionError(f"joint fitness launches {launches} != {want}")
+    del unet, clf, inception
+    torch.cuda.empty_cache()
+    return dict(res, folded_fids={"AB": f_ab, "BB": f_bb},
+                folded_launches=launches)
+
+
+# LSUN bedroom / cat 256 (search_lsun_bedroom.sh, ModelConfig.lsun256):
+# the search's device batch (chunk 2 x batch 16) and the published 15-step
+# bedroom schedule (sample_LSUN_bedroom_subnet.sh:8)
+LSUN_SIZE, LSUN_BATCH, LSUN_SAMPLES = 256, 32, 16
+LSUN_TIMESTEPS = ("[644, 737, 67, 804, 134, 871, 6, 639, 268, 335, 402, "
+                  "469, 536, 603, 670]")
+
+
+def lsun_flags():
+    """The model flags of ModelConfig.lsun256 for ``adt-torch``."""
+    from autodiffusion_tpu_torch.models import ModelConfig
+
+    cfg = ModelConfig.lsun256()
+    flags = ("image_size", "num_channels", "num_res_blocks",
+             "num_head_channels", "attention_resolutions", "class_cond",
+             "learn_sigma", "noise_schedule", "resblock_updown",
+             "use_scale_shift_norm", "use_new_attention_order", "use_bf16")
+    out = []
+    for name in flags:
+        out += [f"--{name}", str(getattr(cfg, name))]
+    return out
+
+
+def lsun_sites(env=FUSED_NORM_ALONE):
+    """record_sites of one LSUN-256 UNet call (256 x 256, no class) at
+    full width under the switches of ``env``."""
+    import torch
+    from autodiffusion_tpu_torch.models import ModelConfig, create_model
+
+    with torch.device("meta"):
+        m = create_model(ModelConfig.lsun256(), device="meta")
+    return record_sites(lambda: m(torch.empty(1, 3, LSUN_SIZE, LSUN_SIZE),
+                                  torch.zeros(1)), env)
+
+
+def lsun_files(paths):
+    """The LSUN-256 UNet at full width with seeded random weights, as a
+    guided-diffusion ``.pt`` (float32), and reference statistics of 64
+    seeded 256 x 256 images through the port's Inception (the smoke run's
+    synthesized weights, ``paths["incep"]``)."""
+    import numpy as np
+    import torch
+    from autodiffusion_tpu_torch.fid import (FIDStats, inception_apply,
+                                             load_fid_inception)
+    from autodiffusion_tpu_torch.models import (ModelConfig, create_model,
+                                                random_init_)
+
+    t0 = time.time()
+    m = random_init_(create_model(ModelConfig.lsun256(dropout=0.0),
+                                  device="cuda"), 41)
+    n = sum(p.numel() for p in m.parameters())
+    out = dict(paths, lsun=os.path.join(WORK, "lsun256.pt"),
+               lsun_ref=os.path.join(WORK, "lsun_ref.npz"), lsun_params=n)
+    torch.save(m.state_dict(), out["lsun"])
+    del m
+    inception = load_fid_inception(paths["incep"], device="cuda")
+    imgs = torch.from_numpy(np.random.RandomState(8).randint(
+        0, 256, (64, LSUN_SIZE, LSUN_SIZE, 3), dtype=np.uint8))
+    FIDStats.from_features(inception_apply(inception, imgs)["pool3"]
+                           .double().cpu().numpy()).save(out["lsun_ref"])
+    torch.cuda.empty_cache()
+    log(f"LSUN-256 UNet: {n} parameters (ADM reports 552 M for its LSUN "
+        f"models), seeded weights and reference statistics in "
+        f"{time.time() - t0:.1f} s")
+    return out
+
+
+def phase_lsun_kernels(sites_every, sites_default):
+    """The kernels the LSUN-256 path launches against their twins at its
+    sites, bf16 and fp32, with the sabotaged runs: the flash forward at
+    the UNet's attention sites on the ADM blocks' layout (legacy QKV
+    order, head dim 64: T 1024 with 8 heads, T 256 and 64 with 16) at the
+    search's device batch of 32, whatever the gate routes; the GroupNorm
+    forward at the UNet's GroupNorms at 128 x 128 and 256 x 256 (C 256 at
+    256 x 256 among them: a run of 8 x 65536 elements, 1 MB in bf16, too
+    long for shared memory), the sites no earlier phase has, at the same
+    batch of 32 (the search's; the sample's is 16). Returns the rows."""
+    rows = phase_attention({"lsun": sites_every},
+                           (("flash_fwd", "lsun", LSUN_BATCH),), extra=())
+    rows += phase_new_kernels(
+        {"group_norm_fwd": {k: n for k, n in
+                            sites_default["group_norm_fwd"].items()
+                            if k[1] >= 128 * 128},
+         "group_norm_bwd": {}, "conv3x3": {}, "conv3x3_fused": {}},
+        LSUN_BATCH, reps=3)
+    return rows
+
+
+def phase_lsun_parity(files, size: int = 128):
+    """Two unconditional DDIM steps (eta 0, the linear schedule respaced
+    to 2 steps, x_T injected) of the LSUN-256 UNet at full width in
+    float32 on the GPU (the default path: the fused GroupNorm, the flash
+    forward at the legacy-order attention sites the gate keeps) against
+    the CPU twins, TF32 off; at ``size`` (128: the model's widths and
+    levels at a quarter of the pixels, for the CPU), within 1e-3 x the
+    output's scale."""
+    import torch
+    from autodiffusion_tpu_torch.models import ModelConfig, create_model
+    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.samplers import ddim_sample_loop
+    from autodiffusion_tpu_torch.schedules import build_tables
+
+    sd = torch.load(files["lsun"], map_location="cpu", weights_only=True)
+    x_t = torch.randn(1, 3, size, size,
+                      generator=torch.Generator().manual_seed(5))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    outs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            t0 = time.time()
+            with switches(DEFAULT):
+                m = create_model(ModelConfig.lsun256(dropout=0.0,
+                                                     use_bf16=False),
+                                 device=dev)
+                m.load_state_dict(sd)
+                m.requires_grad_(False)
+                tables = build_tables("ddim2",
+                                      base_schedule="linear").to(dev)
+                reset_launch_counts()
+                with torch.no_grad():
+                    outs[dev] = ddim_sample_loop(
+                        lambda x, t, i: m(x, t), x_t.shape, tables,
+                        device=dev, noise=x_t.to(dev)).cpu()
+                launches = dict(LAUNCHES)
+            log(f"LSUN parity on {dev}: {time.time() - t0:.1f} s")
+            del m
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(outs["cpu"].abs().max())
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    if not (torch.isfinite(outs["cuda"]).all() and err <= 1e-3 * scale):
+        raise AssertionError(f"LSUN parity: GPU and CPU {err:.3e} apart "
+                             f"(scale {scale:.3e})")
+    if not (launches["group_norm_fwd"] and launches["flash_fwd"]):
+        raise AssertionError(f"LSUN parity: GPU launches {launches} (want "
+                             "the GroupNorm forward and the flash forward)")
+    log(f"LSUN parity: DDIM-2 of the LSUN-256 UNet at {size} x {size}, "
+        f"float32, GPU vs CPU max |d| {err:.3e} (scale {scale:.3e}, limit "
+        f"1e-3 x scale), GPU launches {launches}")
+    return dict(err=err, scale=scale, size=size, launches=launches)
+
+
+def phase_lsun_search(files, sites):
+    """The unconditional search of search_lsun_bedroom.sh: ``adt-torch
+    search`` without a classifier on ModelConfig.lsun256's flags (bf16,
+    DDIM-4, SEARCH_CUT: a device batch of 32 at 256 x 256) on the default
+    path: run_search, the launches a UNet call's (``sites``) times the
+    UNet calls (one a step); parameters, images/s, peak memory."""
+    per = {k: v for k, v in per_call(sites).items() if v}
+    # the recorded sites as the gate routes them, held to the literal
+    # FLASH_DEFAULT_ANCHORS
+    routed = flash_per_call("lsun_unet")["flash_fwd"]
+    if per.get("flash_fwd", 0) != routed:
+        raise AssertionError(f"LSUN UNet call: {per} flash forwards "
+                             f"recorded, {routed} routed")
+    res = run_search(["--model_path", files["lsun"], "--inception_path",
+                      files["incep"], "--ref_stats", files["lsun_ref"],
+                      "--time_step", "4", "--use_ddim", "True"]
+                     + lsun_flags() + SEARCH_CUT, DEFAULT, per, "lsun",
+                     f"UNet calls at batch {LSUN_BATCH}")
+    check_fixed_steps(res, 4, "lsun")
+    log(f"search (lsun): {files['lsun_params']} parameters, launches a UNet "
+        f"call {per}, {res['images_per_s']:.2f} images/s, peak memory "
+        f"{res['peak_gb']:.2f} GB")
+    return dict(res, per_call=per, params=files["lsun_params"])
+
+
+def phase_lsun_sample(files, sites):
+    """``adt-torch sample --class_cond False`` of the LSUN-256 UNet
+    (ModelConfig.lsun256's flags, bf16) over the published 15-step bedroom
+    schedule, 16 images at batch 16, the default path: the .npz holds
+    uint8 [16, 256, 256, 3] and no labels; the launches a UNet call's
+    times 15; images/s from the command's own clock (its one batch, the
+    first calls at this batch included), peak memory."""
+    import numpy as np
+
+    npz = os.path.join(WORK, "lsun_samples.npz")
+    want = _expected({"lsun": sites}, {"lsun": 15})
+    res = _run_command(["sample", "--device", "cuda", "--model_path",
+                        files["lsun"], "--use_timestep", LSUN_TIMESTEPS,
+                        "--num_samples", str(LSUN_SAMPLES), "--batch_size",
+                        str(LSUN_SAMPLES), "--seed", "0", "--out", npz]
+                       + lsun_flags(), "sample (lsun)", want)
+    with np.load(npz) as z:
+        if z.files != ["arr_0"]:
+            raise AssertionError(f"sample (lsun): {z.files}")
+        arr = z["arr_0"]
+    if arr.dtype != np.uint8 or arr.shape != (LSUN_SAMPLES, LSUN_SIZE,
+                                              LSUN_SIZE, 3):
+        raise AssertionError(f"sample (lsun): {arr.dtype} {arr.shape}")
+    ips = _images_per_s(res["text"], "sample (lsun)")
+    log(f"sample (lsun): {LSUN_SAMPLES} images at 256 x 256, 15 DDIM "
+        f"steps, bf16, {ips:.2f} images/s, peak memory "
+        f"{res['peak_gb']:.2f} GB, launches {res['launches']} (= a UNet "
+        f"call's {per_call(sites)} x 15)")
+    return dict(res, images_per_s=ips)
+
+
 def adm_weights():
     """Seeded random weights at full ADM-64 width (UNet, classifier), built
     on the CPU: their state dicts."""
@@ -4625,19 +5101,58 @@ def adm_weights():
     return unet.state_dict(), cls.state_dict()
 
 
+def phase_profiles(unet_sd, cls_sd):
+    """The profiled runs: the default path's guided DDIM-4 run
+    (``phase_profile``), the switches' A/B of that run (``phase_ab``), the
+    training step with the switches off, on the default path and on
+    (``phase_train_profile``), and the SD PLMS-4 fitness batch under the
+    same three (``phase_sd_profile``)."""
+    with switches(DEFAULT):
+        prof = phase_profile(unet_sd, cls_sd)
+    ab = phase_ab(unet_sd, cls_sd)
+    arms = (("off", ALL_OFF), ("default", DEFAULT), ("on", SWITCHES_ON))
+    train = {label: phase_train_profile(env, label, steps=2)
+             for label, env in arms}
+    weights = sd_weights()
+    sd = {}
+    for label, env in (("default", DEFAULT), ("switches off", ALL_OFF),
+                       ("switches on", SWITCHES_ON)):
+        with switches(env):
+            sd[label] = phase_sd_profile(weights, label)
+    return dict(profile=prof, ab=ab, train_profile=train, sd_profile=sd)
+
+
 # the measurements run alone (``python3 chip_smoke.py <flag>``)
-MEASUREMENTS = ("--flash-ab", "--lost-events", "--guided-repro")
+MEASUREMENTS = ("--profiles", "--flash-ab", "--lost-events",
+                "--guided-repro")
 
 
 def measure_alone(flag: str, smi: str) -> int:
     """Run one measurement of MEASUREMENTS and write its record to
     ``chiprun_out/chip_smoke_<name>.json``."""
     unet_sd, cls_sd = adm_weights()
-    if flag == "--flash-ab":
+    if flag == "--profiles":
+        rec = phase_profiles(unet_sd, cls_sd)
+    elif flag == "--flash-ab":
         res, gate = phase_flash_ab(unet_sd, cls_sd, _sites_of_programs())
         rec = {"flash_ab": res, "flash_gate_from_ab": gate}
     elif flag == "--guided-repro":
         rec = {"guided_repro": phase_guided_repro(unet_sd, cls_sd)}
+        # train-classifier shares the classifier's gradient sites: its step
+        # on the default path against those sites on SDPA
+        os.makedirs(WORK, exist_ok=True)
+        try:
+            files = train_files()
+            with repro_sites_on_sdpa():
+                sdpa = phase_train_classifier(files, DEFAULT,
+                                              "classifier sites on SDPA",
+                                              steps=6)
+            rec["train_classifier"] = {
+                "default": phase_train_classifier(files, DEFAULT, "default",
+                                                  steps=6),
+                "classifier sites on SDPA": sdpa}
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     else:
         rec = {"lost_events": phase_lost_events(unet_sd, cls_sd, tries=8)}
     os.makedirs(OUT, exist_ok=True)
@@ -4673,6 +5188,9 @@ def main(argv=None) -> int:
     def mark(name: str) -> None:
         marks.append((name, round(time.time() - t_start, 1)))
         log(f"phase {name} done at {marks[-1][1]} s")
+        # on standard error too, so that its tail shows how far a run got
+        print(f"chip_smoke: phase {name} done at {marks[-1][1]} s",
+              file=sys.stderr, flush=True)
 
     smi = smi_line()
     log(f"card: {smi}")
@@ -4698,9 +5216,10 @@ def main(argv=None) -> int:
     os.makedirs(WORK, exist_ok=True)
     try:
         unet_sd, cls_sd = adm_weights()
-        parity_err, _ = phase_parity(unet_sd, cls_sd, DEFAULT, "default")
-        parity_on_err, parity_on_launches = phase_parity(
-            unet_sd, cls_sd, SWITCHES_ON, "switches on")
+        parity = phase_parity(unet_sd, cls_sd, {"default": DEFAULT,
+                                                "switches on": SWITCHES_ON})
+        parity_err = parity["default"][0]
+        parity_on_err, parity_on_launches = parity["switches on"]
         mark("ADM parity")
         missing = [k for k in ADM_KERNELS if not parity_on_launches[k]]
         if missing:
@@ -4711,11 +5230,6 @@ def main(argv=None) -> int:
         # and the classifier forward, the classifier's backward (dx alone)
         per_step_default = per_step(None, group_norm_fwd=n_unet_gn + n_cls_gn,
                                     group_norm_bwd=n_cls_gn)
-        with switches(DEFAULT):
-            prof = phase_profile(unet_sd, cls_sd)
-        mark("ADM profile")
-        ab = phase_ab(unet_sd, cls_sd)
-        mark("ADM A/B")
         paths = search_files(unet_sd, cls_sd)
         search = phase_search(paths, DEFAULT, per_step_default, "default")
         search_on = phase_search(paths, SWITCHES_ON,
@@ -4728,8 +5242,7 @@ def main(argv=None) -> int:
         mark("ref-stats and evaluate")
         log(f"ADM phases done at {time.time() - t_start:.1f} s")
 
-        # the training slice: train (default, switches on), the training
-        # step profiled (switches off, default = the fused norm alone, on),
+        # the training slice: train (default, switches on),
         # train-classifier, nll and sample of the trained checkpoint,
         # GPU-vs-CPU training parity
         files = train_files()
@@ -4737,11 +5250,6 @@ def main(argv=None) -> int:
                  for label, env in (("default", DEFAULT),
                                     ("on", SWITCHES_ON))}
         mark("train")
-        train_prof = {label: phase_train_profile(env, label, steps=2)
-                      for label, env in (("off", ALL_OFF),
-                                         ("default", DEFAULT),
-                                         ("on", SWITCHES_ON))}
-        mark("train profile")
         train_cls = {label: phase_train_classifier(files, env, label)
                      for label, env in (("default", DEFAULT),
                                         ("on", SWITCHES_ON))}
@@ -4752,15 +5260,14 @@ def main(argv=None) -> int:
         mark("nll")
         sample_trained = phase_sample_trained(ema_path)
         mark("sample of the trained checkpoint")
-        train_parity = {label: phase_train_parity(unet_sd, env, label)
-                        for label, env in (("default", DEFAULT),
-                                           ("switches on", SWITCHES_ON))}
+        train_parity = phase_train_parity(unet_sd, {
+            "default": DEFAULT, "switches on": SWITCHES_ON})
         mark("train parity")
         dist = phase_dist(paths, files, smi)
         mark("data parallel")
 
         # the Stable Diffusion slice: search-sd's kernels at every SD site,
-        # parity of the full-width towers, profiles and the searches; the
+        # parity of the full-width towers and the searches; the
         # sites of the default path (the fused GroupNorm alone) and of the
         # switches on, read on the meta device
         sd = sd_sites(SWITCHES_ON)
@@ -4792,12 +5299,6 @@ def main(argv=None) -> int:
             if missing:
                 raise AssertionError(f"the SD {label} parity run launched "
                                      f"no {missing}")
-        sd_prof = {}
-        for label, env in (("default", DEFAULT), ("switches off", ALL_OFF),
-                           ("switches on", SWITCHES_ON)):
-            with switches(env):
-                sd_prof[label] = phase_sd_profile(weights, label)
-        mark("SD profiles")
         paths = sd_search_files(weights, paths)
         del weights
         sd_search = phase_sd_search(paths, DEFAULT, sd_default, "default")
@@ -4862,6 +5363,27 @@ def main(argv=None) -> int:
         mark("train-classifier spatial_v2")
         selftest = phase_selftest()
         mark("selftest")
+
+        # the last slice: the default guided step reproducible; the joint
+        # timestep + layer-skip search; the unconditional LSUN-256 search
+        # and sample (its kernels at their sites and GPU-vs-CPU parity
+        # first)
+        repro = phase_default_repro(unet_sd, cls_sd)
+        mark("default guided step reproducible")
+        joint = phase_joint_search(paths, per_step_default)
+        mark("joint search")
+        lsun_default = lsun_sites()
+        lsun_rows = phase_lsun_kernels(
+            lsun_sites(dict(FUSED_NORM_ALONE, ADT_FLASH_GATE="0")),
+            lsun_default)
+        mark("LSUN kernels")
+        paths = lsun_files(paths)
+        lsun_parity = phase_lsun_parity(paths)
+        mark("LSUN parity")
+        lsun_search = phase_lsun_search(paths, lsun_default)
+        mark("LSUN search")
+        lsun_sample = phase_lsun_sample(paths, lsun_default)
+        mark("LSUN sample")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -4880,7 +5402,9 @@ def main(argv=None) -> int:
             + [r for k, r in txt2img.items() if k != "convert"]
             + [img2img, inpaint] + list(ldm_sample.values())
             + [sr_sample, cls_v2, selftest] + list(sr_train.values())
-            + dist["runs"] + list(dist["plain"].values()))
+            + dist["runs"] + list(dist["plain"].values())
+            + [joint, {"launches": joint["folded_launches"]}, lsun_search,
+               lsun_sample])
     launches = {k: sum(r["launches"][k] for r in runs) for k in KERNEL_INFO}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
@@ -4906,7 +5430,7 @@ def main(argv=None) -> int:
                    "attention_ms_per_step": attn_ms,
                    "sdpa_attention_ms_per_step": attn_sdpa_ms,
                    "backward_ms_per_step": attn_bwd,
-                   "profile": prof, "ab": ab, "search": search,
+                   "search": search,
                    "search_switches_on": search_on, "sample": sample,
                    "fid_commands": fid_cmds,
                    "sd_sites": {part: {k: {str(s): n for s, n in v.items()}
@@ -4915,11 +5439,10 @@ def main(argv=None) -> int:
                    "sd_attention_rows": sd_attn_rows, "sd_kernel_rows": sd_rows,
                    "sd_new_kernels_ms_per_call": sd_ms,
                    "sd_parity": {k: v[0] for k, v in sd_parity.items()},
-                   "sd_profile": sd_prof,
                    "sd_search": sd_search, "sd_search_switches_on":
                        sd_search_on, "sd_dpm_search": sd_dpm,
                    "sd_dpm_search_switches_on": sd_dpm_on,
-                   "train": train, "train_profile": train_prof,
+                   "train": train,
                    "train_classifier": train_cls, "nll": nll,
                    "sample_trained": sample_trained,
                    "train_parity": train_parity,
@@ -4942,6 +5465,14 @@ def main(argv=None) -> int:
                    "sr_train": sr_train, "train_classifier_spatial_v2":
                        cls_v2, "selftest": selftest["result"],
                    "selftest_s": selftest["wall_s"],
+                   "default_guided_repro": repro,
+                   "joint_search": joint,
+                   "lsun_sites": {k: {str(s): n for s, n in v.items()}
+                                  for k, v in lsun_default.items()},
+                   "lsun_kernel_rows": lsun_rows,
+                   "lsun_parity": lsun_parity, "lsun_search": lsun_search,
+                   "lsun_sample": {k: v for k, v in lsun_sample.items()
+                                   if k != "text"},
                    "phase_marks": marks, "ptxas_pipelined": ptxas,
                    "kernels_line": line,
                    "total_s": time.time() - t_start}, f, indent=1)

@@ -253,6 +253,42 @@ def test_ldm_adm_layout_sites_match_twin(cuda_device, dtype, n, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,hw", [(512, 32), (1024, 16), (1024, 8)])
+def test_lsun_legacy_order_attention_sites_match_cpu(cuda_device, no_tf32,
+                                                     monkeypatch, dtype,
+                                                     channels, hw):
+    """The LSUN-256 UNet's attention sites: an AttentionBlock in
+    guided-diffusion's legacy QKV order (use_new_attention_order False)
+    with head width 64, 512 channels at 32 x 32 (8 heads, T 1024) and
+    1024 at 16 x 16 and 8 x 8 (16 heads, T 256 and 64), forward only as
+    sampling runs it, with the flash gate off (ADT_FLASH_GATE=0) so that
+    the site is on its kernel whatever the gate routes: one flash_fwd
+    launch (and the fused GroupNorm's forward for the block's norm), the
+    output against the same block on the CPU (the twin), float32 within
+    1e-3 of the scale, bf16 within 2e-2."""
+    from autodiffusion_tpu_torch.models.unet import AttentionBlock
+
+    monkeypatch.setenv("ADT_FLASH_GATE", "0")
+    torch.manual_seed(channels + hw)
+    blk = AttentionBlock(channels, num_head_channels=64,
+                         use_new_attention_order=False)
+    with torch.no_grad():
+        blk.proj_out.weight.normal_(0, 0.05)
+    x = torch.randn(2, channels, hw, hw)
+    with torch.no_grad():
+        want = blk(x)
+        gpu = blk.to(cuda_device)
+        reset_launch_counts()
+        out = gpu(x.to(cuda_device, dtype))
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(flash_fwd=1, group_norm_fwd=1)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    scale = float(want.abs().max())
+    assert float((out.float().cpu() - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_forward_at_the_vae_site(cuda_device, dtype):
     """flash_fwd_wide at the VAE mid-block's T = S = 4096 (batch 1): every
     key tile and both consumers' halves of the contraction; a run with one
@@ -441,7 +477,11 @@ def test_group_norm_kernels_match_twins(cuda_device, dtype, shape, groups,
     ((2, 64, 33, 31), 32, True, True), ((3, 40, 5, 7), 8, False, True),
     ((2, 96, 7), 32, True, False), ((2, 64, 129, 255), 16, False, True),
     # the VQ-f4 decoder's top level: C 128 at 256 x 256 (ldm-sample)
-    ((4, 128, 256, 256), 32, False, True)])
+    ((4, 128, 256, 256), 32, False, True),
+    # the LSUN-256 UNet's top level: C 256 at 256 x 256, the in-norm and
+    # the FiLM out-norm of a ResBlock (1 MB a run in bf16)
+    ((2, 256, 256, 256), 32, False, True),
+    ((2, 256, 256, 256), 32, True, True)])
 def test_group_norm_forward_long_and_odd_runs(cuda_device, dtype, shape,
                                               groups, film, silu):
     """The GroupNorm forward where runs are too long for shared memory and

@@ -192,18 +192,29 @@ def _candidates(k):
     return [space.random() for _ in range(2)]
 
 
-def _adm_fids(shard, use_ddim):
+def _joint_candidates(layer_num):
+    """Two joint candidates of four steps: the same timesteps, other
+    skip lists at every step."""
+    ts = tuple(_candidates(4)[0])
+    last = layer_num - 1
+    return [(ts, ((0,), (), (2, last), (1,))),
+            (ts, ((), (3, 4), (5,), (0, last)))]
+
+
+def _adm_fids(shard, use_ddim, joint=False):
     """One chunk of two candidates, guided by the classifier: 16 samples
-    a candidate in two batches of 8."""
+    a candidate in two batches of 8; ``joint``, two joint candidates, each
+    row under its candidate's keep masks."""
     unet = _unet(5).eval()
     clf = _classifier(6, FIT_IMG).eval()
     fitness = make_adm_fitness(
         model=unet, image_size=FIT_IMG, feature_fn=_features,
         ref_stats=_ref(), num_samples=16, batch_size=8, classifier=clf,
         classifier_scale=2.0, num_classes=NUM_CLASSES, use_ddim=use_ddim,
-        candidate_chunk=2, seed=3, feature_dim=8, device="cpu",
+        joint=joint, candidate_chunk=2, seed=3, feature_dim=8, device="cpu",
         shard_fn=shard)
-    return fitness(_candidates(4))
+    return fitness(_joint_candidates(unet.layer_num) if joint
+                   else _candidates(4))
 
 
 def _sd_fids(shard):
@@ -253,6 +264,7 @@ def worker_main(pid: int, addr: str, d: str) -> None:
            "classifier": _classifier_step(inputs, shard),
            "fid_ddim": _adm_fids(shard, True),
            "fid_ancestral": _adm_fids(shard, False),
+           "fid_joint": _adm_fids(shard, True, joint=True),
            "fid_sd": _sd_fids(shard)}
     assert main(_sample_argv(d, "world2.npz")) == 0
     torch.save(res, os.path.join(d, f"rank{pid}.pt"))
@@ -511,15 +523,19 @@ def test_classifier_step_world_2_equals_world_1_and_jax(run, inputs):
                          2e-3 * CLS_LR, CLS_LR)
 
 
-@pytest.mark.parametrize("phase", ["fid_ddim", "fid_ancestral", "fid_sd"])
+@pytest.mark.parametrize("phase", ["fid_ddim", "fid_ancestral", "fid_sd",
+                                   "fid_joint"])
 def test_fitness_chunk_world_2_equals_world_1(run, phase):
-    """Guided DDIM and guided ancestral chunks of the ADM fitness and a
-    PLMS chunk of the SD fitness, two candidates folded: both ranks give
-    the same FIDs, those of one process."""
+    """Guided DDIM and guided ancestral chunks of the ADM fitness, a
+    guided DDIM chunk of the joint fitness (each rank's rows of each
+    candidate under that candidate's keep masks) and a PLMS chunk of the
+    SD fitness, two candidates folded: both ranks give the same FIDs,
+    those of one process."""
     f0, f1 = (r[phase] for r in run[1])
     assert f0 == f1
     one = {"fid_ddim": lambda: _adm_fids(None, True),
            "fid_ancestral": lambda: _adm_fids(None, False),
+           "fid_joint": lambda: _adm_fids(None, True, joint=True),
            "fid_sd": lambda: _sd_fids(None)}[phase]()
     assert len(one) == 2 and one[0] != one[1]
     np.testing.assert_allclose(f0, one, rtol=1e-4)
