@@ -11,6 +11,14 @@ original-process timestep, ``step_idx`` the respaced index.
 cond_fn(x, t_orig) -> grad log p(y | x), the shape of x.
 x_T and the per-step noise may be given; what is not given is drawn from
 ``generator``.
+
+Spans (``utils.trace``, off unless turned on): each loop is one
+``adt.sampler.loop`` (``rows``, ``steps``) of ``adt.sampler.step`` spans
+(``index``, the respaced step), each holding ``adt.sampler.model`` (the
+model_fn call) and, where guided, ``adt.sampler.guidance`` (the cond_fn
+call, the classifier's forward and its input gradient, with its term
+added); the rest of a step is the update. A loop inside a fitness chunk
+carries the chunk's trace id, any other loop opens a fresh one.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 
 from ..schedules import ScheduleTables
+from ..utils import trace
 
 __all__ = ["ModelMeanType", "ModelVarType", "q_sample",
            "q_posterior_mean_variance", "p_mean_variance", "p_sample_loop",
@@ -202,19 +211,25 @@ def p_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
     dev = torch.device(device) if device is not None else tables.betas.device
     shard = shard_fn or _all_rows
     x = _x_T(shape, noise, generator, dev, shard)
-    for i in range(tables.num_steps - 1, -1, -1):
-        t = _bcast_t(tables.timestep_map[..., i], x.shape[0])
-        model_out = model_fn(x, t, i).float()
-        mean, variance, log_variance, _ = p_mean_variance(
-            tables, model_out, x, i, mean_type=mean_type, var_type=var_type,
-            clip_denoised=clip_denoised, denoised_fn=denoised_fn)
-        if cond_fn is not None:
-            mean = mean + variance * cond_fn(x, t)
-        if i == 0:
-            x = mean
-            continue
-        x = mean + torch.exp(0.5 * log_variance) \
-            * _z(step_noise, i, shape, generator, dev, shard)
+    with trace.span("adt.sampler.loop", rows=x.shape[0],
+                    steps=tables.num_steps):
+        for i in range(tables.num_steps - 1, -1, -1):
+            with trace.span("adt.sampler.step", index=i):
+                t = _bcast_t(tables.timestep_map[..., i], x.shape[0])
+                with trace.span("adt.sampler.model"):
+                    model_out = model_fn(x, t, i).float()
+                mean, variance, log_variance, _ = p_mean_variance(
+                    tables, model_out, x, i, mean_type=mean_type,
+                    var_type=var_type, clip_denoised=clip_denoised,
+                    denoised_fn=denoised_fn)
+                if cond_fn is not None:
+                    with trace.span("adt.sampler.guidance"):
+                        mean = mean + variance * cond_fn(x, t)
+                if i == 0:
+                    x = mean
+                    continue
+                x = mean + torch.exp(0.5 * log_variance) \
+                    * _z(step_noise, i, shape, generator, dev, shard)
     return x
 
 
@@ -242,31 +257,38 @@ def ddim_sample_loop(model_fn, shape: Sequence[int], tables: ScheduleTables,
     nd = len(shape) - 1
     shard = shard_fn or _all_rows
     x = _x_T(shape, noise, generator, dev, shard)
-    for i in range(tables.num_steps - 1, -1, -1):
-        t = _bcast_t(tables.timestep_map[..., i], x.shape[0])
-        model_out = model_fn(x, t, i).float()
-        _, _, _, pred_x0 = p_mean_variance(
-            tables, model_out, x, i, mean_type=mean_type, var_type=var_type,
-            clip_denoised=clip_denoised, denoised_fn=denoised_fn)
-        eps = _predict_eps_from_xstart(tables, x, i, pred_x0)
-        if cond_fn is not None:
-            # guidance on the score (gaussian_diffusion.py:371-393
-            # condition_score); the reference does NOT re-clip pred_xstart
-            # after guidance
-            eps = eps - (_at(tables.sqrt_one_minus_alphas_cumprod, i, nd)
-                         * cond_fn(x, t))
-            pred_x0 = _predict_xstart_from_eps(tables, x, i, eps)
-        abar = _at(tables.alphas_cumprod, i, nd)
-        abar_prev = _at(tables.alphas_cumprod_prev, i, nd)
-        sigma = (eta * torch.sqrt((1 - abar_prev) / (1 - abar))
-                 * torch.sqrt(1 - abar / abar_prev))
-        mean_pred = (pred_x0 * torch.sqrt(abar_prev)
-                     + torch.sqrt(1 - abar_prev - sigma ** 2) * eps)
-        # ADM zeroes the stochastic term at the final respaced step;
-        # final_step_noise=True keeps it (CompVis DDIM semantics)
-        if i == 0 and not final_step_noise:
-            x = mean_pred
-            continue
-        x = mean_pred + sigma * _z(step_noise, i, shape, generator, dev,
-                                   shard)
+    with trace.span("adt.sampler.loop", rows=x.shape[0],
+                    steps=tables.num_steps):
+        for i in range(tables.num_steps - 1, -1, -1):
+            with trace.span("adt.sampler.step", index=i):
+                t = _bcast_t(tables.timestep_map[..., i], x.shape[0])
+                with trace.span("adt.sampler.model"):
+                    model_out = model_fn(x, t, i).float()
+                _, _, _, pred_x0 = p_mean_variance(
+                    tables, model_out, x, i, mean_type=mean_type,
+                    var_type=var_type, clip_denoised=clip_denoised,
+                    denoised_fn=denoised_fn)
+                eps = _predict_eps_from_xstart(tables, x, i, pred_x0)
+                if cond_fn is not None:
+                    # guidance on the score (gaussian_diffusion.py:371-393
+                    # condition_score); the reference does NOT re-clip
+                    # pred_xstart after guidance
+                    with trace.span("adt.sampler.guidance"):
+                        eps = eps - (_at(tables.sqrt_one_minus_alphas_cumprod,
+                                         i, nd) * cond_fn(x, t))
+                    pred_x0 = _predict_xstart_from_eps(tables, x, i, eps)
+                abar = _at(tables.alphas_cumprod, i, nd)
+                abar_prev = _at(tables.alphas_cumprod_prev, i, nd)
+                sigma = (eta * torch.sqrt((1 - abar_prev) / (1 - abar))
+                         * torch.sqrt(1 - abar / abar_prev))
+                mean_pred = (pred_x0 * torch.sqrt(abar_prev)
+                             + torch.sqrt(1 - abar_prev - sigma ** 2) * eps)
+                # ADM zeroes the stochastic term at the final respaced
+                # step; final_step_noise=True keeps it (CompVis DDIM
+                # semantics)
+                if i == 0 and not final_step_noise:
+                    x = mean_pred
+                    continue
+                x = mean_pred + sigma * _z(step_noise, i, shape, generator,
+                                           dev, shard)
     return x

@@ -18,6 +18,16 @@ Data parallel (``shard_fn``, parallel.data_sharder): each rank evaluates
 its rows of every candidate's batch (``per_candidate``), sample_fn
 returns those rows, and the moments are summed over the ranks before the
 Frechet, so every rank returns the same FIDs.
+
+Spans (``utils.trace``, off unless turned on), all with the chunk's
+``eval_count`` as trace id: ``adt.fitness.chunk`` (a whole chunk;
+``candidates``) holds ``adt.fitness.payload`` (the folded payloads),
+then per device batch ``adt.fitness.sample`` (``rows``; the sampler's
+spans lie inside it), ``adt.fitness.features`` (``images``) and
+``adt.fitness.moments`` (the shift and the batch's sums), and last
+``adt.fitness.frechet`` (until the FIDs are host floats). The logged
+``reset_time`` / ``sample_time`` / ``fid_time`` are taken at the same
+boundaries.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ from ..fid.stats import (FeatureStats, FIDStats, finalize_stats,
                          frechet_distance_eigh, make_device_frechet)
 from ..parallel.mesh import DataSharder
 from ..schedules import ScheduleTables, stack_tables
-from ..utils import logger
+from ..utils import logger, trace
 
 __all__ = ["BatchedFIDFitness", "to_uint8", "per_candidate"]
 
@@ -161,9 +171,7 @@ class BatchedFIDFitness:
         for idxs in groups.values():
             for j in range(0, len(idxs), self.candidate_chunk):
                 part = idxs[j:j + self.candidate_chunk]
-                t0 = time.time()
                 part_fids = self._eval_chunk([candidates[i] for i in part])
-                logger.logkv_mean("fitness_chunk_time", time.time() - t0)
                 for i, f in zip(part, part_fids):
                     fids[i] = f
         return [fids[i] for i in range(len(candidates))]
@@ -175,42 +183,50 @@ class BatchedFIDFitness:
         cands = list(cands) + [cands[-1]] * (self.candidate_chunk - n_real)
         c = len(cands)
         b = self.device_batch
-        t0 = time.time()
-        per_sample = _fold([self.payload_fn(x) for x in cands], b,
-                           self.device)
-        reset_time = time.time() - t0
-
-        t0 = time.time()
-        stats = FeatureStats.zeros(self.feature_dim, (c,), self.device)
-        n_batches = -(-self.num_samples // b)
-        with torch.no_grad():
-            for bi in range(n_batches):
-                imgs = self.sample_fn(per_sample, self._generator(bi), bi)
-                feats = self.feature_fn(imgs)["pool3"].double() - self._shift
-                by_cand = feats.reshape(c, -1, feats.shape[-1])
-                stats = FeatureStats(
-                    n=stats.n + by_cand.shape[1],
-                    s1=stats.s1 + by_cand.sum(dim=1),
-                    s2=stats.s2 + torch.einsum("cbd,cbe->cde", by_cand,
-                                               by_cand))
-        self.shard_fn.all_reduce_sum_(list(stats))
-        _sync(self.device)
-        self._eval_count += 1
-        sample_time = time.time() - t0
-
-        t0 = time.time()
-        if self._device_frechet is not None:
-            out = [float(f) for f in self._device_frechet(stats)[:n_real]]
-        else:
-            out = [frechet_distance_eigh(
-                finalize_stats(FeatureStats(stats.n[i], stats.s1[i],
-                                            stats.s2[i]),
-                               shift=self.ref_stats.mu), self.ref_stats)
-                   for i in range(n_real)]
+        with trace.span("adt.fitness.chunk", trace_id=self._eval_count,
+                        candidates=c):
+            t0 = time.perf_counter()
+            with trace.span("adt.fitness.payload"):
+                per_sample = _fold([self.payload_fn(x) for x in cands], b,
+                                   self.device)
+            t1 = time.perf_counter()
+            stats = FeatureStats.zeros(self.feature_dim, (c,), self.device)
+            n_batches = -(-self.num_samples // b)
+            with torch.no_grad():
+                for bi in range(n_batches):
+                    with trace.span("adt.fitness.sample", rows=c * b):
+                        imgs = self.sample_fn(per_sample,
+                                              self._generator(bi), bi)
+                    with trace.span("adt.fitness.features",
+                                    images=imgs.shape[0]):
+                        feats = self.feature_fn(imgs)["pool3"]
+                    with trace.span("adt.fitness.moments"):
+                        feats = feats.double() - self._shift
+                        by_cand = feats.reshape(c, -1, feats.shape[-1])
+                        stats = FeatureStats(
+                            n=stats.n + by_cand.shape[1],
+                            s1=stats.s1 + by_cand.sum(dim=1),
+                            s2=stats.s2 + torch.einsum(
+                                "cbd,cbe->cde", by_cand, by_cand))
+            self.shard_fn.all_reduce_sum_(list(stats))
+            _sync(self.device)
+            self._eval_count += 1
+            t2 = time.perf_counter()
+            with trace.span("adt.fitness.frechet"):
+                if self._device_frechet is not None:
+                    out = [float(f)
+                           for f in self._device_frechet(stats)[:n_real]]
+                else:
+                    out = [frechet_distance_eigh(
+                        finalize_stats(FeatureStats(stats.n[i], stats.s1[i],
+                                                    stats.s2[i]),
+                                       shift=self.ref_stats.mu),
+                        self.ref_stats) for i in range(n_real)]
+            t3 = time.perf_counter()
         # the reference's per-phase timing line
         # (search_imagenet64_classifier_guidance.py:375)
-        logger.log(f"reset_time: {reset_time:.3f}, sample_time: "
-                   f"{sample_time:.3f}, fid_time: {time.time() - t0:.3f}")
+        logger.log(f"reset_time: {t1 - t0:.3f}, sample_time: "
+                   f"{t2 - t1:.3f}, fid_time: {t3 - t2:.3f}")
         # FID is non-negative: a materially negative or non-finite value
         # means the moment / Frechet numerics are broken, and the search
         # must not descend a corrupted landscape. Tiny negatives (rounding

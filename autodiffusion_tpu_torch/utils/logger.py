@@ -2,16 +2,14 @@
 
 Port of autodiffusion_tpu/utils/logger.py, the OpenAI-baselines logger
 surface the reference uses (guided_diffusion/logger.py:36-267): module-level
-``log``, ``logkv``, ``logkv_mean``, ``dumpkvs``, ``configure``,
-``get_dir``, plus the ``profile_kv`` wall-time context
-(logger.py:294-323). Search results are *delivered via the log* (the user
+``log``, ``logkv``, ``logkv_mean``, ``dumpkvs``, ``configure`` and
+``get_dir``. Search results are *delivered via the log* (the user
 greps the "top k" tables, gd/README.md:24), so the formats are kept
 greppable and stable, and equal to the JAX package's line for line.
 """
 
 from __future__ import annotations
 
-import contextlib
 import csv
 import datetime
 import json
@@ -19,12 +17,10 @@ import os
 import os.path as osp
 import sys
 import tempfile
-import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, TextIO
 
-__all__ = ["configure", "log", "logkv", "logkv_mean", "dumpkvs", "get_dir",
-           "profile_kv", "profile"]
+__all__ = ["configure", "log", "logkv", "logkv_mean", "dumpkvs", "get_dir"]
 
 
 class HumanOutput:
@@ -242,22 +238,3 @@ def dumpkvs() -> Dict[str, Any]:
 
 def get_dir() -> Optional[str]:
     return _current().dir
-
-
-@contextlib.contextmanager
-def profile_kv(scope_name: str):
-    """Accumulate wall time under ``wait_<scope>`` (logger.py:294-309)."""
-    t0 = time.time()
-    try:
-        yield
-    finally:
-        _current().name2val["wait_" + scope_name] += time.time() - t0
-
-
-def profile(name: str):
-    def decorator(fn):
-        def wrapped(*args, **kwargs):
-            with profile_kv(name):
-                return fn(*args, **kwargs)
-        return wrapped
-    return decorator

@@ -123,20 +123,3 @@ def test_logger_writes_the_jax_lines(tmp_path):
         assert files["port", f] == files["jax", f], f
     # the key added at step 1 rewrote the header with its column
     assert files["port", "progress.csv"][0] == "loss,step,a_new_key"
-
-
-def test_profile_kv_accumulates_wall_time():
-    logger.Logger.CURRENT = None
-    logger.configure(None, log_to_stdout=False, formats=[])
-
-    @logger.profile("data")
-    def work():
-        return 3
-
-    with logger.profile_kv("data"):
-        pass
-    assert work() == 3
-    kvs = logger.dumpkvs()
-    assert set(kvs) == {"wait_data"} and kvs["wait_data"] >= 0
-    logger.Logger.CURRENT.close()
-    logger.Logger.CURRENT = None
