@@ -1,10 +1,22 @@
-"""NN primitives shared by the diffusion models (NCHW).
+"""NN primitives shared by the diffusion models.
 
 Port of autodiffusion_tpu/models/nn.py (itself guided_diffusion/nn.py).
 Parameters are float32; a module computes in the dtype of the activations
 it is given, casting its parameters to that dtype where they are used
 (flax's ``promote_dtype``). GroupNorm statistics are float32 whatever the
 compute dtype.
+
+Shapes are [B, C, H, W] whatever the layout. Two layouts run through
+these modules, and each keeps the one it is given: NCHW (SD's UNet, the
+KL VAE) and channels-last (the ADM UNet and classifier, which take their
+input channels-last at entry, :func:`to_channels_last`, and the VQ
+decoder, whose quantizer hands back a channels-last tensor). Channels-last is
+the layout of cuDNN's Hopper convolutions (the sm90 NHWC implicit GEMMs)
+and of the JAX reference (NHWC); in NCHW cuDNN copies every convolution's
+input into NHWC and its output back. A conv casts its float32 weight into
+the input's layout in the same copy as its dtype, and GroupNorm32 takes
+the fused kernels' NHWC route on a channels-last input
+(ops/fused_norm.py).
 """
 
 from __future__ import annotations
@@ -17,10 +29,34 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import (conv3x3, conv3x3_fused, fused_group_norm,
-                   fused_norm_available, resolve_use_im2col)
+                   fused_norm_available, memory_format, resolve_use_im2col)
 
 __all__ = ["timestep_embedding", "GroupNorm32", "Conv3x3", "conv2d",
-           "linear", "conv1x1", "Upsample", "Downsample", "zero_module"]
+           "linear", "conv1x1", "Upsample", "Downsample", "zero_module",
+           "to_channels_last"]
+
+
+class _ToChannelsLast(torch.autograd.Function):
+    """x in ``dtype`` and channels-last; its gradient back in x's dtype
+    and layout (autograd's own cast would hand it back channels-last)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype, ctx.layout = x.dtype, memory_format(x)
+        return x.to(dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype, memory_format=ctx.layout), None
+
+
+def to_channels_last(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A model's [B, C, H, W] input in ``dtype``, laid out channels-last
+    (one copy); where x needs a gradient (the guidance's classifier) it
+    flows back in x's own dtype and layout."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ToChannelsLast.apply(x, dtype)
+    return x.to(dtype, memory_format=torch.channels_last)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -48,10 +84,13 @@ def zero_module(module: nn.Module) -> nn.Module:
 
 
 def conv2d(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``mod`` applied in x's dtype (its float32 parameters cast at use)."""
+    """``mod`` applied in x's dtype and layout (its float32 parameters cast
+    at use, the weight into x's layout in the same copy, so that cuDNN
+    sees one layout and returns it)."""
     bias = None if mod.bias is None else mod.bias.to(x.dtype)
-    return F.conv2d(x, mod.weight.to(x.dtype), bias, mod.stride,
-                    mod.padding, mod.dilation, mod.groups)
+    weight = mod.weight.to(x.dtype, memory_format=memory_format(x))
+    return F.conv2d(x, weight, bias, mod.stride, mod.padding, mod.dilation,
+                    mod.groups)
 
 
 def conv1x1(mod: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +132,9 @@ class GroupNorm32(nn.GroupNorm):
     ``ADT_FUSED_NORM=1``) the whole operation goes through the fused
     GroupNorm kernels (ops/fused_norm.py), which apply FiLM and SiLU in
     float32 before one cast. The chain below is the CPU path and the
-    tests' twin. ``return_affine=True`` returns instead
+    tests' twin. Both keep x's layout (NCHW or channels-last; the fused
+    kernels take their NHWC route on a channels-last x).
+    ``return_affine=True`` returns instead
     the per-(sample, channel) float32 affine (a, b) with GN(x) * (1 +
     scale) + shift == x a + b, for the fused norm-act-conv (Conv3x3
     ``affine=``), which applies silu(x a + b) itself (models/nn.py:108-131)."""
@@ -132,7 +173,7 @@ class GroupNorm32(nn.GroupNorm):
         beta = self.bias.reshape(1, g, -1, 1)
         xg = xg.reshape(b, g, c // g, -1)
         h = (xg - mu[..., None]) * (rstd[..., None] * gamma) + beta
-        h = h.reshape(x.shape).to(x.dtype)
+        h = h.reshape(x.shape).to(x.dtype, memory_format=memory_format(x))
         bshape = (b, c) + (1,) * (x.dim() - 2)
         if scale is not None:
             h = h * (1 + scale.reshape(bshape))

@@ -1,4 +1,4 @@
-"""ADM UNet and noisy classifier (NCHW), with layer masking.
+"""ADM UNet and noisy classifier, with layer masking.
 
 Port of autodiffusion_tpu/models/unet.py. The module tree and parameter
 names are guided-diffusion's own (guided_diffusion/unet.py: ``time_embed``,
@@ -27,6 +27,20 @@ kernels (each wrapper takes its plain twin on CPU tensors):
 ``ADT_IM2COL_CONV=1`` every Conv3x3 not fused (ops/conv_im2col.py),
 ``ADT_FUSED_CONV=all`` each ResBlock norm that feeds its conv directly
 into the fused norm-act-conv.
+
+Layout: inputs and outputs are [B, C, H, W] NCHW tensors ([B, classes]
+for the classifier), but ``UNetModel`` (and ``SuperResModel``) and
+``EncoderUNetModel`` run their whole body channels-last, on every device:
+the entry copies x into the compute dtype and channels-last at once
+(``nn.to_channels_last``; the classifier's input gradient comes back in
+x's layout), every op of the body keeps that layout (convs with their
+weights cast into it, GroupNorm on the fused kernels' NHWC route, the
+residual and FiLM adds, the skip concatenations, nearest upsampling and
+average pooling), and the UNet's output is made NCHW-contiguous at exit.
+cuDNN's Hopper convolutions are NHWC, so this spares a layout transpose
+of the input and of the output of every convolution. AttentionBlock reads
+its tokens as a view of the channels-last activation and projects them
+with token-major products.
 """
 
 from __future__ import annotations
@@ -40,10 +54,18 @@ from torch import nn
 from ..ops import resolve_use_fused_conv
 from ..ops.flash_attention import routed_attention
 from .nn import (Conv3x3, Downsample, GroupNorm32, Upsample, conv1x1,
-                 conv2d, linear, timestep_embedding, zero_module)
+                 conv2d, linear, timestep_embedding, to_channels_last,
+                 zero_module)
 
 __all__ = ["ResBlock", "AttentionBlock", "AttentionPool2d", "UNetModel",
            "SuperResModel", "EncoderUNetModel", "unet_layer_count"]
+
+
+def _token_linear(mod: nn.Conv1d, tokens: torch.Tensor) -> torch.Tensor:
+    """A kernel-size-1 Conv1d on token-major [B, T, C_in] tokens, in their
+    dtype: [B, T, C_out], its weight viewed [C_out, C_in]."""
+    return F.linear(tokens, mod.weight[:, :, 0].to(tokens.dtype),
+                    mod.bias.to(tokens.dtype))
 
 
 def _apply_keep(h: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
@@ -155,7 +177,15 @@ class AttentionBlock(nn.Module):
     """Spatial self-attention with residual (guided_diffusion/unet.py:
     259-393). ``use_new_attention_order`` selects QKVAttention ([q|k|v]
     blocks, heads inside each) or QKVAttentionLegacy (heads outermost,
-    [q|k|v] inside each head)."""
+    [q|k|v] inside each head).
+
+    x is [B, C, *spatial] in either layout. The norm runs on x itself (the
+    fused kernels' NHWC route where x is channels-last), the tokens are
+    [B, T, C] (a view of a channels-last x), ``qkv`` and ``proj_out`` are
+    token-major products with the Conv1d weights viewed [out, in], and
+    the output is written back as [B, C, *spatial] (a channels-last view).
+    ``routed_attention`` gets the same [B * heads, T, D] q, k, v in either
+    head order."""
 
     def __init__(self, channels: int, num_heads: int = 1,
                  num_head_channels: int = -1,
@@ -175,20 +205,21 @@ class AttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, c = x.shape[:2]
-        xf = x.reshape(b, c, -1)
-        t = xf.shape[-1]
+        b, c, *spatial = x.shape
         heads, hd = self.num_heads, c // self.num_heads
-        qkv = conv1x1(self.qkv, self.norm(xf))                   # [b, 3c, t]
+        tokens = self.norm(x).movedim(1, -1).reshape(b, -1, c)      # [b, t, c]
+        t = tokens.shape[1]
+        qkv = _token_linear(self.qkv, tokens)                     # [b, t, 3c]
         if self.new_order:
-            q, k, v = (z.reshape(b * heads, hd, t) for z in qkv.chunk(3, 1))
+            qkv = qkv.reshape(b, t, 3, heads, hd)
         else:
-            q, k, v = qkv.reshape(b * heads, 3 * hd, t).split(hd, dim=1)
-        q, k, v = (z.transpose(1, 2) for z in (q, k, v))          # [bh, t, hd]
+            qkv = qkv.reshape(b, t, heads, 3, hd).transpose(2, 3)
+        q, k, v = (qkv[:, :, i].transpose(1, 2).reshape(b * heads, t, hd)
+                   for i in range(3))                              # [bh, t, hd]
         a = routed_attention(q, k, v, heads)                       # [bh, t, hd]
-        a = a.transpose(1, 2).reshape(b, c, t)
-        a = conv1x1(self.proj_out, a)
-        return x + _apply_keep(a, keep).reshape(x.shape)
+        a = a.reshape(b, heads, t, hd).transpose(1, 2).reshape(b, t, c)
+        a = _token_linear(self.proj_out, a).reshape(b, *spatial, c)
+        return x + _apply_keep(a.movedim(-1, 1), keep)
 
 
 class AttentionPool2d(nn.Module):
@@ -352,7 +383,8 @@ class UNetModel(_Trunk):
 
     forward(x [B, C, H, W], timesteps [B], y [B] or None, keep_mask [L] or
     [B, L] or None, structural_skip a set of layer ids or None) ->
-    [B, out_channels, H, W] float32. Computes in
+    [B, out_channels, H, W] float32, NCHW-contiguous (the body runs
+    channels-last: the module's docstring). Computes in
     ``dtype`` (bfloat16 under ``use_bf16``); the final conv runs in float32
     as in the JAX model."""
 
@@ -426,7 +458,7 @@ class UNetModel(_Trunk):
         if y is not None:
             emb = emb + self.label_emb.weight.to(self.dtype)[y]
         skip = frozenset(structural_skip or ())
-        h = x.to(self.dtype)
+        h = to_channels_last(x, self.dtype)
         hs = []
         for blk in self.input_blocks:
             h = blk.run(h, emb, keep_mask, skip)
@@ -436,7 +468,7 @@ class UNetModel(_Trunk):
             h = blk.run(torch.cat([h, hs.pop()], dim=1), emb, keep_mask,
                         skip)
         h = self.out[0](h, act="silu")
-        return conv2d(self.out[2], h.float())
+        return conv2d(self.out[2], h.float()).contiguous()
 
 
 class SuperResModel(UNetModel):
@@ -515,7 +547,7 @@ class EncoderUNetModel(_Trunk):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor
                 ) -> torch.Tensor:
         emb = self._embed(timesteps, self.dtype)
-        h = x.to(self.dtype)
+        h = to_channels_last(x, self.dtype)
         spatial = self.pool.startswith("spatial")
         pools = []
         for blk in self.input_blocks:

@@ -24,7 +24,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["build_all", "library", "launch", "last_build_seconds",
-           "ptxas_report", "ptxas_kernels", "LAUNCHES",
+           "ptxas_report", "ptxas_kernels", "LAUNCHES", "NHWC_LAUNCHES",
            "reset_launch_counts"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -48,10 +48,10 @@ SOURCES = {
     "flash_bwd_dkv": ("adt_flash_bwd_dkv",
                       [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]),
     "group_norm_fwd": ("adt_group_norm_fwd",
-                       [_c_void_p] * 8 + [_c_int] * 6 + [_c_float,
+                       [_c_void_p] * 8 + [_c_int] * 7 + [_c_float,
                                                          _c_void_p]),
     "group_norm_bwd": ("adt_group_norm_bwd",
-                       [_c_void_p] * 15 + [_c_int] * 6 + [_c_void_p]),
+                       [_c_void_p] * 15 + [_c_int] * 7 + [_c_void_p]),
     "conv3x3": ("adt_conv3x3", [_c_void_p] * 5 + [_c_int] * 13 + [_c_void_p]),
     "conv3x3_fused": ("adt_conv3x3_fused",
                       [_c_void_p] * 8 + [_c_int] * 13 + [_c_void_p]),
@@ -60,6 +60,10 @@ SOURCES = {
 # kernel (source stem) -> launches since the last reset: a wrapper adds one
 # where it launches its kernel, and nowhere else
 LAUNCHES: Dict[str, int] = {stem: 0 for stem in SOURCES}
+# GroupNorm stem -> its calls since the last reset that took the NHWC route
+# (ops/fused_norm.py; on CUDA tensors a share of LAUNCHES, on CPU tensors
+# the twin's calls on that route): a counter, not a stem of LAUNCHES
+NHWC_LAUNCHES: Dict[str, int] = {"group_norm_fwd": 0, "group_norm_bwd": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -152,12 +156,14 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 
 
 def library(stem: str) -> ctypes.CDLL:
-    return build_all()[stem]
+    lib = _libs.get(stem)
+    return lib if lib is not None else build_all()[stem]
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, NHWC_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch(stem: str, *args) -> None:
@@ -165,7 +171,10 @@ def launch(stem: str, *args) -> None:
     stream, raise if it reports a CUDA error (or -1, a configuration it
     has no kernel for), and count the launch."""
     fn = getattr(library(stem), SOURCES[stem][0])
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # tens of microseconds a launch on a loaded host
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device()))
     if rc != 0:
         raise RuntimeError(f"{stem} kernel launch failed with CUDA error "
                            f"{rc}" + (" (no kernel for this configuration)"

@@ -42,7 +42,12 @@ Phases, each of which raises on failure:
    each timed beside its twin, its bound and ``F.conv2d`` /
    ``F.group_norm`` (forward, or its autograd backward), the convs with
    their plan and share of the bound, and summed per guided step, SD UNet
-   call and decode;
+   call and decode; the GroupNorms of the models that run channels-last
+   (the ADM-64, SR and LSUN-256 UNets, the classifier) also on the same
+   values as channels-last [B, C, H, W], where each launch must take the
+   NHWC route (``NHWC_LAUNCHES``) and give channels-last outputs, and at
+   ``GN_MAIN_SITES`` (PERF.md's kernel table) at the main paths' device
+   batches (ADM-64 400, LSUN-256 100, bf16) on both routes;
 4. parity: two guided DDIM steps and two guided ancestral steps (the same
    x_T and per-step noise) of the full-width ADM-64 UNet and classifier
    (float32, seeded random weights) on the GPU, once on the default path
@@ -363,6 +368,15 @@ AB_CONFIGS = [
     ("all", SWITCHES_ON),
 ]
 GROUPS = 32
+# phase_new_kernels' GroupNorm layouts where the model runs channels-last
+NCHW_NHWC = ("nchw", "nhwc")
+# the GroupNorm sites of PERF.md's kernel table, (C, HW, act, FiLM), at the
+# main paths' device batches: ADM-64's search (4 candidates x 100 images)
+# and LSUN-256's (100)
+GN_MAIN_SITES = {
+    "unet": (400, ((192, 4096, "silu", False), (768, 64, "silu", True))),
+    "classifier": (400, ((128, 4096, "silu", True),)),
+    "lsun": (100, ((256, 65536, "silu", False),))}
 # float32 limit of the GroupNorm backward's per-channel sums (dscale,
 # dshift, dgamma, dbeta: float32 sums over up to B x HW = 131072 terms, in
 # another order than the twin's), the JAX package's gradient tolerance for
@@ -853,6 +867,53 @@ def adm64_sites():
     return sites
 
 
+def gn_main_sites():
+    """[(batch, phase_new_kernels sites)] of ``GN_MAIN_SITES``, each site's
+    count its GroupNorm32 calls in one call of its model on the default
+    path (record_sites on the meta device); the classifier's sites also
+    run the backward, once a guided step each."""
+    import torch
+    from autodiffusion_tpu_torch.models import (ClassifierConfig,
+                                                ModelConfig,
+                                                create_classifier,
+                                                create_model)
+
+    with torch.device("meta"):
+        unet = create_model(ModelConfig.adm64(), device="meta")
+        cls = create_classifier(ClassifierConfig.adm64(), device="meta")
+    x = torch.empty(1, 3, 64, 64, device="meta")
+    t = torch.zeros(1, device="meta")
+    read = {"unet": record_sites(lambda: unet(
+                x, t, torch.zeros(1, dtype=torch.long, device="meta")),
+                FUSED_NORM_ALONE),
+            "classifier": record_sites(lambda: cls(x, t), FUSED_NORM_ALONE),
+            "lsun": lsun_sites()}
+    out = []
+    for model, (batch, keys) in GN_MAIN_SITES.items():
+        counts = {k[:4]: n for k, n in read[model]["group_norm_fwd"].items()}
+        missing = [k for k in keys if k not in counts]
+        if missing:
+            raise AssertionError(f"{model} has no GroupNorm at {missing}")
+        fwd = {k: counts[k] for k in keys}
+        out.append((batch, {"group_norm_fwd": fwd,
+                            "group_norm_bwd": dict(fwd) if model ==
+                            "classifier" else {},
+                            "conv3x3": {}, "conv3x3_fused": {}}))
+    return out
+
+
+def phase_gn_main_sites():
+    """The GroupNorm kernels against their twins at ``GN_MAIN_SITES``, at
+    the main paths' device batches, in bf16 (the searches' dtype), on both
+    routes, with the sabotaged runs and the NHWC route's launch count:
+    the rows of PERF.md's kernel table. Returns the rows."""
+    rows = []
+    for batch, sites in gn_main_sites():
+        rows += phase_new_kernels(sites, batch, reps=3, layouts=NCHW_NHWC,
+                                  dtypes=("bfloat16",))
+    return rows
+
+
 def new_kernel_bound(kernel, key, dtype: str, batch: int = BATCH,
                      form: str = "all"):
     """(ms, "bytes" | "operations"): the least time for the kernel's work
@@ -973,21 +1034,26 @@ def _row(rows, failures, name, site, count, dname, errs, sabotage, timing,
                          f"limit ({sabotage:.3g})"))
 
 
-def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
+def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10,
+                      layouts=("nchw",), dtypes=("bfloat16", "float32")):
     """The GroupNorm and conv kernels against their twins at every site of
     ``sites`` (ADM-64's, or a Stable Diffusion tower's) at ``batch``, in
-    both dtypes, with a sabotaged run of each that must break the limit,
+    ``dtypes``, with a sabotaged run of each that must break the limit,
     timed beside the twin, the bound and the nearest library call (the
     median of ``reps`` runs, 2 ``reps`` for the GroupNorm forward). A
     GroupNorm site key may carry its eps as a fifth entry (1e-5 if not).
-    The conv twins' float32 convolutions (and F.conv2d) run with TF32
-    off."""
+    The GroupNorms run in each of ``layouts``: "nchw" on a [B, C, HW]
+    tensor, "nhwc" on the same values as a channels-last [B, C, H, W]
+    (square sites), which must take the NHWC route (``NHWC_LAUNCHES``) and
+    give channels-last outputs; its rows carry ``layout`` "nhwc". The conv
+    twins' float32 convolutions (and F.conv2d) run with TF32 off."""
     import torch
     import torch.nn.functional as F
     from autodiffusion_tpu_torch.ops.conv_im2col import (
         BM, CHUNK, conv3x3_fused_kernel, conv3x3_im2col, conv3x3_reference,
         conv_plan, fused_conv_reference)
-    from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from autodiffusion_tpu_torch.ops import (LAUNCHES, NHWC_LAUNCHES,
+                                             reset_launch_counts)
     from autodiffusion_tpu_torch.ops.fused_norm import (
         FusedGroupNormFunction, group_norm_bwd, group_norm_bwd_plain,
         group_norm_fwd, group_norm_fwd_plain)
@@ -995,9 +1061,21 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
+    cl = torch.channels_last
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
+
+    def route(kernel, want_nhwc, what, *check):
+        """Record a failure unless the last reset counted one call of
+        ``kernel`` on the NHWC route where ``want_nhwc`` (else none), and
+        each of ``check`` is channels-last where ``want_nhwc``."""
+        if NHWC_LAUNCHES[kernel] != int(want_nhwc):
+            failures.append((kernel, what, f"{NHWC_LAUNCHES[kernel]} NHWC "
+                             f"launches, want {int(want_nhwc)}"))
+        if want_nhwc and not all(t.is_contiguous(memory_format=cl)
+                                 for t in check):
+            failures.append((kernel, what, "an output is not channels-last"))
 
     rows, failures = [], []
     try:
@@ -1005,134 +1083,166 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
             c, hw, act, film = key[:4]
             eps = key[4] if len(key) > 4 else 1e-5
             silu = act == "silu"
-            for dt in (torch.bfloat16, torch.float32):
-                dname = str(dt).split(".")[1]
+            side = math.isqrt(hw)
+            for dname in dtypes:
+                dt = getattr(torch, dname)
                 # per-channel scales and offsets, and per-group scales, so
                 # that the groups' statistics differ and a wrong group's
                 # show (with per-channel terms alone, 24 channels a group at
                 # C = 768 average the groups' spreads to one)
                 g_scale = torch.exp(0.5 * randn(GROUPS)).repeat_interleave(
                     c // GROUPS)[:, None]
-                x = ((randn(batch, c, hw) * torch.exp(0.5 * randn(c, 1))
-                      + randn(c, 1)) * g_scale).to(dt)
+                x3 = ((randn(batch, c, hw) * torch.exp(0.5 * randn(c, 1))
+                       + randn(c, 1)) * g_scale).to(dt)
                 gamma, beta = 1 + 0.2 * randn(c), 0.1 * randn(c)
                 sc = sh = None
                 if film:
                     sc, sh = 0.3 * randn(batch, c), 0.3 * randn(batch, c)
-                args = (x, gamma, beta, sc, sh, GROUPS, eps, silu)
-                y, mu, rstd = group_norm_fwd(*args)
-                y_ref, mu_ref, rstd_ref = group_norm_fwd_plain(*args)
-                bad = _gn_wrong_group(x, gamma, beta, mu, rstd, silu, eps)
-                torch.cuda.synchronize()
-                errs = [compare(y, y_ref, dname),
-                        compare(mu, mu_ref, "float32"),
-                        compare(rstd, rstd_ref, "float32")]
-                sabotage = compare(bad, y_ref, dname)[1]
-                gl, bl = gamma.to(dt), beta.to(dt)
-                timing = (cuda_ms(lambda: group_norm_fwd(*args),
-                                  reps=2 * reps),
-                          cuda_ms(lambda: group_norm_fwd_plain(*args),
-                                  reps=2 * reps),
-                          cuda_ms(lambda: F.group_norm(x, GROUPS, gl, bl,
-                                                       eps), reps=2 * reps))
-                _row(rows, failures, "group_norm_fwd",
-                     f"C={c} HW={hw} {act}" + (f" eps={eps:g}" if eps != 1e-5
-                                               else ""), count, dname, errs,
-                     sabotage, timing,
-                     new_kernel_bound("group_norm_fwd", key, dname, batch),
-                     LIMIT_TEXT[dname], batch)
-                if key not in sites["group_norm_bwd"]:
-                    continue
-                # the backward in two forms: dx alone, as guidance calls it
-                # (the classifier frozen), and every gradient; each alone
-                # on the twin's mu, rstd and chained through the
-                # autograd.Function (the dx form with gamma, beta and the
-                # FiLM terms frozen: one launch, no batch sum)
-                dy = randn(batch, c, hw).to(dt)
-                bargs = (x, dy, gamma, beta, sc, sh, mu_ref, rstd_ref,
-                         GROUPS, silu)
-                mu_bad, rstd_bad = mu_ref.clone(), rstd_ref.clone()
-                mu_bad[:, 0], rstd_bad[:, 0] = mu_ref[:, 1], rstd_ref[:, 1]
-                for form in ("dx", "all"):
-                    flags = dict(grad_affine=form == "all",
-                                 grad_film=form == "all")
-                    got = group_norm_bwd(*bargs, **flags)
-                    want = group_norm_bwd_plain(*bargs, **flags)
-                    leaves = [x.detach().clone().requires_grad_(True)] + [
-                        t.detach().clone().requires_grad_(form == "all")
-                        for t in (gamma, beta)]
+                dy3 = (randn(batch, c, hw).to(dt)
+                       if key in sites["group_norm_bwd"] else None)
+                x = dy = None
+                for layout in layouts:
+                    nhwc = layout == "nhwc"
+                    if nhwc and (hw == 1 or side * side != hw):
+                        continue
+                    if nhwc:
+                        x = x3.reshape(batch, c, side, side).contiguous(
+                            memory_format=cl)
+                        dy = None if dy3 is None else dy3.reshape(
+                            batch, c, side, side).contiguous(memory_format=cl)
+                    else:
+                        x, dy = x3, dy3
+                    tag = " nhwc" if nhwc else ""
+                    site = (f"C={c} HW={hw} {act}"
+                            + (f" eps={eps:g}" if eps != 1e-5 else "") + tag)
+                    args = (x, gamma, beta, sc, sh, GROUPS, eps, silu)
                     reset_launch_counts()
-                    out = FusedGroupNormFunction.apply(*leaves, sc, sh,
-                                                       GROUPS, 1e-5, silu)
-                    chain = torch.autograd.grad(
-                        out, leaves if form == "all" else leaves[:1], dy)
-                    if LAUNCHES["group_norm_bwd"] != 1:
-                        failures.append(("group_norm_bwd", key, dname, form,
-                                         "autograd launched the backward "
-                                         f"{LAUNCHES['group_norm_bwd']} "
-                                         "times"))
-                    bad_dx = group_norm_bwd(x, dy, gamma, beta, sc, sh,
-                                            mu_bad, rstd_bad, GROUPS, silu,
-                                            **flags)[0]
+                    y, mu, rstd = group_norm_fwd(*args)
+                    route("group_norm_fwd", nhwc, site, y)
+                    y_ref, mu_ref, rstd_ref = group_norm_fwd_plain(*args)
+                    bad = _gn_wrong_group(x, gamma, beta, mu, rstd, silu,
+                                          eps)
                     torch.cuda.synchronize()
-                    errs = [compare(got[0], want[0], dname),
-                            compare(chain[0], want[0], dname)]
-                    if form == "all":
-                        errs += [compare(a, b, "float32", SUM_TOL)
-                                 for a, b in zip(got[1:] + chain[1:],
-                                                 want[1:] + want[3:])]
-                        exact = _gn_bwd_sums64(*bargs)
-                        log("    sums against float64 (dscale, dshift, "
-                            "dgamma, dbeta), max |d| / (1 + |exact|): "
-                            "kernel " + " ".join(
-                                f"{_rel64(a, e):.2e}"
-                                for a, e in zip(got[1:], exact))
-                            + ", twin " + " ".join(
-                                f"{_rel64(a, e):.2e}"
-                                for a, e in zip(want[1:], exact)))
-                    elif any(a is not None for a in got[1:]):
-                        failures.append(("group_norm_bwd", key, dname, form,
-                                         "gradients nobody asked for"))
-                    sabotage = compare(bad_dx, want[0], dname)[1]
-                    xg = x.detach().clone().requires_grad_(True)
-                    gg, bg = (t.detach().clone().requires_grad_(form == "all")
-                              for t in (gl, bl))
-                    yl = F.group_norm(xg, GROUPS, gg, bg, 1e-5)
-                    lib_in = (xg, gg, bg) if form == "all" else (xg,)
+                    errs = [compare(y, y_ref, dname),
+                            compare(mu, mu_ref, "float32"),
+                            compare(rstd, rstd_ref, "float32")]
+                    sabotage = compare(bad, y_ref, dname)[1]
+                    del y, y_ref, bad
+                    gl, bl = gamma.to(dt), beta.to(dt)
+                    timing = (cuda_ms(lambda: group_norm_fwd(*args),
+                                      reps=2 * reps),
+                              cuda_ms(lambda: group_norm_fwd_plain(*args),
+                                      reps=2 * reps),
+                              cuda_ms(lambda: F.group_norm(x, GROUPS, gl, bl,
+                                                           eps),
+                                      reps=2 * reps))
+                    _row(rows, failures, "group_norm_fwd", site, count,
+                         dname, errs, sabotage, timing,
+                         new_kernel_bound("group_norm_fwd", key, dname,
+                                          batch),
+                         LIMIT_TEXT[dname], batch)
+                    rows[-1]["layout"] = layout
+                    if dy is None:
+                        continue
+                    # the backward in two forms: dx alone, as guidance calls
+                    # it (the classifier frozen), and every gradient; each
+                    # alone on the twin's mu, rstd and chained through the
+                    # autograd.Function (the dx form with gamma, beta and
+                    # the FiLM terms frozen: one launch, no batch sum)
+                    bargs = (x, dy, gamma, beta, sc, sh, mu_ref, rstd_ref,
+                             GROUPS, silu)
+                    mu_bad, rstd_bad = mu_ref.clone(), rstd_ref.clone()
+                    mu_bad[:, 0], rstd_bad[:, 0] = mu_ref[:, 1], rstd_ref[:, 1]
+                    for form in ("dx", "all"):
+                        flags = dict(grad_affine=form == "all",
+                                     grad_film=form == "all")
+                        reset_launch_counts()
+                        got = group_norm_bwd(*bargs, **flags)
+                        route("group_norm_bwd", nhwc, f"{site} {form}",
+                              got[0])
+                        want = group_norm_bwd_plain(*bargs, **flags)
+                        leaves = [x.detach().clone().requires_grad_(True)] + [
+                            t.detach().clone().requires_grad_(form == "all")
+                            for t in (gamma, beta)]
+                        reset_launch_counts()
+                        out = FusedGroupNormFunction.apply(*leaves, sc, sh,
+                                                           GROUPS, 1e-5, silu)
+                        chain = torch.autograd.grad(
+                            out, leaves if form == "all" else leaves[:1], dy)
+                        if LAUNCHES["group_norm_bwd"] != 1:
+                            failures.append(
+                                ("group_norm_bwd", key, dname, form,
+                                 "autograd launched the backward "
+                                 f"{LAUNCHES['group_norm_bwd']} times"))
+                        route("group_norm_bwd", nhwc,
+                              f"{site} {form} autograd", chain[0])
+                        bad_dx = group_norm_bwd(x, dy, gamma, beta, sc, sh,
+                                                mu_bad, rstd_bad, GROUPS,
+                                                silu, **flags)[0]
+                        torch.cuda.synchronize()
+                        errs = [compare(got[0], want[0], dname),
+                                compare(chain[0], want[0], dname)]
+                        if form == "all":
+                            errs += [compare(a, b, "float32", SUM_TOL)
+                                     for a, b in zip(got[1:] + chain[1:],
+                                                     want[1:] + want[3:])]
+                            exact = _gn_bwd_sums64(*bargs)
+                            log("    sums against float64 (dscale, dshift, "
+                                "dgamma, dbeta), max |d| / (1 + |exact|): "
+                                "kernel " + " ".join(
+                                    f"{_rel64(a, e):.2e}"
+                                    for a, e in zip(got[1:], exact))
+                                + ", twin " + " ".join(
+                                    f"{_rel64(a, e):.2e}"
+                                    for a, e in zip(want[1:], exact)))
+                        elif any(a is not None for a in got[1:]):
+                            failures.append(("group_norm_bwd", key, dname,
+                                             form, "gradients nobody asked "
+                                             "for"))
+                        sabotage = compare(bad_dx, want[0], dname)[1]
+                        xg = x.detach().clone().requires_grad_(True)
+                        gg, bg = (t.detach().clone().requires_grad_(
+                            form == "all") for t in (gl, bl))
+                        yl = F.group_norm(xg, GROUPS, gg, bg, 1e-5)
+                        lib_in = (xg, gg, bg) if form == "all" else (xg,)
 
-                    def kern(flags=flags):
-                        return group_norm_bwd(*bargs, **flags)
+                        def kern(flags=flags, bargs=bargs):
+                            return group_norm_bwd(*bargs, **flags)
 
-                    def lib(yl=yl, lib_in=lib_in):
-                        return torch.autograd.grad(yl, lib_in, dy,
-                                                   retain_graph=True)
-                    timing = (cuda_ms(kern),
-                              cuda_ms(lambda: group_norm_bwd_plain(
-                                  *bargs, **flags)),
-                              cuda_ms(lib))
-                    _row(rows, failures, "group_norm_bwd",
-                         f"C={c} HW={hw} {act} {form}",
-                         sites["group_norm_bwd"][key], dname, errs, sabotage,
-                         timing, new_kernel_bound("group_norm_bwd", key,
-                                                  dname, batch, form),
-                         f"{LIMIT_TEXT[dname]}; sums "
-                         f"{LIMIT_TEXT['float32 sums']}", batch)
-                    rows[-1]["form"] = form
-                    if dt == torch.bfloat16:
-                        rows[-1].update(device_ms=device_ms(
-                            kern, "group_norm_bwd"),
-                            library_device_ms=device_ms(lib))
-                        log(f"  device: kernel {rows[-1]['device_ms']:.4f} "
-                            f"ms, F.group_norm backward "
-                            f"{rows[-1]['library_device_ms']:.4f} ms")
-                    del out, chain, leaves, yl, xg, gg, bg
+                        def lib(yl=yl, lib_in=lib_in, dy=dy):
+                            return torch.autograd.grad(yl, lib_in, dy,
+                                                       retain_graph=True)
+                        timing = (cuda_ms(kern),
+                                  cuda_ms(lambda: group_norm_bwd_plain(
+                                      *bargs, **flags)),
+                                  cuda_ms(lib))
+                        _row(rows, failures, "group_norm_bwd",
+                             f"{site} {form}",
+                             sites["group_norm_bwd"][key], dname, errs,
+                             sabotage, timing,
+                             new_kernel_bound("group_norm_bwd", key, dname,
+                                              batch, form),
+                             f"{LIMIT_TEXT[dname]}; sums "
+                             f"{LIMIT_TEXT['float32 sums']}", batch)
+                        rows[-1].update(form=form, layout=layout)
+                        if dt == torch.bfloat16:
+                            rows[-1].update(device_ms=device_ms(
+                                kern, "group_norm_bwd"),
+                                library_device_ms=device_ms(lib))
+                            log(f"  device: kernel "
+                                f"{rows[-1]['device_ms']:.4f} ms, "
+                                f"F.group_norm backward "
+                                f"{rows[-1]['library_device_ms']:.4f} ms")
+                        del out, chain, leaves, yl, xg, gg, bg
+                del x3, dy3, x, dy
+                torch.cuda.empty_cache()
 
         for kernel in ("conv3x3", "conv3x3_fused"):
             for key, count in sites[kernel].items():
                 c_in, c_out, h, w = key[:4]
                 fused = kernel == "conv3x3_fused"
-                for dt in (torch.bfloat16, torch.float32):
-                    dname = str(dt).split(".")[1]
+                for dname in dtypes:
+                    dt = getattr(torch, dname)
                     x = randn(batch, c_in, h, w).to(dt)
                     wt = (randn(c_out, c_in, 3, 3) / (9 * c_in) ** 0.5).to(dt)
                     bias = 0.1 * randn(c_out)
@@ -1219,15 +1329,18 @@ def phase_new_kernels(sites, batch: int = BATCH, reps: int = 10):
     return rows
 
 
-def new_kernels_per_step(rows, unit="guided DDIM step (batch 32"):
+def new_kernels_per_step(rows, unit="guided DDIM step (batch 32",
+                         layout="nchw"):
     """{kernel: (kernel ms, library ms, bound ms)} of one guided DDIM step
     at batch 32 (or one SD UNet call or decode: ``unit``) in bf16 with the
-    switches on, summed over the sites."""
+    switches on, summed over the sites, of the GroupNorm rows on the
+    ``layout`` route."""
     out = {}
     for name in NEW_KERNELS:
         # the GroupNorm backward as the guided step calls it: dx alone
         sel = [r for r in rows if r["name"] == name
-               and r["dtype"] == "bfloat16" and r.get("form") != "all"]
+               and r["dtype"] == "bfloat16" and r.get("form") != "all"
+               and r.get("layout", "nchw") == layout]
         if not sel:
             continue
         out[name] = tuple(sum(r["count"] * r[k] for r in sel)
@@ -1838,8 +1951,8 @@ def program_sites():
             torch.empty(1, 3, 64, 64, requires_grad=True), t()),
             grad=True).items():
         guided[key] = guided.get(key, 0) + n
-    low = torch.empty(1, 3, SR_SMALL, SR_SMALL)
-    big = torch.empty(1, 3, SR_LARGE, SR_LARGE)
+    low = torch.empty(1, 3, SR_SMALL, SR_SMALL, device="meta")
+    big = torch.empty(1, 3, SR_LARGE, SR_LARGE, device="meta")
     return {
         "guided": guided,
         "sd_unet": attention_sites(lambda: sd_unet(
@@ -4404,6 +4517,40 @@ def phase_inpaint(paths, sites):
     return r
 
 
+def _vq_held_latent(vq, z, z_cpu, codes_cpu, codes_gpu, name: str):
+    """The latent the GPU's VQ decode is held on: its own z where the
+    quantizer picked the CPU's codes for it, else the CPU's latent z_cpu.
+    The quantizer is a nearest-code lookup, so two latents within the
+    parity limit of each other decode a different code where they
+    straddle a tie. Each position whose code differs must be such a tie:
+    the CPU's squared-distance margin of its code c over the GPU's g,
+    |z - e_g|^2 - |z - e_c|^2 at z_cpu, falls by at most
+    2 |z_gpu - z_cpu| |e_c - e_g| from z_cpu to z_gpu, plus the rounding
+    of the quantizer's float32 distances (|z|^2 + |e|^2 - 2 z e, 16 units
+    of (|z| + |e_c| + |e_g|)^2); a larger margin raises."""
+    flips = (codes_cpu != codes_gpu).reshape(-1).nonzero().flatten()
+    if not len(flips):
+        return z
+    emb = vq.quantize.embedding.weight.detach().double().cpu()
+    lat = [t.double().cpu().permute(0, 2, 3, 1).reshape(-1, t.shape[1])
+           for t in (z_cpu, z)]
+    cc, cg = codes_cpu.reshape(-1), codes_gpu.reshape(-1)
+    for p in flips.tolist():
+        zc, zg, e_c, e_g = lat[0][p], lat[1][p], emb[cc[p]], emb[cg[p]]
+        margin = float(((zc - e_g) ** 2).sum() - ((zc - e_c) ** 2).sum())
+        reach = float(2 * (zg - zc).norm() * (e_c - e_g).norm()
+                      + 16 * 2 ** -24 * (zc.norm() + e_c.norm()
+                                         + e_g.norm()) ** 2)
+        log(f"LDM parity: {name} code {int(cc[p])} -> {int(cg[p])} at "
+            f"latent position {p}: margin {margin:.3e}, the latents' "
+            f"reach {reach:.3e}")
+        if margin > reach:
+            raise AssertionError(f"LDM {name}: the GPU's latent takes code "
+                                 f"{int(cg[p])} for {int(cc[p])} at {p}, "
+                                 f"beyond a tie ({margin} > {reach})")
+    return z_cpu.to(z.device)
+
+
 def phase_ldm_parity(ldm):
     """The LDM commands' paths at full width in float32, seeded random
     weights, GPU (the kernels, default path) against CPU (their twins), at
@@ -4412,8 +4559,9 @@ def phase_ldm_parity(ldm):
     and the VQ-f4 decode, unconditional and on cin's class token; inpaint's
     condition (the masked image's VQ encode beside the half-pixel-centre
     mask resize), two DDIM steps of the concat-conditioned UNet and the
-    decode. Each output within 1e-3 x its scale. Returns {output: max abs
-    error}."""
+    decode. Each output within 1e-3 x its scale; where the two latents
+    straddle a tie of the quantizer's nearest codes, the GPU decodes the
+    CPU's latent (``_vq_held_latent``). Returns {output: max abs error}."""
     import numpy as np
     import torch
     from autodiffusion_tpu_torch.cli.main import (inpaint_composite,
@@ -4434,7 +4582,7 @@ def phase_ldm_parity(ldm):
     img01 = rng.rand(128, 128, 3).astype(np.float32)
     mask01 = np.zeros((128, 128), np.float32)
     mask01[21:75, 30:101] = 1.0
-    outs = {}
+    outs, codes = {}, {"cpu": {}, "cuda": {}}
     try:
         for dev in ("cpu", "cuda"):
             t0 = time.time()
@@ -4470,6 +4618,11 @@ def phase_ldm_parity(ldm):
                             final_step_noise=True, noise=x_t.to(dev),
                             step_noise=step_noise.to(dev), **kw)
                     res[f"{name}_ddim2"] = z.cpu()
+                    codes[dev][name] = vq.quantize.codes(z).cpu()
+                    if dev == "cuda":
+                        z = _vq_held_latent(
+                            vq, z, outs["cpu"][f"{name}_ddim2"],
+                            codes["cpu"][name], codes[dev][name], name)
                     res[f"{name}_decode"] = vq.decode(z).cpu()
                     del unet
                 pred = res["inpaint_decode"][0].numpy()
@@ -4539,7 +4692,8 @@ def phase_sr_kernels(sites_on, sites_default):
     GroupNorm of sr-sample's and the training step's UNets and its
     backward at the training step's, at batch 2; the spatial_v2 head's
     GroupNorm at one position, forward and backward, at train-classifier's
-    batch 16. Returns the rows."""
+    batch 16. The SR UNets' GroupNorms run on both routes (the models run
+    channels-last). Returns the rows."""
     with switches({"ADT_FLASH_GATE": "0"}):
         train_attn = _sites_of_programs()["sr_train"]
     shapes = sorted({(t, h) for (t, s_len, d, h, g) in train_attn
@@ -4553,7 +4707,7 @@ def phase_sr_kernels(sites_on, sites_default):
          "group_norm_bwd": dict(sites_default["train"]["group_norm_fwd"]),
          "conv3x3": sites_on["train"].get("conv3x3", {}),
          "conv3x3_fused": sites_on["train"].get("conv3x3_fused", {})},
-        SR_TRAIN_MICRO, reps=3)
+        SR_TRAIN_MICRO, reps=3, layouts=NCHW_NHWC)
     rows += phase_new_kernels(
         {"group_norm_fwd": {SPATIAL_V2_GN: 1},
          "group_norm_bwd": {SPATIAL_V2_GN: 1}, "conv3x3": {},
@@ -4960,7 +5114,8 @@ def phase_lsun_kernels(sites_every, sites_default):
     forward at the UNet's GroupNorms at 128 x 128 and 256 x 256 (C 256 at
     256 x 256 among them: a run of 8 x 65536 elements, 1 MB in bf16, too
     long for shared memory), the sites no earlier phase has, at the same
-    batch of 32 (the search's; the sample's is 16). Returns the rows."""
+    batch of 32 (the search's; the sample's is 16), on both routes (the
+    UNet runs channels-last). Returns the rows."""
     rows = phase_attention({"lsun": sites_every},
                            (("flash_fwd", "lsun", LSUN_BATCH),), extra=())
     rows += phase_new_kernels(
@@ -4968,7 +5123,7 @@ def phase_lsun_kernels(sites_every, sites_default):
                             sites_default["group_norm_fwd"].items()
                             if k[1] >= 128 * 128},
          "group_norm_bwd": {}, "conv3x3": {}, "conv3x3_fused": {}},
-        LSUN_BATCH, reps=3)
+        LSUN_BATCH, reps=3, layouts=NCHW_NHWC)
     return rows
 
 
@@ -5209,9 +5364,13 @@ def main(argv=None) -> int:
     attn_ms, attn_sdpa_ms, attn_bwd = attention_per_step(rows)
     mark("ADM attention kernels")
     sites = adm64_sites()
-    new_rows = phase_new_kernels(sites)
+    new_rows = phase_new_kernels(sites, layouts=NCHW_NHWC)
     new_ms = new_kernels_per_step(new_rows)
+    new_ms_nhwc = new_kernels_per_step(
+        new_rows, "guided DDIM step, NHWC route (batch 32", "nhwc")
     mark("ADM GroupNorm and conv kernels")
+    gn_main_rows = phase_gn_main_sites()
+    mark("GroupNorm at the main paths' batches")
 
     os.makedirs(WORK, exist_ok=True)
     try:
@@ -5425,6 +5584,8 @@ def main(argv=None) -> int:
                    "new_kernel_sites": {k: {str(s): n for s, n in v.items()}
                                         for k, v in sites.items()},
                    "new_kernels_ms_per_step": new_ms,
+                   "new_kernels_ms_per_step_nhwc": new_ms_nhwc,
+                   "group_norm_main_rows": gn_main_rows,
                    "parity_max_abs_err": parity_err,
                    "parity_switches_on_max_abs_err": parity_on_err,
                    "attention_ms_per_step": attn_ms,

@@ -40,9 +40,9 @@ from autodiffusion_tpu_torch.ops.flash_attention import (
     flash_fwd, flash_fwd_packed, flash_fwd_packed_plain, flash_fwd_plain,
     multihead_attention, reset_launch_counts)
 from autodiffusion_tpu_torch.ops.fused_norm import (
-    FusedGroupNormFunction, group_norm_bwd,
+    NHWC_LAUNCHES, FusedGroupNormFunction, group_norm_bwd,
     group_norm_bwd_plain, group_norm_fwd, group_norm_fwd_plain,
-    group_norm_reference)
+    group_norm_reference, is_nhwc)
 
 GRAD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}
 SUM_TOL = 2e-4
@@ -653,6 +653,145 @@ def test_group_norm_dx_only_autograd_one_launch(cuda_device, dtype):
     want = group_norm_bwd_plain(x, dy, gamma, beta, scale, shift, mu, rstd,
                                 32, True, grad_affine=False, grad_film=False)
     _assert_within_limit(grads[0], want[0], dtype, "dx")
+
+
+# The NHWC GroupNorm kernels (channels-last inputs): C / G of 4 (the ADM
+# classifier's 64 x 64 level: a cluster of slices in the backward), 6 (the
+# ADM UNet's 64 x 64 level: a cluster in the forward), 8 (LSUN-256's 256 x
+# 256 level: the split forward and the streamed backward), 12, 32 (one
+# block a tile), 18 at an odd pixel count, 42 (the ADM UNet's 1344-channel
+# skip concatenation at 8 x 8: 21 vectors a tile)
+NHWC_SHAPES = [((8, 128, 64, 64), 32), ((4, 192, 64, 64), 32),
+               ((2, 256, 256, 256), 32), ((4, 384, 32, 32), 32),
+               ((4, 1024, 8, 8), 32), ((3, 576, 15, 17), 32),
+               ((4, 1344, 8, 8), 32)]
+
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", NHWC_SHAPES)
+@pytest.mark.parametrize("film,silu", [(True, True), (False, False)])
+@pytest.mark.parametrize("grads", ["dx", "all"])
+def test_group_norm_nhwc_kernels_match_twins(cuda_device, dtype, shape,
+                                             groups, film, silu, grads):
+    """The NHWC forward and backward on channels-last inputs: one launch
+    each, counted on the NHWC route, channels-last outputs within the
+    limits of the twins; a second call gives the same bits; a backward
+    with one group's statistics taken from the next breaks the dx
+    limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x, dy, gamma, beta, scale, shift = _group_norm_inputs(
+        gen, cuda_device, dtype, shape, film)
+    xc, dyc = _cl(x), _cl(dy)
+    flags = dict(grad_affine=grads == "all", grad_film=grads == "all")
+    reset_launch_counts()
+    y, mu, rstd = group_norm_fwd(xc, gamma, beta, scale, shift, groups, 1e-5,
+                                 silu)
+    y_ref, mu_ref, rstd_ref = group_norm_fwd_plain(x, gamma, beta, scale,
+                                                   shift, groups, 1e-5, silu)
+    args = (gamma, beta, scale, shift, mu_ref, rstd_ref, groups, silu)
+    got = group_norm_bwd(xc, dyc, *args, **flags)
+    want = group_norm_bwd_plain(x, dy, *args, **flags)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(group_norm_fwd=1, group_norm_bwd=1)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 1, "group_norm_bwd": 1}
+    assert is_nhwc(y) and is_nhwc(got[0])
+    _assert_within_limit(y, y_ref, dtype, "y")
+    _assert_within_limit(mu, mu_ref, torch.float32, "mu")
+    _assert_within_limit(rstd, rstd_ref, torch.float32, "rstd")
+    _assert_within_limit(got[0], want[0], dtype, "dx")
+    for name, a, b_ in zip(("dscale", "dshift", "dgamma", "dbeta"), got[1:],
+                           want[1:]):
+        if grads == "dx":
+            assert a is None and b_ is None, name
+        else:
+            _assert_within_limit(a, b_, torch.float32, name, SUM_TOL)
+    again = group_norm_fwd(xc, gamma, beta, scale, shift, groups, 1e-5, silu)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (y, mu, rstd)))
+    again = group_norm_bwd(xc, dyc, *args, **flags)
+    assert all(a is None or torch.equal(a, b_) for a, b_ in zip(again, got))
+    mu_bad, rstd_bad = mu_ref.clone(), rstd_ref.clone()
+    mu_bad[:, 0], rstd_bad[:, 0] = mu_ref[:, 1], rstd_ref[:, 1]
+    bad = group_norm_bwd(xc, dyc, gamma, beta, scale, shift, mu_bad,
+                         rstd_bad, groups, silu, **flags)[0]
+    assert _limit_ratio(bad, want[0], dtype) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,grads", [((8, 128, 64, 64), "dx"),
+                                         ((2, 256, 256, 256), "all")])
+def test_group_norm_nhwc_profile_one_tagged_kernel_a_launch(cuda_device,
+                                                            shape, grads):
+    """Under torch.profiler, one NHWC forward and backward (resident, or
+    split and streamed) run exactly one kernel the benchmark's
+    PROFILE_TAGS names a counted launch, and their other kernels are the
+    split forward's partial pass and the batch sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness.trace import PROFILE_TAGS
+
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    x, dy, gamma, beta, scale, shift = _group_norm_inputs(
+        gen, cuda_device, torch.bfloat16, shape, True)
+    xc, dyc = _cl(x), _cl(dy)
+    flags = dict(grad_affine=grads == "all", grad_film=grads == "all")
+    group_norm_bwd(xc, dyc, gamma, beta, scale, shift,
+                   *group_norm_fwd(xc, gamma, beta, scale, shift, 32, 1e-5,
+                                   True)[1:], 32, True, **flags)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(1000):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        _, mu, rstd = group_norm_fwd(xc, gamma, beta, scale, shift, 32, 1e-5,
+                                     True)
+        group_norm_bwd(xc, dyc, gamma, beta, scale, shift, mu, rstd, 32,
+                       True, **flags)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "group_norm" in e.name]
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 1, "group_norm_bwd": 1}
+    for stem, tags in PROFILE_TAGS.items():
+        if stem.startswith("group_norm"):
+            got = sum(any(t in n for t in tags) for n in names)
+            assert got == LAUNCHES[stem] == 1, (stem, names)
+    others = [n for n in names
+              if not any(t in n for tags in PROFILE_TAGS.values()
+                         for t in tags)]
+    assert all("group_norm_fwd_partial_kernel" in n
+               or "group_norm_batch_sum_kernel" in n for n in others), others
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_nhwc_dx_only_autograd_one_launch(cuda_device, dtype):
+    """FusedGroupNormFunction on a channels-last x, as the guidance's
+    frozen classifier runs it: one backward launch on the NHWC route,
+    dx channels-last within the twin's limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    x, dy, gamma, beta, scale, shift = _group_norm_inputs(
+        gen, cuda_device, dtype, (8, 128, 32, 32), True)
+    xl = _cl(x).requires_grad_(True)
+    reset_launch_counts()
+    out = FusedGroupNormFunction.apply(xl, gamma, beta, scale, shift, 32,
+                                       1e-5, True)
+    (dx,) = torch.autograd.grad(out, xl, _cl(dy))
+    torch.cuda.synchronize()
+    assert LAUNCHES == _launched(group_norm_fwd=1, group_norm_bwd=1)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 1, "group_norm_bwd": 1}
+    assert is_nhwc(out) and is_nhwc(dx)
+    _, mu, rstd = group_norm_fwd_plain(x, gamma, beta, scale, shift, 32,
+                                       1e-5, True)
+    want = group_norm_bwd_plain(x, dy, gamma, beta, scale, shift, mu, rstd,
+                                32, True, grad_affine=False, grad_film=False)
+    _assert_within_limit(dx, want[0], dtype, "dx")
 
 
 # (B, C_in, C_out, H, W) and the plan a bf16 call takes: the implicit GEMM

@@ -25,7 +25,8 @@ from autodiffusion_tpu.ops.fused_norm import _fwd_impl as jax_fwd_impl
 from autodiffusion_tpu.ops.fused_norm import \
     fused_group_norm as jax_fused_group_norm
 from autodiffusion_tpu_torch.models import nn as port_nn
-from autodiffusion_tpu_torch.ops import LAUNCHES, reset_launch_counts
+from autodiffusion_tpu_torch.ops import (LAUNCHES, NHWC_LAUNCHES, is_nhwc,
+                                        reset_launch_counts)
 from autodiffusion_tpu_torch.ops.fused_norm import (
     FusedGroupNormFunction, fused_group_norm, fused_norm_available,
     group_norm_bwd, group_norm_bwd_plain, group_norm_fwd,
@@ -356,3 +357,104 @@ def test_wrappers_reject_bad_inputs():
                        32, 1e-5, True)
     with pytest.raises(ValueError):
         fused_group_norm(x, g, g, act="relu")
+
+
+# (B, C, H, W), groups: C / G of 4 (the ADM classifier's 64 x 64 level), 6
+# (the ADM UNet's), 8 (LSUN-256's top level), 12, 32 and 42 (the ADM UNet's
+# 1344-channel skip concatenation)
+NHWC_CASES = [((2, 128, 4, 4), 32), ((2, 192, 4, 4), 32), ((2, 256, 3, 3), 32),
+              ((2, 384, 2, 3), 32), ((2, 1024, 2, 2), 32),
+              ((2, 1344, 2, 2), 32)]
+
+
+def _nhwc_inputs(shape, seed, film):
+    b, c = shape[:2]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(*shape, generator=gen) * 1.5 + 0.3
+    gamma = 1.0 + 0.2 * torch.randn(c, generator=gen)
+    beta = 0.1 * torch.randn(c, generator=gen)
+    scale = shift = None
+    if film:
+        scale, shift = (0.3 * torch.randn(b, c, generator=gen)
+                        for _ in range(2))
+    dy = torch.randn(*shape, generator=gen)
+    return x, gamma, beta, scale, shift, dy
+
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("shape,groups", NHWC_CASES)
+@pytest.mark.parametrize("film,silu", [(True, True), (True, False),
+                                       (False, True)])
+@pytest.mark.parametrize("grads", ["dx", "all"])
+def test_nhwc_route_gives_the_nchw_result_channels_last(shape, groups, film,
+                                                        silu, grads):
+    """On a channels-last input the wrappers take the NHWC route (counted
+    in NHWC_LAUNCHES, not in LAUNCHES on the CPU), give the NCHW call's
+    values and return y and dx channels-last."""
+    x, gamma, beta, scale, shift, dy = _nhwc_inputs(shape, 21, film)
+    flags = dict(grad_affine=grads == "all", grad_film=grads == "all")
+    y0, mu0, rstd0 = group_norm_fwd(x, gamma, beta, scale, shift, groups,
+                                    1e-5, silu)
+    want = group_norm_bwd(x, dy, gamma, beta, scale, shift, mu0, rstd0,
+                          groups, silu, **flags)
+    reset_launch_counts()
+    y, mu, rstd = group_norm_fwd(_cl(x), gamma, beta, scale, shift, groups,
+                                 1e-5, silu)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 1, "group_norm_bwd": 0}
+    got = group_norm_bwd(_cl(x), _cl(dy), gamma, beta, scale, shift, mu,
+                         rstd, groups, silu, **flags)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 1, "group_norm_bwd": 1}
+    assert set(LAUNCHES.values()) == {0}
+    assert is_nhwc(y) and is_nhwc(got[0])
+    assert torch.equal(y, y0) and torch.equal(mu, mu0) \
+        and torch.equal(rstd, rstd0)
+    torch.testing.assert_close(got[0], want[0], atol=TOL, rtol=TOL)
+    for a, b_ in zip(got[1:], want[1:]):
+        if grads == "dx":
+            assert a is None and b_ is None
+        else:
+            torch.testing.assert_close(a, b_, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("case", ["hw1", "tokens", "nchw", "c_not_8"])
+def test_nhwc_route_only_for_channels_last_4d(case):
+    """[B, C, 1, 1] (NCHW-contiguous too), [B, C, T] and NCHW inputs take
+    the NCHW route; a channels-last input whose channels do not split
+    into 16-byte vectors (C 36) runs the NCHW route and still comes back
+    channels-last."""
+    shape, groups, layout = {
+        "hw1": ((3, 2048, 1, 1), 32, _cl), "tokens": ((2, 64, 9), 32, None),
+        "nchw": ((2, 192, 4, 4), 32, None),
+        "c_not_8": ((2, 36, 4, 4), 12, _cl)}[case]
+    x, gamma, beta, scale, shift, dy = _nhwc_inputs(shape, 22, True)
+    y0 = group_norm_fwd(x, gamma, beta, scale, shift, groups, 1e-5, True)[0]
+    xin = layout(x) if layout else x
+    reset_launch_counts()
+    y, mu, rstd = group_norm_fwd(xin, gamma, beta, scale, shift, groups,
+                                 1e-5, True)
+    dx = group_norm_bwd(xin, dy, gamma, beta, scale, shift, mu, rstd,
+                        groups, True)[0]
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 0, "group_norm_bwd": 0}
+    assert torch.equal(y, y0)
+    assert is_nhwc(y) == is_nhwc(dx) == (case == "c_not_8")
+
+
+def test_nhwc_autograd_keeps_the_layout():
+    """FusedGroupNormFunction on a channels-last input: the output and
+    x's gradient channels-last, both equal to the NCHW call's."""
+    x, gamma, beta, scale, shift, dy = _nhwc_inputs((2, 192, 4, 4), 23, True)
+    outs = []
+    for layout in (lambda t: t, _cl):
+        leaves = [layout(x).requires_grad_(True),
+                  *(t.clone().requires_grad_(True)
+                    for t in (gamma, beta, scale, shift))]
+        out = FusedGroupNormFunction.apply(*leaves, 32, 1e-5, True)
+        outs.append((out, torch.autograd.grad(out, leaves, layout(dy))))
+    (o0, g0), (o1, g1) = outs
+    assert is_nhwc(o1) and is_nhwc(g1[0]) and not is_nhwc(g0[0])
+    torch.testing.assert_close(o1, o0, atol=0, rtol=0)
+    for a, b_ in zip(g1, g0):
+        torch.testing.assert_close(a, b_, atol=TOL, rtol=TOL)

@@ -24,17 +24,23 @@ from autodiffusion_tpu.models import EncoderUNetModel as JaxEncoder
 from autodiffusion_tpu.models import UNetModel as JaxUNet
 from autodiffusion_tpu.models.convert import convert_classifier, convert_unet
 from autodiffusion_tpu_torch.models import (ClassifierConfig, ModelConfig,
-                                            create_classifier, create_model)
+                                            SDUNetModel, create_classifier,
+                                            create_model, random_init_)
 from autodiffusion_tpu_torch.models.convert import (
     classifier_state_dict_from_flax, unet_state_dict_from_flax)
+from autodiffusion_tpu_torch.models.nn import GroupNorm32
 from autodiffusion_tpu_torch.models.unet import (AttentionBlock,
                                                  EncoderUNetModel, UNetModel,
                                                  unet_layer_count)
+from autodiffusion_tpu_torch.ops import (NHWC_LAUNCHES, is_nhwc,
+                                         reset_launch_counts)
+from autodiffusion_tpu_torch.samplers import classifier_cond_fn
 from test_torch_package import one_torch_thread  # noqa: F401
 
 # the module (the package re-exports a function of the same name)
 _fa_module = importlib.import_module(
     "autodiffusion_tpu_torch.ops.flash_attention")
+_unet_module = importlib.import_module("autodiffusion_tpu_torch.models.unet")
 
 TOL = 2e-4
 IMG = 16
@@ -344,3 +350,94 @@ def test_fresh_model_zeroes_what_jax_init_zeroes(which):
     assert weights(port_zero) == weights(jax_zero)
     assert port_zero <= jax_zero
     assert weights(port_zero), "no zero-initialised weight"
+
+
+def _norm_layouts(module):
+    """The layout (is_nhwc) of every GroupNorm32 call's input, in call
+    order, and the hooks that record them."""
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, args, out:
+                                     seen.append(is_nhwc(args[0])))
+             for m in module.modules() if isinstance(m, GroupNorm32)]
+    return seen, hooks
+
+
+def _nchw_body(monkeypatch):
+    """The models' entry left NCHW, so that their whole body runs NCHW:
+    the layout the port ran before its models went channels-last."""
+    monkeypatch.setattr(_unet_module, "to_channels_last",
+                        lambda x, dtype: x.to(dtype))
+
+
+@pytest.mark.parametrize("new_order", [True, False])
+def test_unet_body_runs_channels_last(monkeypatch, new_order):
+    """With the fused GroupNorm on (its twins on the CPU), every
+    GroupNorm32 call of a UNet forward takes the NHWC route, the output is
+    NCHW-contiguous, the same for NCHW and channels-last inputs, and
+    equal to the model with its body run NCHW."""
+    monkeypatch.setenv("ADT_FUSED_NORM", "1")
+    pm = _unet_pair(new_order=new_order)[2]
+    x, t, y = (torch.from_numpy(a) for a in _inputs(3))
+    seen, hooks = _norm_layouts(pm)
+    reset_launch_counts()
+    with torch.no_grad():
+        out = pm(x, t, y)
+        out_cl = pm(x.contiguous(memory_format=torch.channels_last), t, y)
+    for h in hooks:
+        h.remove()
+    assert len(seen) > 0 and all(seen)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": len(seen), "group_norm_bwd": 0}
+    assert out.is_contiguous() and out.shape == (2, 6, IMG, IMG)
+    assert torch.equal(out, out_cl)
+    _nchw_body(monkeypatch)
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = pm(x, t, y)
+    assert NHWC_LAUNCHES["group_norm_fwd"] == 0
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_classifier_guidance_runs_channels_last(monkeypatch):
+    """The guidance's classifier forward and input gradient: every
+    GroupNorm32 forward and backward on the NHWC route, the gradient
+    NCHW-contiguous in x's dtype and equal to the NCHW body's."""
+    monkeypatch.setenv("ADT_FUSED_NORM", "1")
+    pm = _classifier_pair()[2]
+    x, t, y = (torch.from_numpy(a) for a in _inputs(4))
+    cond_fn = classifier_cond_fn(pm, y, scale=2.0)
+    seen, hooks = _norm_layouts(pm)
+    reset_launch_counts()
+    grad = cond_fn(x, t)
+    for h in hooks:
+        h.remove()
+    assert len(seen) > 0 and all(seen)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": len(seen),
+                             "group_norm_bwd": len(seen)}
+    assert grad.is_contiguous() and grad.dtype == x.dtype
+    _nchw_body(monkeypatch)
+    reset_launch_counts()
+    ref = cond_fn(x, t)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 0, "group_norm_bwd": 0}
+    torch.testing.assert_close(grad, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_sd_unet_stays_nchw(monkeypatch):
+    """SD's UNet keeps NCHW: none of its GroupNorm32 calls takes the NHWC
+    route."""
+    monkeypatch.setenv("ADT_FUSED_NORM", "1")
+    m = random_init_(SDUNetModel(
+        in_channels=4, model_channels=32, out_channels=4, num_res_blocks=1,
+        attention_ds=(1, 2), channel_mult=(1, 2), num_heads=2,
+        transformer_depth=1, context_dim=16), 1)
+    gen = torch.Generator().manual_seed(5)
+    seen, hooks = _norm_layouts(m)
+    reset_launch_counts()
+    with torch.no_grad():
+        out = m(torch.randn(2, 4, 8, 8, generator=gen),
+                torch.tensor([10.0, 700.0]),
+                torch.randn(2, 5, 16, generator=gen))
+    for h in hooks:
+        h.remove()
+    assert len(seen) > 0 and not any(seen)
+    assert NHWC_LAUNCHES == {"group_norm_fwd": 0, "group_norm_bwd": 0}
+    assert out.is_contiguous()

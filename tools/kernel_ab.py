@@ -754,7 +754,7 @@ def gnb_worker(fn, stream, gen, mode):
             rc = fn(x.data_ptr(), dy.data_ptr(), gamma.data_ptr(),
                     beta.data_ptr(), ptr(sc), ptr(sh), mu.data_ptr(),
                     rstd.data_ptr(), dx.data_ptr(), None, None, None, None,
-                    None, None, 32, c, hw, 32, int(silu), 1, stream)
+                    None, None, 32, c, hw, 32, int(silu), 1, 0, stream)
             if rc:
                 raise RuntimeError(f"launch failed: {rc}")
 
